@@ -1,0 +1,133 @@
+"""The torch port stands alone: it imports neither jax nor the JAX
+package, serves from the card unless asked for the CPU, and raises
+NotImplementedError (naming its ROADMAP item) on every branch of the JAX
+package it does not port yet."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import redis_hnsw_tpu_torch as T
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "redis_hnsw_tpu")
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys; import redis_hnsw_tpu_torch; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _port_sources():
+    root = os.path.join(REPO, "redis_hnsw_tpu_torch")
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_no_jax_imports_in_port_sources():
+    found = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            found += [
+                (path, m) for m in mods if m.split(".")[0] in FORBIDDEN
+            ]
+    assert not found
+
+
+def test_default_device_is_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = T.IndexConfig(dim=4)
+    for make in (
+        lambda: T.HNSW(),
+        lambda: T.HNSW(device="cuda"),
+        lambda: T.HNSWIndex("x", cfg),
+        lambda: T.FlatIndex("x", cfg),
+    ):
+        with pytest.raises(T.HNSWError, match="no CUDA device"):
+            make()
+    assert T.HNSW(device="cpu").device.type == "cpu"
+
+
+def test_not_ported_branches_raise(monkeypatch):
+    import redis_hnsw_tpu_torch.ops.search as S
+
+    c = T.HNSW(device="cpu")
+    c.create_index("g", dim=8, seed=1)
+    c.create_index("f", dim=8, kind="flat")
+    c.create_index("h", dim=64, metric="hamming")
+    q = np.zeros((2, 8), np.float32)
+    for i in range(20):
+        c.add_node("g", f"n{i}", np.full(8, i, np.float32))
+        c.add_node("f", f"n{i}", np.full(8, i, np.float32))
+    c.add_node("h", "b0", np.zeros(2, np.uint32))
+
+    def raises(item, fn):
+        with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
+            fn()
+
+    raises(6, lambda: c.search_batch("g", q, engine="graph"))
+    monkeypatch.setitem(S.SCAN_MAX_ROWS, "euclidean", 64)
+    raises(6, lambda: c.search_batch("g", q))  # auto above the scan cap
+    monkeypatch.undo()
+    raises(7, lambda: c.add_batch("g", ["x"], q[:1]))
+    raises(8, lambda: c.save_index("g", "/nonexistent"))
+    raises(8, lambda: c.restore_index("/nonexistent"))
+    raises(8, lambda: c.index("g").enable_autosave("/nonexistent"))
+    raises(9, lambda: c.search_batch("h", np.zeros((1, 2), np.uint32)))
+    raises(10, lambda: c.search_batch("g", q, engine="scan-approx"))
+    raises(10, lambda: c.search_batch("f", q, engine="scan-approx"))
+    raises(10, lambda: c.search_batch("g", q, recall_target=0.9))
+    raises(12, lambda: c.create_index("s", dim=8, kind="sharded"))
+    for env, value, item, idx in (
+        ("REDIS_HNSW_TPU_SCAN_DTYPE", "bf16", 9, "g"),
+        ("REDIS_HNSW_TPU_SCAN_DTYPE", "int8", 9, "f"),
+        ("REDIS_HNSW_TPU_REPLY", "ids", 11, "g"),
+        ("REDIS_HNSW_TPU_REPLY", "ids-force", 11, "f"),
+    ):
+        monkeypatch.setenv(env, value)
+        raises(item, lambda: c.search_batch(idx, q))
+        monkeypatch.delenv(env)
+    monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", "1")
+    monkeypatch.setenv("REDIS_HNSW_TPU_CERT_ONEPASS", "1")
+    raises(10, lambda: c.search_batch("f", q))
+    monkeypatch.setenv("REDIS_HNSW_TPU_CERT_ONEPASS", "0")
+    assert len(c.search_batch("f", q, k=3)[0]) == 3
+    monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_DTYPE", "f64")
+    with pytest.raises(ValueError, match="SCAN_DTYPE"):
+        c.search_batch("g", q)
+    monkeypatch.delenv("REDIS_HNSW_TPU_SCAN_DTYPE")
+    # the kernel's selection width: k_sel = 4k on the certified tier
+    c.create_index("big", dim=8, kind="flat")
+    c.add_batch("big", [f"b{i}" for i in range(400)],
+                np.random.default_rng(0).standard_normal((400, 8)))
+    assert len(c.search_batch("big", q, k=64)[0]) == 64
+    with pytest.raises(ValueError, match="k <= 256"):
+        c.search_batch("big", q, k=65)
+    monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", "0")
+    assert len(c.search_batch("big", q, k=256)[0]) == 256
+    with pytest.raises(ValueError, match="k <= 256"):
+        c.search_batch("big", q, k=300)

@@ -1,0 +1,129 @@
+"""The scan kernels' plain versions against the JAX package's Pallas
+kernels (run in interpret mode, as tests/test_pallas.py runs them). The
+CUDA kernels against their plain versions: tests/test_torch_cuda.py.
+
+Kernel A (ops/cuda_scan.py) ports pallas_scan.flat_topk_pallas; kernel B
+(ops/cuda_count.py) ports pallas_count.count_gt_eq. On integer-lattice
+data every score is exact in f32, so ids, sims and counts must agree
+BYTE FOR BYTE -- including the lowest-id tie rule under heavy ties. On
+Gaussian data the matmuls round differently: sims agree to 1e-4
+relative and ids wherever neighbouring scores are separated.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from redis_hnsw_tpu.ops.pallas_count import count_gt_eq as jax_count
+from redis_hnsw_tpu.ops.pallas_scan import euclid_bias, flat_topk_pallas
+from redis_hnsw_tpu_torch.ops import cuda_count, cuda_scan
+from redis_hnsw_tpu_torch.ops import distance as TD
+
+
+def make(rng, B, N, dim, lattice, dead=0.2, dup=True):
+    if lattice:
+        q = rng.integers(-3, 4, (B, dim)).astype(np.float32)
+        x = rng.integers(-3, 4, (N, dim)).astype(np.float32)
+    else:
+        q = rng.standard_normal((B, dim)).astype(np.float32)
+        x = rng.standard_normal((N, dim)).astype(np.float32)
+    if dup:
+        x[100:120] = x[0:20]  # exact duplicates: ties at every score
+    live = rng.random(N) >= dead
+    sq = np.einsum("nd,nd->n", x, x).astype(np.float32)
+    qq = np.einsum("bd,bd->b", q, q).astype(np.float32)
+    return q, x, live, sq, qq
+
+
+def torch_operands(q, x, live, sq, qq, device="cpu"):
+    t = [torch.from_numpy(a).to(device) for a in (q, x, sq, qq)]
+    sqm = cuda_scan.euclid_sq_masked(t[2], torch.from_numpy(live).to(device))
+    return t[0], t[1], sqm, t[3]
+
+
+@pytest.mark.parametrize("lattice", [True, False])
+@pytest.mark.parametrize("B,N,k", [(16, 700, 10), (3, 1000, 32), (9, 300, 1)])
+def test_plain_topk_matches_pallas(rng, lattice, B, N, k):
+    q, x, live, sq, qq = make(rng, B, N, 24, lattice)
+    ji, js = flat_topk_pallas(
+        jnp.asarray(q), jnp.asarray(x),
+        euclid_bias(jnp.asarray(sq), jnp.asarray(live)),
+        k=k, metric="euclidean", interpret=True,
+    )
+    ji, js = np.asarray(ji), np.asarray(js)
+    ti, ts = cuda_scan.flat_topk(*torch_operands(q, x, live, sq, qq), k=k)
+    ti, ts = ti.numpy(), ts.numpy()
+    if lattice:
+        assert np.array_equal(ti, ji)
+        assert np.array_equal(ts, js)
+        return
+    np.testing.assert_allclose(ts, js, rtol=1e-4, atol=1e-4)
+    gap = np.abs(np.diff(js, axis=1)) > 1e-3
+    sep = np.ones_like(ji, bool)
+    sep[:, 1:] &= gap
+    sep[:, :-1] &= gap
+    assert np.array_equal(ti[sep], ji[sep])
+
+
+def test_plain_topk_edges(rng, monkeypatch):
+    """Fewer live rows than k (-1/-inf tail), an all-dead table, and
+    chunk-boundary merges (CHUNK_N shrunk) keep the contract."""
+    q, x, live, sq, qq = make(rng, 4, 300, 16, True, dup=False)
+    live[:] = False
+    live[[5, 200, 201]] = True
+    ids, sims = cuda_scan.flat_topk(*torch_operands(q, x, live, sq, qq), k=6)
+    assert (ids[:, 3:] == -1).all() and torch.isinf(sims[:, 3:]).all()
+    assert sorted(ids[0, :3].tolist()) == [5, 200, 201]
+    live[:] = False
+    ids, sims = cuda_scan.flat_topk(*torch_operands(q, x, live, sq, qq), k=6)
+    assert (ids == -1).all() and torch.isinf(sims).all()
+    # chunked merges equal one chunk, ties included
+    q, x, live, sq, qq = make(rng, 8, 1000, 16, True)
+    ops = torch_operands(q, x, live, sq, qq)
+    want = cuda_scan.flat_topk(*ops, k=40)
+    monkeypatch.setattr(cuda_scan, "CHUNK_N", 128)
+    got = cuda_scan.flat_topk(*ops, k=40)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="k <= 256"):
+        cuda_scan.flat_topk(*ops, k=257)
+
+
+@pytest.mark.parametrize("N", [2048, 2048 - 724])
+def test_plain_count_matches_pallas(rng, N):
+    """Kernel B's plain version == pallas_count.count_gt_eq on lattice
+    data: dead-row masking, ties (== fires), a ragged N. Thresholds are
+    real scores of random live rows, plus one -inf lane, where the
+    Pallas kernel's self-padding rows also count as == (the certificate
+    ignores the tie count there), so that lane compares c_gt only."""
+    q, x, live, sq, qq = make(rng, 16, N, 32, True)
+    qt, xt, sqm, qqt = torch_operands(q, x, live, sq, qq)
+    scores = TD.pairwise_neg_sq_l2(qt, xt, sqm, qqt)
+    pick = torch.from_numpy(np.flatnonzero(live)[rng.integers(0, 100, 16)])
+    t = scores[torch.arange(16), pick].contiguous()
+    t[3] = float("-inf")
+    c_gt, c_eq = cuda_count.count_gt_eq(xt, sqm, qt, qqt, t)
+    j_gt, j_eq = jax_count(
+        jnp.asarray(x), jnp.asarray(sqm.numpy()), jnp.asarray(q),
+        jnp.asarray(qq), jnp.asarray(t.numpy()), interpret=True,
+    )
+    assert np.array_equal(c_gt.numpy(), np.asarray(j_gt))
+    fin = np.isfinite(t.numpy())
+    assert np.array_equal(c_eq.numpy()[fin], np.asarray(j_eq)[fin])
+    assert (c_eq.numpy()[fin] >= 1).all()
+    if N % 1024 == 0:
+        assert np.array_equal(c_eq.numpy(), np.asarray(j_eq))
+
+
+def test_plain_select_and_count_agree(rng):
+    """The certificate's premise on the CPU: with t = the k-th selected
+    score, the count pass counts exactly the selected rows above t, and
+    all of them at t unless the tie class straddles k."""
+    for lattice in (True, False):
+        q, x, live, sq, qq = make(rng, 12, 900, 24, lattice)
+        qt, xt, sqm, qqt = torch_operands(q, x, live, sq, qq)
+        ids, sims = cuda_scan.flat_topk(qt, xt, sqm, qqt, k=10)
+        t = sims[:, -1].contiguous()
+        c_gt, c_eq = cuda_count.count_gt_eq(xt, sqm, qt, qqt, t)
+        assert torch.equal(c_gt, (sims > t[:, None]).sum(1, dtype=torch.int32))
+        assert (c_eq >= (sims == t[:, None]).sum(1, dtype=torch.int32)).all()
