@@ -10,11 +10,17 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
 1. holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at ragged edges: bitwise on integer-lattice
    data (every score exact in f32), to a stated tolerance on Gaussian
-   data; times kernel, plain version and a library yardstick;
+   data; times kernel, plain version and a library yardstick. Kernel C
+   (block gather-score) is timed over a SIFT1M-size block table
+   (1,000,064 rows x 32 neighbours x 128 dims, f16 and f32);
 2. ``hnsw-main``: the reference workload -- an HNSW index of 10,000 x 128
    rows (M=16, efcon=200, native host core) served by ``search_batch``
-   on the exact scan tier (kernel A), before and after 100 deletes,
+   on the exact scan tier (kernel A) and on the graph engine (kernel C;
+   the (ef, iters) sweep of bench.py up to recall@10 >= 0.95), before
+   and after 100 deletes, and on the f16 and row-gather frontier tiers,
    checked against a float64 brute-force oracle;
+2b. ``graph-lattice``: a 2,000-row integer-lattice HNSW index whose
+   graph-engine replies on the card must equal the CPU's byte for byte;
 3. ``flat-sift1m``: a flat index of 1,000,000 x 128 rows (the SIFT1M
    shape) served 16,384 queries on the certified-exact tier (kernels A
    and B), checked byte-identical to the exact tier on every query and
@@ -81,6 +87,17 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def timed(fn, reps: int):
+    """(host seconds per call, last result) over ``reps`` calls after
+    one warm-up; each call ends in a host copy, so the clock covers the
+    device work."""
+    out = fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    return (time.perf_counter() - t0) / reps, out
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -250,56 +267,243 @@ def phase_kernels(dev):
     }
 
 
+def block_case(rng, dev, B, E, F, D, N, lattice, dtype, dead_frac=0.0):
+    """Kernel C operands: q [B, D], qn [B], nbrvec [N, F, D] in ``dtype``,
+    nbrsqn [N, F] and candidates [B, E] with ``dead_frac`` of them -1
+    (the beam's spent slots, which the caller clamps and masks)."""
+    from redis_hnsw_tpu_torch.ops import distance as Dm
+
+    if lattice:
+        q = rng.integers(-4, 5, (B, D)).astype(np.float32)
+        x = rng.integers(-4, 5, (N, F, D)).astype(np.float32)
+    else:
+        q = rng.standard_normal((B, D)).astype(np.float32)
+        x = rng.standard_normal((N, F, D)).astype(np.float32)
+    cand = rng.integers(0, N, (B, E)).astype(np.int32)
+    cand[rng.random((B, E)) < dead_frac] = -1
+    qt = torch.from_numpy(q).to(dev)
+    nbrvec = torch.from_numpy(x).to(dev).to(dtype)
+    return (qt, Dm.sqnorms(qt), nbrvec, Dm.sqnorms(nbrvec.float()),
+            torch.from_numpy(cand).to(dev))
+
+
+def compare_block(case, lattice, label):
+    """Kernel C vs its plain version with the beam's mask applied:
+    bitwise on lattice data, within 1e-5 relative on Gaussian data.
+    Returns the max abs difference."""
+    from redis_hnsw_tpu_torch.ops import cuda_gather
+
+    q, qn, nbrvec, nbrsqn, cand = case
+    safe = cand.clamp(min=0)
+    fresh = (cand >= 0).repeat_interleave(nbrvec.shape[1], dim=1)
+    got = torch.where(fresh, cuda_gather.fused_block_score(
+        q, qn, nbrvec, nbrsqn, safe), float("-inf"))
+    want = torch.where(fresh, cuda_gather.plain_block_score(
+        q, qn, nbrvec, nbrsqn, safe), float("-inf"))
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    check(torch.equal(fin, torch.isfinite(got)),
+          f"{label}: kernel C masks other slots than the plain version")
+    err = (got - want)[fin].abs().max().item() if fin.any() else 0.0
+    if lattice:
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"{label}: kernel C sims differ bitwise")
+    else:
+        rel = ((got - want).abs() / want.abs().clamp(min=1.0))[fin]
+        worst = rel.max().item() if rel.numel() else 0.0
+        check(worst <= 1e-5, f"{label}: kernel C off by {worst:.3g} rel")
+    return err
+
+
+def phase_block_score(dev, n=1_000_064, main_n=20_000):
+    """Kernel C: ragged and main-shape checks, then times over a
+    SIFT1M-size block table built by the snapshot's own _build_nbrvec."""
+    from redis_hnsw_tpu_torch.ops import cuda_gather
+    from redis_hnsw_tpu_torch.ops import distance as Dm
+    from redis_hnsw_tpu_torch.ops.snapshot import _build_nbrvec
+
+    rng = np.random.default_rng(SEED + 2)
+    err = 0.0
+    shapes = [("ragged B=3 E=1 F=8 D=24", dict(B=3, E=1, F=8, D=24, N=50)),
+              ("main B=2048 E=16 F=32 D=128",
+               dict(B=2048, E=16, F=32, D=128, N=main_n))]
+    for label, kw in shapes:
+        for dtype in (torch.float32, torch.float16, torch.bfloat16):
+            for lattice in (True, False):
+                tag = (f"{label} {str(dtype)[6:]} "
+                       f"{'lattice' if lattice else 'gaussian'}")
+                case = block_case(rng, dev, lattice=lattice, dtype=dtype,
+                                  dead_frac=0.2, **kw)
+                err = max(err, compare_block(case, lattice, tag))
+                del case
+    log("phase 1: kernel C agrees with its plain version (bitwise on "
+        "lattice data in f32/f16/bf16, 1e-5 relative on Gaussian data)")
+
+    D, F, B, E = 128, 32, 2048, 16
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    vecs = torch.randn((n, D), generator=g, device=dev)
+    sq = Dm.sqnorms(vecs)
+    adj0 = torch.randint(0, n, (n, F), generator=g, device=dev,
+                         dtype=torch.int32)
+    q = torch.randn((B, D), generator=g, device=dev)
+    qn = Dm.sqnorms(q)
+    cand = torch.randint(0, n, (B, E), generator=g, device=dev,
+                         dtype=torch.int32)
+    rows = {}
+    for dtype in (torch.float16, torch.float32):
+        t0 = time.perf_counter()
+        nbrvec, nbrsqn = _build_nbrvec(vecs, sq, adj0, dtype=dtype)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        case = (q, qn, nbrvec, nbrsqn, cand)
+        err = max(err, compare_block(case, False, f"sift1m {dtype}"))
+        ms = sync_ms(lambda: cuda_gather.fused_block_score(*case), 20)
+        plain = sync_ms(lambda: cuda_gather.plain_block_score(*case), 3)
+        nbytes = (B * E * F * D * nbrvec.element_size()   # blocks
+                  + B * E * F * 4 * 2                     # nbrsqn, out
+                  + B * D * 4 + B * 4 + B * E * 4)        # q, qn, cand
+        bound, by = bound_ms(2.0 * B * E * F * D, nbytes)
+        rows[str(dtype)[6:]] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                                    bound_by=by)
+        log(f"phase 1: kernel C over a {tuple(nbrvec.shape)} "
+            f"{str(dtype)[6:]} table ({nbrvec.numel() * nbrvec.element_size()}"
+            f" bytes, built in {build_s:.2f} s): {ms:.4f} ms per launch at "
+            f"B={B} E={E}, bound {bound:.4f} ms ({by}), plain {plain:.3f} ms")
+        del nbrvec, nbrsqn, case
+        torch.cuda.empty_cache()
+    del vecs, sq, adj0
+    torch.cuda.empty_cache()
+    f32, f16 = rows["float32"], rows["float16"]
+    return dict(
+        route="cuda", source="redis_hnsw_tpu_torch/csrc/block_score.cu",
+        replaces="redis_hnsw_tpu/ops/pallas_gather.py:98",
+        max_abs_err=err, ms=f32["ms"], plain_ms=f32["plain_ms"],
+        bound_ms=f32["bound_ms"], bound_by=f32["bound_by"], library_ms=None,
+        ms_f16=f16["ms"], plain_ms_f16=f16["plain_ms"],
+        bound_ms_f16=f16["bound_ms"],
+        shape=dict(B=B, E=E, F=F, D=D, N=n),
+    )
+
+
 # -- phases 2 and 3: the main path ----------------------------------------
+
+def oracle_dists(xs64, live, qs):
+    """float64 squared distances [B, N] of the queries to every row,
+    +inf on deleted rows."""
+    q64 = torch.as_tensor(qs, dtype=torch.float64, device=xs64.device)
+    d = ((q64 * q64).sum(1)[:, None] + (xs64 * xs64).sum(1)[None, :]
+         - 2.0 * q64 @ xs64.t())
+    d[:, torch.from_numpy(~live).to(xs64.device)] = float("inf")
+    return d
+
+
+def reply_check(d, live, row_of, names, sims, k, label):
+    """Each of the first B replies holds k distinct live names, nearest
+    first, whose sims match the float64 distances ``d`` (numpy [B, N])
+    to 1e-5 relative. Returns the rows of those replies [B, k]."""
+    out = np.empty((d.shape[0], k), np.int64)
+    for b in range(d.shape[0]):
+        rows = [row_of.get(n, -1) for n in names[b]]
+        check(len(rows) == k and len(set(rows)) == k and min(rows) >= 0,
+              f"{label}: query {b} reply is not {k} distinct live names")
+        check(all(live[r] for r in rows),
+              f"{label}: query {b} returned a deleted row")
+        check(np.allclose(-d[b, rows], sims[b], rtol=1e-5, atol=1e-5),
+              f"{label}: query {b} sims off the oracle")
+        check((np.diff(sims[b]) <= 0).all(),
+              f"{label}: query {b} not nearest first")
+        out[b] = rows
+    return out
+
 
 def oracle_check(xs64, live, qs, names_of_row, names, sims, k, label):
     """Replies against a float64 brute force over the live rows: each
     reply holds k distinct live names, nearest first, whose distances
     are within the k-th oracle distance (ties allowed) and whose sims
     match the float64 distances to 1e-5 relative."""
-    q64 = torch.as_tensor(qs, dtype=torch.float64, device=xs64.device)
-    d = ((q64 * q64).sum(1)[:, None] + (xs64 * xs64).sum(1)[None, :]
-         - 2.0 * q64 @ xs64.t())
-    d[:, torch.from_numpy(~live).to(xs64.device)] = float("inf")
+    d = oracle_dists(xs64, live, qs)
     kth = torch.topk(d, k, dim=1, largest=False).values[:, -1].cpu().numpy()
     d = d.cpu().numpy()
     row_of = {n: i for i, n in enumerate(names_of_row)}
+    rows = reply_check(d, live, row_of, names, sims, k, label)
     for b in range(len(qs)):
-        rows = [row_of.get(n, -1) for n in names[b]]
-        check(len(set(rows)) == k and min(rows) >= 0,
-              f"{label}: query {b} reply is not {k} distinct live names")
-        check(all(live[r] for r in rows),
-              f"{label}: query {b} returned a deleted row")
-        dist = d[b, rows]
         tol = 1e-5 * max(1.0, abs(kth[b]))
-        check((dist <= kth[b] + tol).all(),
+        check((d[b, rows[b]] <= kth[b] + tol).all(),
               f"{label}: query {b} missed a nearer row")
-        check(np.allclose(-dist, sims[b], rtol=1e-5, atol=1e-5),
-              f"{label}: query {b} sims off the oracle")
-        check((np.diff(sims[b]) <= 0).all(),
-              f"{label}: query {b} not nearest first")
+
+
+# bench.py's (ef, iters) operating-point sweep for the graph engine
+GRAPH_SWEEP = ((256, 16), (256, 20), (256, 24), (320, 24), (400, 28),
+               (512, 36))
+GRAPH_RECALL = 0.95
+
+
+class GraphOracle:
+    """float64 ground truth of one query block for graph replies."""
+
+    def __init__(self, xs64, live, qs, names_of_row, k):
+        d = oracle_dists(xs64, live, qs)
+        self.truth = torch.topk(d, k, dim=1, largest=False).indices.cpu()
+        self.truth = self.truth.numpy()
+        self.d = d.cpu().numpy()
+        self.live = live
+        self.k = k
+        self.row_of = {n: i for i, n in enumerate(names_of_row)}
+
+    def recall(self, names, sims, label):
+        """recall@k of a columnar graph reply, after reply_check."""
+        rows = reply_check(self.d, self.live, self.row_of, names, sims,
+                           self.k, label)
+        hits = sum(len(set(r.tolist()) & set(t.tolist()))
+                   for r, t in zip(rows, self.truth))
+        return hits / rows.size
+
+
+def graph_sweep(client, name, qs, oracle, k, label, start=0):
+    """Walk GRAPH_SWEEP from ``start`` to the first point with
+    recall@k >= GRAPH_RECALL; fails if none reaches it. Returns
+    (index into the sweep, recall, reply)."""
+    seen = []
+    for i in range(start, len(GRAPH_SWEEP)):
+        ef, iters = GRAPH_SWEEP[i]
+        reply = client.search_batch(name, qs, k=k, engine="graph",
+                                    ef_search=ef, iters=iters, expand=16,
+                                    reply="columnar")
+        r = oracle.recall(*reply, f"{label} ef={ef} iters={iters}")
+        seen.append((ef, iters, r))
+        if r >= GRAPH_RECALL:
+            return i, r, reply
+    raise CheckFailed(f"{label}: no sweep point reaches recall@{k} "
+                      f">= {GRAPH_RECALL}: {seen}")
 
 
 def reset_counts():
-    from redis_hnsw_tpu_torch.ops import cuda_count, cuda_scan
+    from redis_hnsw_tpu_torch.ops import cuda_count, cuda_gather, cuda_scan
 
     cuda_scan.flat_topk.launches = 0
     cuda_count.count_gt_eq.launches = 0
+    cuda_gather.fused_block_score.launches = 0
 
 
 def read_counts():
-    from redis_hnsw_tpu_torch.ops import cuda_count, cuda_scan
+    from redis_hnsw_tpu_torch.ops import cuda_count, cuda_gather, cuda_scan
 
     return {"scan_topk": cuda_scan.flat_topk.launches,
-            "count_gt_eq": cuda_count.count_gt_eq.launches}
+            "count_gt_eq": cuda_count.count_gt_eq.launches,
+            "block_score": cuda_gather.fused_block_score.launches}
 
 
-def phase_hnsw(client, dev):
-    n, dim, n_q, k = 10_000, 128, 2048, 10
+def phase_hnsw(client, dev, n=10_000, n_q=2048):
+    from redis_hnsw_tpu_torch.ops import cuda_gather
+
+    dim, k = 128, 10
     rng = np.random.default_rng(SEED)
     data = rng.standard_normal((n, dim)).astype(np.float32)
     qs = rng.standard_normal((n_q, dim)).astype(np.float32)
     names = [f"v{i}" for i in range(n)]
+    xs64 = torch.from_numpy(data).to(dev, torch.float64)
+    live = np.ones(n, bool)
     reset_counts()
     client.create_index("hnsw-main", dim=dim, m=16, ef_construction=200,
                         seed=SEED, backend="native")
@@ -320,30 +524,128 @@ def phase_hnsw(client, dev):
     obj_s = time.perf_counter() - t0
     check([[r.name for r in row] for row in objs] == cnames.tolist(),
           "hnsw-main: object and columnar replies differ")
+    oracle_check(xs64, live, qs, names, cnames, csims, k, "hnsw-main")
+
+    # the graph engine (kernel C) on the same index and queries
+    oracle = GraphOracle(xs64, live, qs, names, k)
+    t0 = time.perf_counter()
+    at, g_recall, _ = graph_sweep(client, "hnsw-main", qs, oracle, k,
+                                  "hnsw-main graph")
+    sweep_s = time.perf_counter() - t0
+    ef, iters = GRAPH_SWEEP[at]
+    gkw = dict(k=k, engine="graph", ef_search=ef, iters=iters, expand=16,
+               reply="columnar")
+    c0 = cuda_gather.fused_block_score.launches
+    graph_s, (gnames, gsims) = timed(
+        lambda: client.search_batch("hnsw-main", qs, **gkw), 3)
+    per_batch = (cuda_gather.fused_block_score.launches - c0) / 4
+    check(per_batch > 0, "hnsw-main: kernel C never launched")
+    g_recall2 = oracle.recall(gnames, gsims, "hnsw-main graph timed")
+    check(g_recall2 == g_recall, "hnsw-main: graph replies not repeatable")
+
     victims = rng.choice(n, 100, replace=False)
     for v in victims:
         client.delete_node("hnsw-main", names[v])
     dnames, dsims = client.search_batch("hnsw-main", qs, k=k,
                                         reply="columnar")
-    counts = read_counts()
-    check(counts["scan_topk"] > 0, "hnsw-main: kernel A never launched")
     dead = {names[v] for v in victims}
     check(not dead & set(dnames.ravel().tolist()),
           "hnsw-main: a deleted name was served")
-    xs64 = torch.from_numpy(data).to(dev, torch.float64)
-    live = np.ones(n, bool)
-    oracle_check(xs64, live, qs, names, cnames, csims, k, "hnsw-main")
     live[victims] = False
     oracle_check(xs64, live, qs, names, dnames, dsims, k,
                  "hnsw-main after deletes")
+    oracle = GraphOracle(xs64, live, qs, names, k)
+    d_at, d_recall, (gdn, _) = graph_sweep(
+        client, "hnsw-main", qs, oracle, k, "hnsw-main graph after deletes")
+    check(not dead & set(gdn.ravel().tolist()),
+          "hnsw-main: the graph engine served a deleted name")
+
+    # the other frontier tiers; a delete rebuilds the snapshot in them
+    tiers = {}
+    for tier in ("f16", "off"):
+        os.environ["REDIS_HNSW_TPU_NBRVEC_DTYPE"] = tier
+        try:
+            extra = int(rng.choice(np.flatnonzero(live)))
+            client.delete_node("hnsw-main", names[extra])
+            live[extra] = False
+            snap = client.index("hnsw-main").device_snapshot()
+            want = None if tier == "off" else torch.float16
+            check((snap.nbrvec is None) == (want is None)
+                  and (want is None or snap.nbrvec.dtype == want),
+                  f"hnsw-main: the {tier} tier was not built")
+            oracle = GraphOracle(xs64, live, qs, names, k)
+            t_at, t_recall, _ = graph_sweep(
+                client, "hnsw-main", qs, oracle, k, f"hnsw-main graph {tier}")
+            t_s, _ = timed(lambda: client.search_batch(
+                "hnsw-main", qs, k=k, engine="graph",
+                ef_search=GRAPH_SWEEP[t_at][0], iters=GRAPH_SWEEP[t_at][1],
+                expand=16, reply="columnar"), 2)
+            tiers[tier] = (GRAPH_SWEEP[t_at], t_recall, n_q / t_s)
+        finally:
+            del os.environ["REDIS_HNSW_TPU_NBRVEC_DTYPE"]
+    counts = read_counts()
+    check(counts["scan_topk"] > 0, "hnsw-main: kernel A never launched")
+    check(counts["block_score"] > 0, "hnsw-main: kernel C never launched")
+    del xs64
     log(f"phase 2: hnsw-main: built {n} rows by add_node in {build_s:.2f} s "
-        f"({n / build_s:.0f} inserts/s); search_batch {n_q} queries k={k}: "
-        f"first call {first_s * 1e3:.1f} ms (snapshot + kernel load), "
+        f"({n / build_s:.0f} inserts/s); scan search_batch {n_q} queries "
+        f"k={k}: first call {first_s * 1e3:.1f} ms (snapshot + kernel load), "
         f"columnar {n_q / col_s:.0f} qps, objects {n_q / obj_s:.0f} qps; "
-        f"launches {counts}; replies match the float64 oracle before and "
-        f"after 100 deletes")
+        f"replies match the float64 oracle before and after 100 deletes")
+    log(f"phase 2: hnsw-main graph engine (expand=16, f32 blocks): sweep "
+        f"{sweep_s:.2f} s, chosen ef={ef} iters={iters} recall@{k}="
+        f"{g_recall:.4f}, columnar {n_q / graph_s:.0f} qps "
+        f"({graph_s * 1e3:.1f} ms per {n_q}-query batch), kernel C "
+        f"{per_batch:.0f} launches per batch; after 100 deletes "
+        f"ef={GRAPH_SWEEP[d_at][0]} iters={GRAPH_SWEEP[d_at][1]} recall@{k}="
+        f"{d_recall:.4f}, no deleted name served; tiers (ef, iters), "
+        f"recall, qps: {tiers}; launches {counts}")
     client.delete_index("hnsw-main")
     return counts
+
+
+def phase_graph_lattice(dev, n=2000, n_q=256, devices=("cuda", "cpu")):
+    """Graph-engine replies on the card (kernel C) against the same
+    index's replies on the CPU (plain versions): byte for byte on
+    integer-lattice data, f32 and f16 blocks, expand 1 and 16, seeds."""
+    import redis_hnsw_tpu_torch as h
+
+    dim = 32
+    rng = np.random.default_rng(SEED + 3)
+    data = rng.integers(-4, 5, (n, dim)).astype(np.float32)
+    qs = rng.integers(-4, 5, (n_q, dim)).astype(np.float32)
+    clients = [h.HNSW(device=d) for d in devices]
+    for c in clients:
+        c.create_index("lat", dim=dim, m=8, ef_construction=64, seed=SEED)
+        for i in range(n):
+            c.add_node("lat", f"l{i}", data[i])
+    reset_counts()
+    checked = 0
+    for j, tier in enumerate(("f32", "f16")):
+        os.environ["REDIS_HNSW_TPU_NBRVEC_DTYPE"] = tier
+        try:
+            for c in clients:  # a mutation rebuilds the tier
+                c.delete_node("lat", f"l{j * 7}")
+            for kw in (dict(expand=1), dict(expand=16),
+                       dict(expand=16, seeds=4), dict(expand=1, seeds=4)):
+                got = [c.search_batch("lat", qs, k=10, engine="graph",
+                                      reply="columnar", **kw)
+                       for c in clients]
+                check(np.array_equal(got[0][0], got[1][0])
+                      and np.array_equal(got[0][1].view(np.int32),
+                                         got[1][1].view(np.int32)),
+                      f"graph-lattice: card and CPU replies differ ({tier}, "
+                      f"{kw})")
+                checked += 1
+        finally:
+            del os.environ["REDIS_HNSW_TPU_NBRVEC_DTYPE"]
+    counts = read_counts()
+    check(counts["block_score"] > 0 and counts["scan_topk"] > 0,
+          f"graph-lattice: a kernel never launched: {counts}")
+    log(f"phase 2b: graph-lattice: {n} x {dim} lattice index, {n_q} "
+        f"queries: card replies equal the CPU's byte for byte in {checked} "
+        f"configurations (f32/f16 blocks, expand 1/16, seeds 0/4); "
+        f"launches {counts}")
 
 
 def phase_flat(client, dev):
@@ -435,8 +737,10 @@ def main() -> int:
     dev = torch.device("cuda")
 
     kernels = phase_kernels(dev)
+    kernels["block_score"] = phase_block_score(dev)
     client = h.HNSW()
     launches = phase_hnsw(client, dev)
+    phase_graph_lattice(dev)
     for name, c in phase_flat(client, dev).items():
         launches[name] += c
     log(card)

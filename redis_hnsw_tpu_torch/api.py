@@ -209,8 +209,9 @@ class HNSW:
     ) -> list[list[SearchResult]]:
         """Batched device search (ops/search.py). ``engine`` routes
         between the exact scan and the graph traversal ("auto" serves
-        the scan below SCAN_MAX_ROWS; the graph engine is not ported
-        yet). ``recall_target`` turns "auto" into a guarantee. Flat
+        the scan up to SCAN_MAX_ROWS padded rows and the graph beam
+        above it; ``ef_search``, ``expand``, ``iters`` and ``seeds`` tune
+        the beam). ``recall_target`` turns "auto" into a guarantee. Flat
         indexes reply with objects, as in the JAX package."""
         idx, lk = self._entry(index)
         with lk:

@@ -810,10 +810,10 @@ class HNSWIndex:
         """Batched device search. See ops/search.py.
 
         ``engine`` routes between the exact scan and the graph
-        traversal; the graph traversal is not ported yet, so "auto"
-        serves the scan up to ops/search.py SCAN_MAX_ROWS and raises
-        above it. ``ef_search``, ``expand``, ``iters`` and ``seeds``
-        tune the graph traversal; the scan ignores them.
+        traversal: "auto" serves the scan up to ops/search.py
+        SCAN_MAX_ROWS padded rows and the graph beam above it.
+        ``ef_search`` (default ef_construction), ``expand``, ``iters``
+        and ``seeds`` tune the graph traversal; the scan ignores them.
         ``recall_target`` makes the "auto" route a guarantee
         (ops/search.py resolve_engine). ``staleness`` > 0 serves from
         the bounded-stale device view (see ``device_snapshot``).

@@ -11,9 +11,18 @@ Two tiers:
   mutation path, where candidate sets are tiny. Unchanged from the JAX
   package.
 * Device (torch) functions on tensors -- matmul-form scoring
-  ``-(|q|^2 + |x|^2 - 2 q.x)`` for the plain scan, the direct-form rescore
-  of the final k, and the ``(-sim, id)`` re-sort. The fused scan kernels
-  live in ops/cuda_scan.py and ops/cuda_count.py.
+  ``-(|q|^2 + |x|^2 - 2 q.x)`` for the plain scan and the graph beam's
+  frontier (row gathers, neighbour blocks, and their int8 forms), the
+  direct-form rescore of the final k, and the ``(-sim, id)`` re-sort.
+  The kernels live in ops/cuda_scan.py, ops/cuda_count.py and
+  ops/cuda_gather.py; :func:`block_neg_sq_l2` is the plain version of the
+  block kernel, and :func:`frontier_neg_sq_l2` of its row form.
+
+Every dot of the frontier scorers sums in the fixed pairwise order of
+:func:`_sum_last`, so a node's score depends only on the query and the
+node, never on where in the tile it sits: the beam's dedup keeps one copy
+of a node only because every re-proposal carries a bit-identical sim.
+The hamming block and row scorers come with ROADMAP queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -106,6 +115,136 @@ def pairwise_neg_sq_l2(
         qq = sqnorms(q)
     dots = torch.mm(q, x.t())
     return dots.mul_(2.0).sub_(qq[:, None]).sub_(x_sqnorm[None, :])
+
+
+def _masked(mask: torch.Tensor, sims: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask, sims, torch.full_like(sims, NEG_INF))
+
+
+def _dots(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """q [B, D] against x [B, ..., D] (any float type, widened to f32):
+    [B, ...] dots summed in the fixed order of :func:`_sum_last`."""
+    qb = q.reshape(q.shape[0], *([1] * (x.dim() - 2)), q.shape[1])
+    return _sum_last(qb * x.float())
+
+
+def frontier_neg_sq_l2(
+    q: torch.Tensor,          # [B, D] f32
+    q_sqnorm: torch.Tensor,   # [B]
+    vecs: torch.Tensor,       # [N, D] full table
+    vecs_sqnorm: torch.Tensor,  # [N]
+    ids: torch.Tensor,        # [B, F] row ids (in range where masked)
+    mask: torch.Tensor,       # [B, F] bool
+) -> torch.Tensor:            # [B, F] sims, -inf where masked
+    """Score a row-gathered frontier tile against its query batch:
+    ``(2 * q.x - |q|^2) - |x|^2``. The hill climb, the entry point and
+    seed scores, and the beam without a block table score through it."""
+    ids = ids.long()
+    sims = (2.0 * _dots(q, vecs[ids])).sub_(q_sqnorm[:, None])
+    return _masked(mask, sims.sub_(vecs_sqnorm[ids]))
+
+
+def block_neg_sq_l2(
+    q: torch.Tensor,          # [B, D] f32
+    q_sqnorm: torch.Tensor,   # [B]
+    nbrvec: torch.Tensor,     # [N, F, D] neighbour blocks (f32/f16/bf16)
+    nbrsqn: torch.Tensor,     # [N, F] f32 neighbour sqnorms
+    cand: torch.Tensor,       # [B, E] parent row ids (in range)
+    mask: torch.Tensor,       # [B, E*F] bool over the flattened frontier
+) -> torch.Tensor:            # [B, E*F]
+    """Frontier scoring through the snapshot's neighbour blocks
+    (``nbrvec[x] = vecs[adj0[x]]``): each candidate's F neighbours are
+    one contiguous [F, D] block, gathered per candidate instead of per
+    row. The plain version of kernel C (ops/cuda_gather.py)."""
+    B, E = cand.shape
+    F = nbrvec.shape[1]
+    cand = cand.long()
+    dots = _dots(q, nbrvec[cand]).reshape(B, E * F)
+    sims = (2.0 * dots).sub_(q_sqnorm[:, None])
+    return _masked(mask, sims.sub_(nbrsqn[cand].reshape(B, E * F)))
+
+
+# 1/127 rounded to f32. The JAX package writes ``amax / 127.0``; XLA
+# compiles a division by a constant into a multiplication by its f32
+# reciprocal, and the port computes what the JAX package's programs do,
+# so int8 scales (and the snapshot's int8 tables) are bit-identical.
+INV127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def quant_scale(x: torch.Tensor) -> torch.Tensor:
+    """Per-row symmetric int8 dequant scale: max|x| / 127 (1 for an
+    all-zero row)."""
+    amax = x.abs().amax(dim=-1)
+    return torch.where(amax > 0, amax * INV127, torch.ones_like(amax)).float()
+
+
+def quantize_query(q: torch.Tensor):
+    """Per-row symmetric int8 quantization of a query batch:
+    (q8 [B, D] int8, scale [B] f32)."""
+    qs = quant_scale(q)
+    q8 = torch.clamp(torch.round(q / qs[:, None]), -127, 127)
+    return q8.to(torch.int8), qs
+
+
+# Largest width whose int8 x int8 dots are exact in f32: every partial
+# sum is an integer of magnitude <= 127^2 * D < 2^24.
+INT8_F32_MAX_DIM = 1040
+
+
+def _int8_dots(q8: torch.Tensor, x8: torch.Tensor) -> torch.Tensor:
+    """Exact int8 dots as f32 (the JAX package's int32 dot, converted):
+    torch has no CUDA int8 einsum, so both sides go to f32, where every
+    partial sum is exact up to INT8_F32_MAX_DIM, or to f64 above it."""
+    wide = torch.float32 if q8.shape[1] <= INT8_F32_MAX_DIM else torch.float64
+    qb = q8.reshape(q8.shape[0], *([1] * (x8.dim() - 2)), q8.shape[1])
+    return (qb.to(wide) * x8.to(wide)).sum(dim=-1).float()
+
+
+def _int8_sims(dots, q_scale, s, q_sqnorm, fn):
+    # the JAX package's order, each product rounded on its own
+    sims = (2.0 * dots) * (q_scale[:, None] * s)
+    return sims.sub_(q_sqnorm[:, None]).sub_(fn)
+
+
+def frontier_int8_neg_sq_l2(
+    q8: torch.Tensor,         # [B, D] int8 (quantize_query)
+    q_scale: torch.Tensor,    # [B] f32
+    q_sqnorm: torch.Tensor,   # [B] f32 (exact)
+    qrows: torch.Tensor,      # [N, D+8] int8: x8 | bytes of (scale, sqn)
+    ids: torch.Tensor,        # [B, F] (in range)
+    mask: torch.Tensor,       # [B, F]
+) -> torch.Tensor:
+    """Quantized row-gathered frontier scoring (the high-D tier):
+    ``2 * qs*s * <q8, x8> - |q|^2 - |x|^2`` with the row's dequant scale
+    and exact sqnorm read from its packed last 8 bytes."""
+    D = q8.shape[1]
+    fv = qrows[ids.long()]                         # [B, F, D+8] int8
+    meta = fv[..., D:].contiguous().view(torch.float32)  # [B, F, 2]
+    dots = _int8_dots(q8, fv[..., :D])
+    sims = _int8_sims(dots, q_scale, meta[..., 0], q_sqnorm, meta[..., 1])
+    return _masked(mask, sims)
+
+
+def block_int8_neg_sq_l2(
+    q8: torch.Tensor,         # [B, D] int8 (quantize_query)
+    q_scale: torch.Tensor,    # [B] f32
+    q_sqnorm: torch.Tensor,   # [B] f32 (exact)
+    nbrvec8: torch.Tensor,    # [N, F, D] int8 neighbour blocks
+    nbrmeta: torch.Tensor,    # [N, 2F] f32: scales[:F] ++ sqnorms[F:]
+    cand: torch.Tensor,       # [B, E] parent row ids (in range)
+    mask: torch.Tensor,       # [B, E*F]
+) -> torch.Tensor:
+    """Blocked + quantized frontier scoring (the int8 block tier): int8
+    neighbour blocks, with each neighbour's (dequant scale, exact
+    sqnorm) in one flat [N, 2F] f32 meta row per parent."""
+    B, E = cand.shape
+    F = nbrvec8.shape[1]
+    cand = cand.long()
+    meta = nbrmeta[cand]                            # [B, E, 2F]
+    s = meta[:, :, :F].reshape(B, E * F)
+    fn = meta[:, :, F:].reshape(B, E * F)
+    dots = _int8_dots(q8, nbrvec8[cand]).reshape(B, E * F)
+    return _masked(mask, _int8_sims(dots, q_scale, s, q_sqnorm, fn))
 
 
 def exact_neg_sq_l2(

@@ -1,22 +1,53 @@
-"""Batched search entry: engine routing, query chunking, reply assembly.
+"""Batched search: the graph beam, engine routing, chunking, replies.
 
-Port of ``redis_hnsw_tpu/ops/search.py`` :: ``resolve_engine`` and
-``search_batch``. The graph-beam traversal of that module (and the auto
-route to it above SCAN_MAX_ROWS) comes with the graph engine, ROADMAP
-queue 1 item 6; until then those routes raise. The scan (ops/scan.py)
-serves everything below SCAN_MAX_ROWS, exactly.
+Port of ``redis_hnsw_tpu/ops/search.py``. Two engines serve
+``search_batch``:
+
+* the exact scan (ops/scan.py) -- ``engine="scan"``, and ``"auto"`` up to
+  SCAN_MAX_ROWS padded rows;
+* the **graph engine** -- ``engine="graph"``, and ``"auto"`` above
+  SCAN_MAX_ROWS: a whole query batch walks the HNSW snapshot together.
+  A vectorized greedy hill climb descends the upper layers
+  (:func:`greedy_descent`), then a fixed-width layer-0 beam
+  (:func:`beam_search`) expands the top ``expand`` unexpanded entries of
+  every lane per step, scores their neighbours in one tile and merges
+  by a sort, with no visited set (see :func:`beam_search`).
+
+The JAX package runs both loops as ``lax.while_loop``s inside one jitted
+program; here they are Python loops over torch ops, with one ``.item()``
+sync per step for the loop condition, and the step count is the same.
+
+Frontier scoring follows the snapshot's tier (ops/snapshot.py): the
+f32/f16/bf16 neighbour blocks run kernel C (ops/cuda_gather.py) on the
+card and its plain version ``block_neg_sq_l2`` on the CPU; the int8 block
+tier, the int8 row table (``qrows``) and row gathers run plain torch. On
+the card every row-path score (entry point, seeds, hill climb, row-gather
+frontier) also goes through kernel C, in its row form, so a node's sim is
+the same bits whichever path scored it. The JAX package's opt-in switch
+between two implementations of one function,
+``REDIS_HNSW_TPU_PALLAS_GATHER``, is not read: the block tier always runs
+kernel C on the card.
+
+Not ported yet, and raising: hamming search (ROADMAP queue 1 item 9), the
+scan-approx tier (item 10), the ids-only reply (item 11).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from ..errors import DimensionMismatch
+from . import distance as D
+from .cuda_gather import fused_block_score, fused_row_score
 
 NEG_INF = float("-inf")
+_INF = float("inf")
 
-# Lane cap per device call: larger query sets are served in chunks.
+# Lane cap per device call: per-step tiles scale with the batch, not with
+# the index, so larger query sets are served in chunks of this many.
 MAX_LANES = 2048
 
 # Auto-engine crossover, as in the JAX package: at or below this many
@@ -62,6 +93,386 @@ def not_ported_approx():
     return NotImplementedError(
         "the scan-approx tier is not ported yet (ROADMAP queue 1 item 10)"
     )
+
+
+def not_ported_hamming():
+    return NotImplementedError(
+        "hamming search_batch is not ported yet (ROADMAP queue 1 item 9)"
+    )
+
+
+# ---------------------------------------------------------------------------
+# Scoring helpers.
+# ---------------------------------------------------------------------------
+
+def _score(metric, q, qn, vecs, vn, ids, mask):
+    """Row-gathered scores of ``ids`` [B, J] (in range): kernel C's row
+    form on the card, its plain version on the CPU."""
+    if metric == "hamming":
+        raise not_ported_hamming()
+    if q.device.type == "cpu":
+        return D.frontier_neg_sq_l2(q, qn, vecs, vn, ids, mask)
+    sims = fused_row_score(q, qn, vecs, vn, ids.to(torch.int32))
+    return torch.where(mask, sims, NEG_INF)
+
+
+def _query_sqnorms(metric, q):
+    if metric == "hamming":
+        raise not_ported_hamming()
+    return D.sqnorms(q)
+
+
+def _point_sims(metric, q, qn, vecs, vn, ids):
+    mask = torch.ones((ids.shape[0], 1), dtype=torch.bool, device=q.device)
+    return _score(metric, q, qn, vecs, vn, ids[:, None], mask)[:, 0]
+
+
+def _entry_sims(q, qn, vecs, vn, ids, mask, dtype):
+    """Scores of rows ``ids`` [B, J] with each row narrowed to the block
+    element type ``dtype`` first: an entry point or seed then carries
+    the same bits as its copies in the f16/bf16 neighbour blocks, so the
+    beam's dedup sees one node, not two (the JAX package scores them
+    from the f32 rows; on integer data the two agree exactly)."""
+    B, J = ids.shape
+    safe = ids.clamp(min=0).long()
+    rows = vecs[safe].to(dtype).reshape(B * J, 1, vecs.shape[1])
+    cand = torch.arange(B * J, dtype=torch.int32, device=q.device)
+    sims = fused_block_score(
+        q, qn, rows, vn[safe].reshape(B * J, 1), cand.reshape(B, J)
+    )
+    return torch.where(mask, sims, NEG_INF)
+
+
+# ---------------------------------------------------------------------------
+# Greedy descent over the upper layers (vectorized core.rs:869-874).
+# ---------------------------------------------------------------------------
+
+def hill_climb_layer(
+    metric, q, qn, vecs, vn, adj_l, upper_of, ids, sims, active=None
+):
+    """ef=1 greedy step loop at one upper layer (core.rs:511-520).
+
+    Per step every live lane gathers its current node's neighbour row,
+    scores the [B, degU] tile and moves if the best neighbour improves
+    (the first best on ties). ``active=None`` means all lanes; inactive
+    lanes pass through unchanged."""
+    live = torch.ones_like(ids, dtype=torch.bool) if active is None else active
+    while bool(live.any()):
+        u = upper_of[ids.long()]
+        nbrs = adj_l[u.clamp(min=0).long()]              # [B, degU]
+        valid = (nbrs >= 0) & (u >= 0)[:, None] & live[:, None]
+        nb_safe = nbrs.clamp(min=0)
+        nsims = _score(metric, q, qn, vecs, vn, nb_safe, valid)
+        j = torch.argmax(nsims, dim=1, keepdim=True)
+        bsim = nsims.gather(1, j)[:, 0]
+        bid = nb_safe.gather(1, j)[:, 0]
+        improved = bsim > sims
+        ids = torch.where(improved, bid, ids)
+        sims = torch.where(improved, bsim, sims)
+        live = live & improved
+    return ids, sims
+
+
+def greedy_descent(metric, q, qn, vecs, vn, adj_up, upper_of, ep, max_layer):
+    """Hill-climb from the entry point ``ep`` down layers ``max_layer``
+    .. 1; returns every lane's layer-0 entry (ids [B] int32, sims [B])."""
+    ids = torch.full((q.shape[0],), int(ep), dtype=torch.int32,
+                     device=q.device)
+    sims = _point_sims(metric, q, qn, vecs, vn, ids)
+    for i in range(int(max_layer)):
+        # layer l = max_layer - i is stored at adj_up[l - 1]
+        ids, sims = hill_climb_layer(
+            metric, q, qn, vecs, vn, adj_up[int(max_layer) - 1 - i],
+            upper_of, ids, sims,
+        )
+    return ids, sims
+
+
+# ---------------------------------------------------------------------------
+# Fixed-width beam over one adjacency table (vectorized search_level).
+# ---------------------------------------------------------------------------
+
+# Extra beam slots carried in lazy-dedup mode (see beam_search).
+LAZY_SLACK = 64
+
+
+def _lazy_dedup() -> bool:
+    """Opt-in lazy dedup (REDIS_HNSW_TPU_LAZY_DEDUP=1), as in the JAX
+    package; parity mode (expand=1) always runs eager."""
+    return os.environ.get("REDIS_HNSW_TPU_LAZY_DEDUP", "0") != "0"
+
+
+def _sort_key_pid(key, pid):
+    """Rows sorted ascending by (key, pid), stably -- the JAX package's
+    ``lax.sort((key, pid), num_keys=2, is_stable=True)``. One stable sort
+    of a packed int64: the key's order-preserving bits (``key + 0.0``
+    first, since JAX's sort holds -0.0 equal to +0.0) above ``pid +
+    2^31``. The original keys and pids are gathered in that order, so
+    -0.0 keys keep their bits as they do in JAX."""
+    bits = (key + 0.0).view(torch.int32)
+    bits = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    packed = bits.to(torch.int64) * (1 << 32) + (pid.to(torch.int64) + (1 << 31))
+    order = torch.argsort(packed, dim=1, stable=True)
+    return key.gather(1, order), pid.gather(1, order)
+
+
+def _inf_last(key, pid):
+    """The JAX package's stable sort by ``key`` alone after the dedup
+    marked duplicates +inf: the other keys are still in order, so it is
+    a stable partition that moves every +inf key behind the rest."""
+    order = torch.argsort((key == _INF).to(torch.int32), dim=1, stable=True)
+    return key.gather(1, order), pid.gather(1, order)
+
+
+def beam_search(
+    metric, q, qn, vecs, vn, adj, ep_ids, ep_sims, ef: int,
+    row_map=None, active=None, expand: int = 1, iters: int | None = None,
+    nbrvec=None, nbrsqn=None, qrows=None, seed_ids=None, seed_sims=None,
+):
+    """Run the ef-wide beam for every lane; returns (ids, sims) [B, ef]
+    sorted by descending sim, -1/-inf in empty slots.
+
+    ``adj`` is any [R, F] adjacency table (layer 0 for queries;
+    ``row_map`` maps global ids to its rows, -1 = absent). Lanes where
+    ``active`` is False return their entry point untouched. Per step the
+    top ``expand`` unexpanded entries of every lane are expanded at once
+    (expand=1 is the reference's pop-best order, core.rs:630-668), their
+    [B, expand*F] neighbours scored in one tile, and beam, frontier and
+    expanded-marked copies of the picked entries merged by one stable
+    sort on (-sim, pid). ``iters`` caps the steps (default
+    4*ceil(ef/expand) + 16); the loop also ends when no lane has an
+    unexpanded entry left.
+
+    State: sims [B, wb] f32 and a PACKED int32 ``pid = id << 1 |
+    unexpanded`` (-1 in empty slots; -1 >> 1 == -1). Within a (sim, id)
+    tie class an expanded copy (bit 0) sorts first and survives the
+    adjacent-equal dedup on ``pid >> 1``, so marking an entry expanded is
+    injecting its flagged copy into the merge. No visited set: the
+    beam's worst sim never decreases, so a rejected node cannot
+    re-enter, and re-proposals of members die in the dedup -- which needs
+    every re-proposal of a node to carry bit-identical sims (the
+    scorers are position independent, ops/distance.py, kernel C).
+    Lazy dedup (REDIS_HNSW_TPU_LAZY_DEDUP=1, expand > 1) carries
+    LAZY_SLACK extra slots and leaves dead ones in place for the next
+    merge, skipping the second sort; one cleanup sort runs at the end.
+    """
+    B = q.shape[0]
+    F = adj.shape[1]
+    E = max(1, min(expand, ef))
+    if iters is None:
+        iters = 4 * ((ef + E - 1) // E) + 16
+    lazy = E > 1 and _lazy_dedup()
+    wb = ef + (min(LAZY_SLACK, E * F) if lazy else 0)
+    dev = q.device
+    quant_blocks = nbrvec is not None and nbrvec.dtype == torch.int8
+    if qrows is not None or quant_blocks:
+        q8, qs8 = D.quantize_query(q)  # once per call, reused every step
+
+    # inactive lanes: entry point pre-expanded -> inert for the loop
+    unexp0 = (
+        torch.ones_like(ep_ids) if active is None
+        else active.to(torch.int32)
+    )
+    head_pid = ((ep_ids << 1) | unexp0)[:, None]
+    head_sims = ep_sims[:, None]
+    if seed_ids is not None:
+        # extra unexpanded entry points (an extension; the reference
+        # starts every beam from the descent's entry point, core.rs:876).
+        # Seeds equal to the entry point are dropped.
+        ok = (seed_ids >= 0) & (seed_ids != ep_ids[:, None])
+        head_pid = torch.cat(
+            [head_pid, torch.where(ok, (seed_ids << 1) | 1, -1)], dim=1
+        )
+        head_sims = torch.cat(
+            [head_sims, torch.where(ok, seed_sims, NEG_INF)], dim=1
+        )
+    pad = wb - head_pid.shape[1]
+    beam_pid = torch.cat(
+        [head_pid.to(torch.int32),
+         torch.full((B, pad), -1, dtype=torch.int32, device=dev)], dim=1
+    )
+    beam_sims = torch.cat(
+        [head_sims, torch.full((B, pad), NEG_INF, device=dev)], dim=1
+    )
+    no_dup = torch.zeros((B, 1), dtype=torch.bool, device=dev)
+
+    step = 0
+    while step < iters and bool(
+        (((beam_pid & 1) == 1) & (beam_sims != NEG_INF)).any()
+    ):
+        # top-E unexpanded entries per lane (c.pop() of core.rs:631):
+        # key = -sim, +inf when expanded or empty
+        pick_key = torch.where((beam_pid & 1) == 1, -beam_sims, _INF)
+        k_sorted, pid_sorted = _sort_key_pid(pick_key, beam_pid)
+        k_top = k_sorted[:, :E]
+        picked = k_top != _INF
+        cids = torch.where(picked, pid_sorted[:, :E] >> 1, -1)
+
+        crow = cids if row_map is None else row_map[cids.clamp(min=0).long()]
+        crow = torch.where(cids >= 0, crow, -1)
+        nbrs = adj[crow.clamp(min=0).long()]               # [B, E, F]
+        nbrs = torch.where((crow >= 0)[:, :, None], nbrs, -1).reshape(B, E * F)
+        fresh = nbrs >= 0
+        if nbrvec is not None:
+            csafe = crow.clamp(min=0)
+            if metric == "hamming":
+                raise not_ported_hamming()
+            if quant_blocks:
+                nsims = D.block_int8_neg_sq_l2(
+                    q8, qs8, qn, nbrvec, nbrsqn, csafe, fresh
+                )
+            else:
+                nsims = torch.where(
+                    fresh,
+                    fused_block_score(q, qn, nbrvec, nbrsqn,
+                                      csafe.to(torch.int32)),
+                    NEG_INF,
+                )
+        elif qrows is not None:
+            nsims = D.frontier_int8_neg_sq_l2(
+                q8, qs8, qn, qrows, nbrs.clamp(min=0), fresh
+            )
+        else:
+            nsims = _score(metric, q, qn, vecs, vn, nbrs.clamp(min=0), fresh)
+
+        # merge beam U frontier U expanded-marked copies of the picked
+        # entries, dedup adjacent equal ids, keep the best wb
+        frontier_pid = (nbrs << 1) | 1                     # -1 stays -1
+        copy_pid = torch.where(picked, cids << 1, -2)      # -2 >> 1 == -1
+        copy_key = torch.where(picked, k_top, _INF)
+        k1, p1 = _sort_key_pid(
+            torch.cat([-beam_sims, -nsims, copy_key], dim=1),
+            torch.cat([beam_pid, frontier_pid, copy_pid], dim=1),
+        )
+        ids1 = p1 >> 1
+        dup = torch.cat(
+            [no_dup, (ids1[:, 1:] == ids1[:, :-1]) & (ids1[:, 1:] >= 0)],
+            dim=1,
+        )
+        k1 = torch.where(dup, _INF, k1)
+        p1 = torch.where(dup, -1, p1)
+        if not lazy:
+            k1, p1 = _inf_last(k1, p1)
+        beam_pid = p1[:, :wb]
+        beam_sims = -k1[:, :wb]
+        step += 1
+
+    if lazy:
+        # one cleanup sort compacts the dead slots out before slicing
+        kf, beam_pid = _sort_key_pid(-beam_sims, beam_pid)
+        return beam_pid[:, :ef] >> 1, -kf[:, :ef]
+    return beam_pid >> 1, beam_sims
+
+
+# ---------------------------------------------------------------------------
+# Full pipeline: descent, seeds, beam, exact rescore of the final k.
+# ---------------------------------------------------------------------------
+
+def search_pipeline(
+    vecs, sqn, adj0, adj_up, upper_of, ep, max_layer, queries,
+    *, ef: int, k: int, metric: str, expand: int = 1,
+    iters: int | None = None, nbrvec=None, nbrsqn=None,
+    qrows=None, seed_ids=None,
+):
+    """Descent + beam + direct-form rescore of the final
+    ``min(k, ef)``, re-sorted by ``(-sim, id)``; returns (ids, sims)
+    device tensors [B, min(k, ef)]."""
+    qn = _query_sqnorms(metric, queries)
+    ep_ids, ep_sims = greedy_descent(
+        metric, queries, qn, vecs, sqn, adj_up, upper_of, ep, max_layer
+    )
+    seed_sims = None
+    if seed_ids is not None:
+        # seeds score through the same arithmetic as every other beam
+        # entry, so re-proposals during traversal carry identical sims
+        seed_sims = _score(
+            metric, queries, qn, vecs, sqn, seed_ids.clamp(min=0),
+            seed_ids >= 0,
+        )
+    if nbrvec is not None and nbrvec.dtype in (torch.float16, torch.bfloat16):
+        ep_sims = _entry_sims(
+            queries, qn, vecs, sqn, ep_ids[:, None],
+            torch.ones_like(ep_ids, dtype=torch.bool)[:, None], nbrvec.dtype,
+        )[:, 0]
+        if seed_ids is not None:
+            seed_sims = _entry_sims(
+                queries, qn, vecs, sqn, seed_ids, seed_ids >= 0,
+                nbrvec.dtype,
+            )
+    beam_ids, beam_sims = beam_search(
+        metric, queries, qn, vecs, sqn, adj0, ep_ids, ep_sims, ef,
+        expand=expand, iters=iters, nbrvec=nbrvec, nbrsqn=nbrsqn,
+        qrows=qrows, seed_ids=seed_ids, seed_sims=seed_sims,
+    )
+    k_eff = min(k, ef)
+    k_ids = beam_ids[:, :k_eff]
+    valid = beam_sims[:, :k_eff] != NEG_INF
+    k_sims = D.exact_neg_sq_l2(queries, vecs, k_ids.clamp(min=0).long(), valid)
+    # exact rescoring can reorder near-ties vs the matmul-form beam; the
+    # reply contract is descending by (sim, -id)
+    return D.resort_desc(k_ids, k_sims)
+
+
+# Pivot pool size for seeded search: rows strided over the live id
+# space, refreshed per mutation epoch.
+PIVOT_POOL = 1024
+
+
+def _pivot_pool(index, snap):
+    """Per-epoch cache of (global ids [P] int32, rows [P, D], sqnorms
+    [P]) on the snapshot's device: a strided sample of live rows. Seeded
+    search scans it (kernel A) to give each lane its ``seeds`` closest
+    pivots as extra beam entry points."""
+    cached = getattr(index, "_pivot_cache", None)
+    if cached is not None and cached[0] == index.epoch:
+        return cached[1]
+    h = min(len(index._levels), snap.n_pad)
+    live_rows = np.flatnonzero(index._levels[:h] >= 0)
+    p = min(PIVOT_POOL, len(live_rows))
+    pick = np.unique(
+        live_rows[np.linspace(0, len(live_rows) - 1, p).astype(np.int64)]
+    ).astype(np.int32)
+    ids_dev = torch.from_numpy(pick).to(snap.vecs.device)
+    sel = ids_dev.long()
+    pool = (ids_dev, snap.vecs[sel], snap.sqnorms[sel])
+    index._pivot_cache = (index.epoch, pool)
+    return pool
+
+
+def _seed_ids_for(pool, qd, seeds: int):
+    """Top-``seeds`` pivots per lane as global row ids [B, seeds]."""
+    from .scan import scan_topk
+
+    ids_dev, table, sqn = pool
+    s = min(int(seeds), int(table.shape[0]))
+    live = torch.ones(table.shape[0], dtype=torch.bool, device=table.device)
+    local, _ = scan_topk(table, sqn, live, qd, k=s)
+    return torch.where(local >= 0, ids_dev[local.clamp(min=0).long()], -1)
+
+
+def _run_search(
+    snap, qs, ef: int, k: int, expand: int, iters=None,
+    seeds: int = 0, pool=None,
+):
+    """One beam call over the query block ``qs`` (numpy, or a tensor on
+    the device), padded to a power of two >= 8 lanes; returns the
+    trimmed (ids, sims) numpy reply. The JAX package splits this into
+    an asynchronous dispatch and a fetch for its TPU link; torch queues
+    the work itself and the copy to the host is the fetch."""
+    from .scan import pad_pow2, pad_queries
+
+    n_q = qs.shape[0]
+    qd = pad_queries(qs, pad_pow2(n_q), snap.vecs.device)
+    seed_ids = None
+    if seeds > 0 and ef > 1 and pool is not None:
+        seed_ids = _seed_ids_for(pool, qd, min(seeds, ef - 1))
+    ids, sims = search_pipeline(
+        snap.vecs, snap.sqnorms, snap.adj0, snap.adj_up, snap.upper_of,
+        snap.ep, snap.max_layer, qd, ef=ef, k=int(k), metric=snap.metric,
+        expand=expand, iters=iters, nbrvec=snap.nbrvec, nbrsqn=snap.nbrsqn,
+        qrows=snap.qrows, seed_ids=seed_ids,
+    )
+    return ids[:n_q].cpu().numpy(), sims[:n_q].cpu().numpy()
 
 
 def coerce_queries(queries, dtype, width: int, metric: str):
@@ -143,11 +554,12 @@ def search_batch(
     ``reply="columnar"``, the pair ``(names, sims)`` of [B, k] arrays
     (object / float32; empty slots None / -inf).
 
-    ``engine``: ``"scan"`` -- the exact scan (ops/scan.py); ``"auto"``
-    (default) -- the scan up to SCAN_MAX_ROWS padded rows; above it, and
-    for ``"graph"``, the graph beam, which is not ported yet and raises,
-    as does ``"scan-approx"``. ``ef_search``, ``expand``, ``iters`` and
-    ``seeds`` tune the graph beam; the scan ignores them.
+    ``engine``: ``"scan"`` -- the exact scan (ops/scan.py); ``"graph"``
+    -- the batched HNSW beam (approximate; ``ef_search`` (default
+    ef_construction), ``expand``, ``iters`` and ``seeds`` tune it, the
+    scan ignores them); ``"auto"`` (default) -- the scan up to
+    SCAN_MAX_ROWS padded rows, the graph beam above it.
+    ``"scan-approx"`` is not ported yet and raises.
     ``recall_target`` turns the route into a guarantee (resolve_engine).
     ``staleness`` > 0 serves from the bounded-stale snapshot view (at
     most that many mutation epochs behind; models/hnsw.py
@@ -168,20 +580,15 @@ def search_batch(
     if index.enterpoint < 0 or index.node_count == 0:
         return empty_reply(n_q, k, reply)
     if cfg.metric == "hamming":
-        raise NotImplementedError(
-            "hamming search_batch is not ported yet (ROADMAP queue 1 "
-            "item 9)"
-        )
+        raise not_ported_hamming()
     snap = index.device_snapshot(max_staleness=staleness)
     use_scan = engine == "scan" or (
         engine == "auto" and snap.n_pad <= SCAN_MAX_ROWS.get(cfg.metric, 0)
     )
     if not use_scan:
-        raise NotImplementedError(
-            f"the graph engine (engine={engine!r}, {snap.n_pad} padded "
-            "rows) is not ported yet (ROADMAP queue 1 item 6)"
-        )
-    if n_q > MAX_LANES:
+        ids, sims = _graph_batch(index, snap, qs, k, ef_search, expand,
+                                 iters, seeds)
+    elif n_q > MAX_LANES:
         sink = CertRerunSink()
         # one host->device copy for the whole block; the chunks below
         # are then device-side slices
@@ -199,3 +606,28 @@ def search_batch(
     else:
         ids, sims = scan_dispatch(index, qs, k, staleness=staleness)
     return assemble(index._names.names_array(), ids, sims, reply)
+
+
+def _graph_batch(index, snap, qs, k, ef_search, expand, iters, seeds):
+    """The graph engine's (ids, sims) numpy reply for the whole block,
+    served MAX_LANES lanes per call."""
+    from .scan import check_reply_mode, pad_queries
+
+    check_reply_mode()
+    ef = index.config.ef_construction if ef_search is None else int(ef_search)
+    ef = max(ef, 1)
+    pool = _pivot_pool(index, snap) if seeds > 0 else None
+    n_q = qs.shape[0]
+    if n_q <= MAX_LANES:
+        return _run_search(snap, qs, ef, k, expand, iters, seeds=seeds,
+                           pool=pool)
+    # one host->device copy for the whole block; the chunks below are
+    # then device-side slices
+    qd = pad_queries(qs, n_q, index.device)
+    parts = [
+        _run_search(snap, qd[lo : lo + MAX_LANES], ef, k, expand, iters,
+                    seeds=seeds, pool=pool)
+        for lo in range(0, n_q, MAX_LANES)
+    ]
+    return (np.concatenate([p[0] for p in parts]),
+            np.concatenate([p[1] for p in parts]))

@@ -22,9 +22,20 @@ snapshots of one index are byte-equal):
 * ``upper_of [N_pad]`` -- global row -> compact upper slot (-1 if level 0).
 * ``ep``, ``max_layer`` -- entry point and top layer, host ints.
 
-The JAX package's blocked-gather and quantized tiers (``nbrvec``,
-``nbrsqn``, ``qrows``) serve only the graph beam; they come with the graph
-engine (ROADMAP queue 1 item 6).
+The graph beam's frontier tables, chosen per snapshot by the JAX
+package's own tier rule (:func:`_use_quant`, :func:`_nbrvec_dtype`):
+
+* ``nbrvec [N_pad, deg0, D]`` -- every node's neighbour vectors stored
+  contiguously (``nbrvec[x] = vecs[adj0[x]]``), f32, f16 or bf16, with
+  ``nbrsqn [N_pad, deg0]`` their exact f32 sqnorms: the beam scores a
+  candidate's whole neighbourhood from one block (kernel C,
+  ops/cuda_gather.py);
+* the int8 block tier: int8 ``nbrvec`` and ``nbrsqn [N_pad, 2*deg0]``
+  holding each neighbour's (dequant scale, exact sqnorm);
+* ``qrows [N_pad, D+8]`` -- the high-D tier: int8 rows with the f32
+  (scale, sqnorm) pair in their last 8 bytes;
+* none of them (``REDIS_HNSW_TPU_NBRVEC_DTYPE=off`` or over budget): the
+  beam gathers rows.
 
 Refresh strategy: a full rebuild uploads everything. When the padded
 shapes are unchanged, ``build_snapshot(prev=...)`` applies a **dirty-row
@@ -36,9 +47,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
+
+from . import distance as D
 
 
 def _round_up(x: int, m: int) -> int:
@@ -80,6 +94,10 @@ class Snapshot:
     # serving (device_snapshot(max_staleness=...)) masks them dead so a
     # stale view never scores uninitialized vectors.
     live_hw: int = 0
+    # Graph-beam frontier tiers (module docstring); None when absent.
+    nbrvec: torch.Tensor | None = None   # [N_pad, deg0, D]
+    nbrsqn: torch.Tensor | None = None   # [N_pad, deg0] or [N_pad, 2*deg0]
+    qrows: torch.Tensor | None = None    # [N_pad, D+8] int8
 
 
 def _shapes(index):
@@ -148,6 +166,114 @@ def _row_adj(index, rows, lc, deg):
     return out
 
 
+def _phys_block_bytes(n, f, d, itemsize: int) -> int:
+    """Bytes of an [n, f, d] block table as the JAX package budgets them:
+    its TPU tiling pads the minor dim to 128 lanes and the second-minor
+    to the dtype's sublane count. The port keeps that reckoning, so one
+    index gets the same tier in both packages (whether the budget should
+    follow the H100's own layout is an open question in ROADMAP.md)."""
+    sublane = {1: 32, 2: 16, 4: 8}[itemsize]
+    return n * _round_up(f, sublane) * _round_up(d, 128) * itemsize
+
+
+_NBRVEC_FORCED = {
+    "f32": torch.float32, "f16": torch.float16,
+    "bf16": torch.bfloat16, "i8": torch.int8,
+}
+
+
+def _nbrvec_dtype(metric, n_pad, deg0, width):
+    """Element type of the neighbour blocks, or None for row gathers --
+    the JAX package's rule. ``REDIS_HNSW_TPU_NBRVEC_DTYPE`` forces one
+    (f32, f16, bf16, i8, off); otherwise the widest type whose table fits
+    ``REDIS_HNSW_TPU_NBRVEC_BYTES`` (default 9 GiB, tile-padded bytes):
+    f32, then f16, then int8 blocks plus their [N, 2F] f32 meta. Hamming
+    blocks are the packed words themselves (int32 here)."""
+    forced = os.environ.get("REDIS_HNSW_TPU_NBRVEC_DTYPE")
+    if forced:
+        if forced == "off":
+            return None
+        if metric == "hamming":
+            return torch.int32
+        return _NBRVEC_FORCED[forced]
+    budget = int(os.environ.get("REDIS_HNSW_TPU_NBRVEC_BYTES", 9 * 2**30))
+    if metric == "hamming":
+        phys = _phys_block_bytes(n_pad, deg0, width, 4)
+        return torch.int32 if phys <= budget else None
+    if _phys_block_bytes(n_pad, deg0, width, 4) <= budget:
+        return torch.float32
+    if _phys_block_bytes(n_pad, deg0, width, 2) <= budget:
+        # f16, not bf16: within dense clusters neighbour-sim gaps are
+        # smaller than bf16's 8-bit-mantissa error on large sims
+        return torch.float16
+    if (
+        _phys_block_bytes(n_pad, deg0, width, 1)
+        + n_pad * _round_up(2 * deg0, 128) * 4  # [N, 2F] f32 meta
+        <= budget
+    ):
+        return torch.int8
+    return None
+
+
+# Above this row width the euclidean snapshot carries the int8 row table
+# (qrows) for beam routing instead of blocks. REDIS_HNSW_TPU_QUANT=0
+# disables; =1 forces at any width.
+QUANT_MIN_DIM = 512
+
+
+def _use_quant(metric: str, width: int) -> bool:
+    flag = os.environ.get("REDIS_HNSW_TPU_QUANT")
+    if flag == "0" or metric != "euclidean":
+        return False
+    return flag == "1" or width >= QUANT_MIN_DIM
+
+
+def _quantize_split(vecs: torch.Tensor):
+    """Per-row symmetric int8 quantization: (x8, scale) as separate
+    tensors (the int8 block tier keeps the scales in ``nbrsqn``)."""
+    scale = D.quant_scale(vecs)
+    x8 = torch.clamp(torch.round(vecs / scale[..., None]), -127, 127)
+    return x8.to(torch.int8), scale
+
+
+def _quantize_rows(vecs: torch.Tensor, sq: torch.Tensor) -> torch.Tensor:
+    """Per-row int8 quantization packed as [..., D+8] int8: the x8
+    columns, then the bytes of the f32 (dequant scale, exact sqnorm)
+    pair, so one row gather carries vector and scalars."""
+    x8, scale = _quantize_split(vecs)
+    meta = torch.stack([scale, sq.float()], dim=-1).contiguous()
+    return torch.cat([x8, meta.view(torch.int8)], dim=-1)
+
+
+def _narrow_rows(vecs: torch.Tensor, dtype) -> torch.Tensor:
+    """The row table in the block element type, narrowed BEFORE the
+    gather (gather-then-narrow would hold a full-width [N, F, D]
+    intermediate: 16 GiB in f32 at 1M rows)."""
+    if dtype == torch.int8:
+        return _quantize_split(vecs)[0]
+    return vecs.to(dtype)
+
+
+def _gather_blocks(rows: torch.Tensor, adj0: torch.Tensor) -> torch.Tensor:
+    return rows[adj0.clamp(min=0).long()]
+
+
+def _gather_meta(vecs, sq, adj0):
+    """[N, 2F] f32 per-neighbour meta of the int8 tier: columns [:F] are
+    dequant scales, [F:] exact sqnorms."""
+    safe = adj0.clamp(min=0).long()
+    return torch.cat([D.quant_scale(vecs)[safe], sq[safe]], dim=1)
+
+
+def _build_nbrvec(vecs, sq, adj0, *, dtype):
+    """(nbrvec, nbrsqn) on the tables' device: one [N*deg0]-row gather
+    from the already-uploaded row table, narrowed first."""
+    blocks = _gather_blocks(_narrow_rows(vecs, dtype), adj0)
+    if dtype == torch.int8:
+        return blocks, _gather_meta(vecs, sq, adj0)
+    return blocks, _gather_blocks(sq, adj0)
+
+
 def _sqnorms_np(index, vec_rows):
     """Row sqnorms on the host (np.einsum, as the JAX package computes
     them), so the table is bit-identical to the JAX snapshot's and a
@@ -183,12 +309,18 @@ def build_snapshot(index, prev: Snapshot | None = None) -> Snapshot:
         l_up = max(l_up, prev.adj_up.shape[0])
         u_pad = max(u_pad, prev.adj_up.shape[1])
         deg_up = max(deg_up, prev.adj_up.shape[2])
+
+    width = index._vectors.shape[1]
+    use_q = _use_quant(cfg.metric, width)
+    nv_dtype = None if use_q else _nbrvec_dtype(cfg.metric, n_pad, deg0, width)
     if (
         prev is not None
         and prev.metric == cfg.metric
         and prev.n_pad == n_pad
         and prev.adj0.shape[1] == deg0
         and tuple(prev.adj_up.shape) == (l_up, u_pad, deg_up)
+        and (None if prev.nbrvec is None else prev.nbrvec.dtype) == nv_dtype
+        and (prev.qrows is not None) == use_q
     ):
         return _delta_snapshot(index, prev)
 
@@ -219,10 +351,18 @@ def build_snapshot(index, prev: Snapshot | None = None) -> Snapshot:
     sq = np.zeros(n_pad, np.float32)
     sq[:n_rows] = _sqnorms_np(index, vecs[:n_rows])
 
+    vecs_d = _to_device(vecs, dev)
+    sq_d = _to_device(sq, dev)
+    adj0_d = _to_device(adj0, dev)
+    nbrvec = nbrsqn = qrows = None
+    if nv_dtype is not None:
+        nbrvec, nbrsqn = _build_nbrvec(vecs_d, sq_d, adj0_d, dtype=nv_dtype)
+    if use_q:
+        qrows = _quantize_rows(vecs_d, sq_d)
     return Snapshot(
-        vecs=_to_device(vecs, dev),
-        sqnorms=_to_device(sq, dev),
-        adj0=_to_device(adj0, dev),
+        vecs=vecs_d,
+        sqnorms=sq_d,
+        adj0=adj0_d,
         adj_up=_to_device(adj_up, dev),
         upper_of=_to_device(upper_of, dev),
         ep=max(int(index.enterpoint), 0),
@@ -230,6 +370,9 @@ def build_snapshot(index, prev: Snapshot | None = None) -> Snapshot:
         metric=cfg.metric,
         n_pad=n_pad,
         live_hw=int(index._names.high_water),
+        nbrvec=nbrvec,
+        nbrsqn=nbrsqn,
+        qrows=qrows,
     )
 
 
@@ -241,16 +384,39 @@ def _apply_delta(prev: Snapshot, vrows, vec_data, sq_data, arows,
 
     Ordering invariant: the freed-slot wipe runs BEFORE the upper-row
     copy (a freed slot reallocated to a dirty row must keep the fresh
-    adjacency)."""
+    adjacency).
+
+    The frontier tiers are refreshed from the UPDATED vecs/sqnorms: the
+    quantized rows of every new vector, and the neighbour blocks of
+    exactly the dirty adjacency rows. That covers every stale block: a
+    block changes only when its row's adjacency does (linking dirties
+    both endpoints), and a freed row is unlinked from every live
+    adjacency by delete repair (dirtying the referrers) before its slot
+    can be reused."""
     dev = prev.vecs.device
     if len(vrows):
         idx = torch.from_numpy(vrows).to(dev)
-        prev.vecs[idx] = _to_device(vec_data, dev)
-        prev.sqnorms[idx] = _to_device(sq_data, dev)
+        vec_d = _to_device(vec_data, dev)
+        sq_d = _to_device(sq_data, dev)
+        prev.vecs[idx] = vec_d
+        prev.sqnorms[idx] = sq_d
+        if prev.qrows is not None:
+            prev.qrows[idx] = _quantize_rows(vec_d, sq_d)
     if len(arows):
         idx = torch.from_numpy(arows.astype(np.int64)).to(dev)
-        prev.adj0[idx] = _to_device(adj0_data, dev)
+        adj_d = _to_device(adj0_data, dev)
+        prev.adj0[idx] = adj_d
         prev.upper_of[idx] = _to_device(upof_vals, dev)
+        if prev.nbrvec is not None:
+            # narrowing is per row, so narrowing the gathered rows
+            # gives the full build's narrow-then-gather bits
+            prev.nbrvec[idx] = _narrow_rows(
+                _gather_blocks(prev.vecs, adj_d), prev.nbrvec.dtype
+            )
+            if prev.nbrvec.dtype == torch.int8:
+                prev.nbrsqn[idx] = _gather_meta(prev.vecs, prev.sqnorms, adj_d)
+            else:
+                prev.nbrsqn[idx] = _gather_blocks(prev.sqnorms, adj_d)
     flat_up = prev.adj_up.view(-1, prev.adj_up.shape[2])
     if len(wipe_flat):
         flat_up[torch.from_numpy(wipe_flat).to(dev)] = -1

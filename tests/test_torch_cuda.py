@@ -7,8 +7,8 @@ conftest (which imports jax) left out:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 chip_smoke.py covers the main path's full shapes; these are the ragged
-edges and an end-to-end search on the card against the same search on
-the CPU.
+edges and end-to-end searches (scan and graph engines) on the card
+against the same searches on the CPU.
 """
 
 import numpy as np
@@ -16,7 +16,7 @@ import pytest
 import torch
 
 import redis_hnsw_tpu_torch as T
-from redis_hnsw_tpu_torch.ops import cuda_count, cuda_scan
+from redis_hnsw_tpu_torch.ops import cuda_count, cuda_gather, cuda_scan
 from redis_hnsw_tpu_torch.ops import distance as TD
 
 pytestmark = pytest.mark.cuda
@@ -90,6 +90,94 @@ def test_search_on_card_matches_cpu(card, monkeypatch):
         cert = idx.search_batch(qs, 10, reply="columnar")
         monkeypatch.delenv("REDIS_HNSW_TPU_SCAN_CERT")
         out[dev] = (exact, cert)
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert np.array_equal(a[0], b[0])
+        assert np.array_equal(a[1].view(np.int32), b[1].view(np.int32))
+
+
+BLOCK_DTYPES = [torch.float32, torch.float16, torch.bfloat16]
+
+
+def block_operands(rng, B, E, F, dim, N, lattice, dtype, device):
+    if lattice:
+        q = rng.integers(-4, 5, (B, dim)).astype(np.float32)
+        x = rng.integers(-4, 5, (N, F, dim)).astype(np.float32)
+    else:
+        q = rng.standard_normal((B, dim)).astype(np.float32)
+        x = rng.standard_normal((N, F, dim)).astype(np.float32)
+    nbrvec = torch.from_numpy(x).to(device).to(dtype)
+    nbrsqn = TD.sqnorms(nbrvec.float())
+    cand = torch.from_numpy(rng.integers(0, N, (B, E)).astype(np.int32))
+    qt = torch.from_numpy(q).to(device)
+    return qt, TD.sqnorms(qt), nbrvec, nbrsqn, cand.to(device)
+
+
+@pytest.mark.parametrize("dtype", BLOCK_DTYPES)
+@pytest.mark.parametrize(
+    "B,E,F,dim",
+    [(3, 1, 8, 24), (5, 7, 32, 128), (2, 300, 1, 33), (64, 16, 24, 40),
+     (1, 9, 256, 8)],
+)
+def test_block_score_bitwise_on_lattice(card, dtype, B, E, F, dim):
+    """Kernel C against its plain version: bitwise on lattice data at
+    ragged shapes (row form F=1, unaligned widths, the largest F)."""
+    rng = np.random.default_rng(B * E + F)
+    ops = block_operands(rng, B, E, F, dim, 50, True, dtype, card)
+    before = cuda_gather.fused_block_score.launches
+    got = cuda_gather.fused_block_score(*ops)
+    want = cuda_gather.plain_block_score(*ops)
+    torch.cuda.synchronize()
+    assert cuda_gather.fused_block_score.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", BLOCK_DTYPES)
+def test_block_score_gaussian_and_errors(card, dtype):
+    rng = np.random.default_rng(5)
+    ops = block_operands(rng, 33, 16, 32, 128, 400, False, dtype, card)
+    got = cuda_gather.fused_block_score(*ops)
+    want = cuda_gather.plain_block_score(*ops)
+    rel = (got - want).abs() / want.abs().clamp(min=1.0)
+    assert rel.max().item() <= 1e-5
+    q, qn, nbrvec, nbrsqn, cand = ops
+    with pytest.raises(TypeError):
+        cuda_gather.fused_block_score(q, qn, nbrvec.to(torch.int8), nbrsqn,
+                                      cand)
+    with pytest.raises(TypeError):
+        cuda_gather.fused_block_score(q, qn, nbrvec, nbrsqn, cand.long())
+
+
+@pytest.mark.parametrize("tier", ["f32", "f16"])
+def test_graph_on_card_matches_cpu(card, monkeypatch, tier):
+    """The graph engine on the card (kernel C) gives the CPU's replies,
+    byte for byte, on a lattice index."""
+    from redis_hnsw_tpu_torch.ops import search as TS
+
+    monkeypatch.setenv("REDIS_HNSW_TPU_NBRVEC_DTYPE", tier)
+    rng = np.random.default_rng(7)
+    data = rng.integers(-4, 5, (1200, 32)).astype(np.float32)
+    qs = rng.integers(-4, 5, (70, 32)).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        c = T.HNSW(device=dev)
+        c.create_index("g", dim=32, m=8, ef_construction=64, seed=3)
+        for i in range(1200):
+            c.add_node("g", f"n{i}", data[i])
+        for i in range(0, 1200, 13):
+            c.delete_node("g", f"n{i}")
+        before = cuda_gather.fused_block_score.launches
+        out[dev] = [
+            c.search_batch("g", qs, 10, engine="graph", reply="columnar",
+                           **kw)
+            for kw in (dict(), dict(expand=16, seeds=4),
+                       dict(expand=4, ef_search=20))
+        ]
+        if dev == "cuda":
+            assert cuda_gather.fused_block_score.launches > before
+        monkeypatch.setitem(TS.SCAN_MAX_ROWS, "euclidean", 64)
+        out[dev].append(c.search_batch("g", qs, 10, reply="columnar"))
+        monkeypatch.undo()
+        monkeypatch.setenv("REDIS_HNSW_TPU_NBRVEC_DTYPE", tier)
     for a, b in zip(out["cuda"], out["cpu"]):
         assert np.array_equal(a[0], b[0])
         assert np.array_equal(a[1].view(np.int32), b[1].view(np.int32))

@@ -38,6 +38,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "profile_graph.py")
 
 
 def test_no_jax_imports_in_port_sources():
@@ -89,15 +90,13 @@ def test_not_ported_branches_raise(monkeypatch):
         with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
             fn()
 
-    raises(6, lambda: c.search_batch("g", q, engine="graph"))
-    monkeypatch.setitem(S.SCAN_MAX_ROWS, "euclidean", 64)
-    raises(6, lambda: c.search_batch("g", q))  # auto above the scan cap
-    monkeypatch.undo()
     raises(7, lambda: c.add_batch("g", ["x"], q[:1]))
     raises(8, lambda: c.save_index("g", "/nonexistent"))
     raises(8, lambda: c.restore_index("/nonexistent"))
     raises(8, lambda: c.index("g").enable_autosave("/nonexistent"))
     raises(9, lambda: c.search_batch("h", np.zeros((1, 2), np.uint32)))
+    raises(9, lambda: c.search_batch("h", np.zeros((1, 2), np.uint32),
+                                     engine="graph"))
     raises(10, lambda: c.search_batch("g", q, engine="scan-approx"))
     raises(10, lambda: c.search_batch("f", q, engine="scan-approx"))
     raises(10, lambda: c.search_batch("g", q, recall_target=0.9))
@@ -111,6 +110,16 @@ def test_not_ported_branches_raise(monkeypatch):
         monkeypatch.setenv(env, value)
         raises(item, lambda: c.search_batch(idx, q))
         monkeypatch.delenv(env)
+    monkeypatch.setenv("REDIS_HNSW_TPU_REPLY", "ids")
+    raises(11, lambda: c.search_batch("g", q, engine="graph"))
+    monkeypatch.delenv("REDIS_HNSW_TPU_REPLY")
+    # the graph engine is served: engine="graph", and "auto" above the
+    # scan cap
+    assert len(c.search_batch("g", q, k=3, engine="graph")[0]) == 3
+    with monkeypatch.context() as mp:
+        mp.setitem(S.SCAN_MAX_ROWS, "euclidean", 64)
+        assert c.search_batch("g", q, k=3) == c.search_batch(
+            "g", q, k=3, engine="graph")
     monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", "1")
     monkeypatch.setenv("REDIS_HNSW_TPU_CERT_ONEPASS", "1")
     raises(10, lambda: c.search_batch("f", q))
