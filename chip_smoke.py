@@ -9,10 +9,13 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
 0. prints the card's name and power limit and the kernels' build time;
 1. holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at ragged edges: bitwise on integer-lattice
-   data (every score exact in f32), to a stated tolerance on Gaussian
-   data; times kernel, plain version and a library yardstick. Kernel C
-   (block gather-score) is timed over a SIFT1M-size block table
-   (1,000,064 rows x 32 neighbours x 128 dims, f16 and f32);
+   data (every score exact in f32) and on random hamming words, to a
+   stated tolerance on Gaussian data; times kernel, plain version and a
+   library yardstick. Kernel C (block gather-score) is timed over a
+   SIFT1M-size block table (1,000,064 rows x 32 neighbours x 128 dims,
+   f16 and f32); kernel A′ over 1,000,064 x 256-bit rows; kernel D
+   (one-pass bin select) at the flat-sift1m shape, where
+   its best candidate per query must be kernel A's top-1 bit for bit;
 2. ``hnsw-main``: the reference workload -- an HNSW index of 10,000 x 128
    rows (M=16, efcon=200, native host core) served by ``search_batch``
    on the exact scan tier (kernel A) and on the graph engine (kernel C;
@@ -21,10 +24,24 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
    checked against a float64 brute-force oracle;
 2b. ``graph-lattice``: a 2,000-row integer-lattice HNSW index whose
    graph-engine replies on the card must equal the CPU's byte for byte;
+2c. ``hnsw-hamming-256b``: bench.py's config5 -- 10,000 x 256 random
+   bits, M=16, efcon=200 -- served by the exact scan (kernel A′), equal
+   to a numpy brute force byte for byte, and by the graph engine over
+   config5's sweep up to tie-aware recall@10 >= 0.95; then a 2,000-row
+   hamming index whose card replies must equal the CPU's byte for byte;
 3. ``flat-sift1m``: a flat index of 1,000,000 x 128 rows (the SIFT1M
-   shape) served 16,384 queries on the certified-exact tier (kernels A
-   and B), checked byte-identical to the exact tier on every query and
-   against the oracle on a sample.
+   shape) served 16,384 queries on the certified-exact tier's two-pass
+   form (REDIS_HNSW_TPU_CERT_ONEPASS=0, kernels A and B), checked
+   byte-identical to the exact tier on every query and against the
+   oracle on a sample;
+3c. the same index on the certified tier's default, one-pass form
+   (kernel D): byte-identical to the exact tier on every query,
+   certified share >= 0.95;
+3b. ``flat-hamming-sift256``: a flat index of 1,000,000 x 256-bit rows
+   (the shape of ann-benchmarks' sift-256-hamming, seeded random bits)
+   served 16,384 queries on the exact hamming tier (kernel A′), which a
+   hamming table takes at every size, byte-identical to use_pallas=True
+   on every query and to a numpy brute force on a sample.
 
 Every failed check raises, so the script exits non-zero. The last lines
 are the card line, one JSON object of per-kernel numbers, and
@@ -48,7 +65,12 @@ os.environ["REDIS_HNSW_TPU_SCAN_CERT_AUDIT"] = "8"
 import torch  # noqa: E402
 
 PEAK_FP32_FLOPS = 67e12   # H100 SXM, fp32 outside the tensor cores
+PEAK_F16_FLOPS = 989e12   # H100 SXM, fp16 tensor cores, dense
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
+# Population counts per clock per SM at compute capability 9.0 (CUDA C++
+# Programming Guide, arithmetic instruction throughput table); times the
+# SM count and the card's maximum SM clock, read from the card.
+POPC_PER_CLOCK_SM = 16
 SEED = 7
 
 
@@ -89,6 +111,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
 def timed(fn, reps: int):
     """(host seconds per call, last result) over ``reps`` calls after
     one warm-up; each call ends in a host copy, so the clock covers the
@@ -100,10 +131,17 @@ def timed(fn, reps: int):
     return (time.perf_counter() - t0) / reps, out
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound_ms(flops: float, nbytes: float,
+             peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def popc_peak(dev) -> float:
+    """The card's population-count rate, per second."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return POPC_PER_CLOCK_SM * sms * max_sm_clock_hz()
 
 
 # -- phase 1: kernels against their plain versions -------------------------
@@ -265,6 +303,189 @@ def phase_kernels(dev):
             shape=shape,
         ),
     }
+
+
+def word_case(rng, B, N, W, dead_frac, dev):
+    """Kernel A′ operands: random words (high bit included), a
+    distance-0 row and a tie class for query 0, ``dead_frac`` dead rows."""
+    from redis_hnsw_tpu_torch.ops.cuda_scan import hamming_bias
+
+    q = rng.integers(0, 2**32, (B, W), dtype=np.uint32)
+    x = rng.integers(0, 2**32, (N, W), dtype=np.uint32)
+    x[N // 2] = x[N // 3] = q[0]
+    live = rng.random(N) >= dead_frac
+    live[N // 2] = True
+    return (words_on(q, dev), words_on(x, dev),
+            hamming_bias(torch.from_numpy(live).to(dev)))
+
+
+def words_on(a, dev):
+    """uint32 words as the port's int32 tensor on ``dev`` (same bytes)."""
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)
+
+
+def compare_hamming(case, k, label):
+    """Kernel A′ against its plain version, bitwise. Returns the max abs
+    difference."""
+    from redis_hnsw_tpu_torch.ops import cuda_scan
+
+    qt, xt, bias = case
+    ids, sims = cuda_scan.flat_topk_hamming(qt, xt, bias, k=k)
+    pids, psims = cuda_scan.plain_flat_topk_hamming(qt, xt, bias, k=k)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(psims)
+    check(torch.equal(ids, pids), f"{label}: kernel A′ ids differ")
+    check(torch.equal(sims.view(torch.int32), psims.view(torch.int32)),
+          f"{label}: kernel A′ sims differ bitwise")
+    return (sims - psims)[fin].abs().max().item() if fin.any() else 0.0
+
+
+def phase_hamming_kernels(dev):
+    """Kernel A′: bitwise at ragged shapes and at flat-hamming-sift256's
+    (B = 2048, 1,000,064 rows of 8 words, k = 10 and k_sel = 40); times
+    beside the popcount bound and a tensor-core yardstick (torch.mm of
+    the +-1 tables in f16, exact for +-1 values, then torch.topk), which
+    the port never calls."""
+    from redis_hnsw_tpu_torch.ops import cuda_scan
+
+    rng = np.random.default_rng(SEED + 5)
+    err_a = 0.0
+    shapes = [
+        ("W=1 k=1", dict(B=37, N=100_003, W=1), (1, 256)),
+        ("W=3 k=256", dict(B=37, N=100_003, W=3), (256,)),
+        ("W=25 k=1/256", dict(B=130, N=20_011, W=25), (1, 256)),
+        ("flat-hamming-sift256 shape", dict(B=2048, N=1_000_064, W=8),
+         (10, 40)),
+    ]
+    for label, kw, ks in shapes:
+        case = word_case(rng, dead_frac=0.15, dev=dev, **kw)
+        for k in ks:
+            err_a = max(err_a, compare_hamming(case, k, f"{label} k={k}"))
+        log(f"phase 1: {label} {kw}: kernel A′ (k={ks}) agrees bitwise")
+        del case
+    torch.cuda.empty_cache()
+
+    B, N, W, k_sel = 2048, 1_000_064, 8, 40
+    qt, xt, bias = word_case(rng, B, N, W, 0.0, dev)
+    q16 = cuda_scan.pm1_table(qt).half()
+    x16 = cuda_scan.pm1_table(xt).half()
+    times = {
+        "a_ms": sync_ms(lambda: cuda_scan.flat_topk_hamming(
+            qt, xt, bias, k=k_sel), 5),
+        "a10_ms": sync_ms(lambda: cuda_scan.flat_topk_hamming(
+            qt, xt, bias, k=10), 5),
+        "a_plain_ms": sync_ms(lambda: cuda_scan.plain_flat_topk_hamming(
+            qt, xt, bias, k=k_sel), 2),
+        "lib_ms": sync_ms(lambda: torch.topk(torch.mm(q16, x16.t()), k_sel,
+                                             dim=1), 3),
+    }
+    del q16, x16
+    log(f"phase 1: hamming times at B={B} N={N} W={W} (ms): "
+        + json.dumps(times))
+    popc = float(B) * N * W
+    in_bytes = 4.0 * (B * W + N * W + N)
+    peak = popc_peak(dev)
+    a_bound, a_by = bound_ms(popc, in_bytes + 8.0 * B * k_sel, peak)
+    tc_bound, _ = bound_ms(2.0 * B * N * 32 * W, 2.0 * 32 * W * (B + N),
+                           PEAK_F16_FLOPS)
+    log(f"phase 1: hamming bounds: {popc:.4g} popcounts at {peak:.4g}/s "
+        f"-> A′ {a_bound:.4f} ms ({a_by}); the tensor-core yardstick's own "
+        f"bound {tc_bound:.4f} ms")
+    del qt, xt, bias
+    torch.cuda.empty_cache()
+    shape = {"B": B, "N": N, "W": W}
+    return {
+        "scan_topk_hamming": dict(
+            route="cuda", source="redis_hnsw_tpu_torch/csrc/scan_topk.cu",
+            replaces="redis_hnsw_tpu/ops/pallas_scan.py:122",
+            max_abs_err=err_a, ms=times["a_ms"], plain_ms=times["a_plain_ms"],
+            bound_ms=a_bound, bound_by=a_by, library_ms=times["lib_ms"],
+            ms_k10=times["a10_ms"], shape=dict(shape, k=k_sel),
+        ),
+    }
+
+
+def compare_select(case, lattice, label):
+    """Kernel D against its plain version: bitwise on lattice data; on
+    Gaussian data the bin maxima within 1e-5 relative and the best
+    candidate per query equal to kernel A's top-1, score and id, bit for
+    bit. Returns the max abs difference of the bin maxima."""
+    from redis_hnsw_tpu_torch.ops import cuda_scan, cuda_select
+
+    qt, xt, sqm, qq = case
+    sims, ids, m2 = cuda_select.select_bins(xt, sqm, qt, qq)
+    ps, pi, pm2 = cuda_select.plain_select_bins(xt, sqm, qt, qq)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(ps)
+    check(torch.equal(fin, torch.isfinite(sims)),
+          f"{label}: kernel D fills other bins than the plain version")
+    err = (sims - ps)[fin].abs().max().item() if fin.any() else 0.0
+    if lattice:
+        for got, want, what in ((sims, ps, "sims"), (ids, pi, "ids"),
+                                (m2, pm2, "m2")):
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"{label}: kernel D {what} differ bitwise")
+        return err
+    rel = ((sims - ps).abs() / ps.abs().clamp(min=1.0))[fin]
+    check(rel.max().item() <= 1e-5, f"{label}: kernel D bins off plain")
+    best, pos = torch.sort(sims, dim=1, descending=True, stable=True)
+    ti, ts = cuda_scan.flat_topk(qt, xt, sqm, qq, k=1)
+    check(torch.equal(ids.gather(1, pos[:, :1]), ti)
+          and torch.equal(best[:, :1].view(torch.int32),
+                          ts.view(torch.int32)),
+          f"{label}: kernel D's best candidate is not kernel A's top-1")
+    return err
+
+
+def phase_select(dev):
+    """Kernel D: bitwise on lattice data at ragged shapes and at
+    flat-sift1m's (B = 2048, N = 1,000,064, D = 128), its best candidate
+    against kernel A's top-1 on Gaussian data there; times beside the
+    fp32 bound and a yardstick (torch.mm, then a per-bin amax)."""
+    from redis_hnsw_tpu_torch.ops import cuda_select
+
+    rng = np.random.default_rng(SEED + 6)
+    err = 0.0
+    shapes = [("ragged N=1000 B=3 dead", dict(B=3, N=1000, D=128,
+                                              dead_frac=0.3)),
+              ("ragged N=3001 B=70 D=33", dict(B=70, N=3001, D=33,
+                                               dead_frac=0.1)),
+              ("flat-sift1m shape", dict(B=2048, N=1_000_064, D=128,
+                                         dead_frac=0.0001))]
+    for label, kw in shapes:
+        for lattice in (True, False):
+            case = make_case(rng, lattice=lattice, dev=dev, **kw)
+            err = max(err, compare_select(
+                case, lattice, f"{label} {'lattice' if lattice else 'gauss'}"))
+            del case
+    log("phase 1: kernel D agrees with its plain version (bitwise on "
+        "lattice data; on Gaussian data its best candidate is kernel A's "
+        "top-1 bit for bit)")
+    torch.cuda.empty_cache()
+    B, N, D = 2048, 1_000_064, 128
+    qt, xt, sqm, qq = make_case(rng, B, N, D, False, 0.0, dev)
+    nbins = -(-N // cuda_select.BIN_L)
+    times = {
+        "d_ms": sync_ms(lambda: cuda_select.select_bins(xt, sqm, qt, qq), 5),
+        "d_plain_ms": sync_ms(lambda: cuda_select.plain_select_bins(
+            xt, sqm, qt, qq), 2),
+        "lib_ms": sync_ms(lambda: torch.mm(qt, xt.t()).view(
+            B, nbins, cuda_select.BIN_L).amax(dim=2), 3),
+    }
+    log(f"phase 1: kernel D times at B={B} N={N} D={D} (ms): "
+        + json.dumps(times))
+    bound, by = bound_ms(2.0 * B * N * D,
+                         4.0 * (B * D + N * D + N + B) + 8.0 * B * nbins
+                         + 4.0 * B)
+    del qt, xt, sqm, qq
+    torch.cuda.empty_cache()
+    return dict(
+        route="cuda", source="redis_hnsw_tpu_torch/csrc/select_bins.cu",
+        replaces="redis_hnsw_tpu/ops/pallas_select.py:166",
+        max_abs_err=err, ms=times["d_ms"], plain_ms=times["d_plain_ms"],
+        bound_ms=bound, bound_by=by, library_ms=times["lib_ms"],
+        shape={"B": B, "N": N, "D": D},
+    )
 
 
 def block_case(rng, dev, B, E, F, D, N, lattice, dtype, dead_frac=0.0):
@@ -478,20 +699,28 @@ def graph_sweep(client, name, qs, oracle, k, label, start=0):
                       f">= {GRAPH_RECALL}: {seen}")
 
 
-def reset_counts():
-    from redis_hnsw_tpu_torch.ops import cuda_count, cuda_gather, cuda_scan
+def _counters():
+    from redis_hnsw_tpu_torch.ops import (
+        cuda_count,
+        cuda_gather,
+        cuda_scan,
+        cuda_select,
+    )
 
-    cuda_scan.flat_topk.launches = 0
-    cuda_count.count_gt_eq.launches = 0
-    cuda_gather.fused_block_score.launches = 0
+    return {"scan_topk": cuda_scan.flat_topk,
+            "scan_topk_hamming": cuda_scan.flat_topk_hamming,
+            "count_gt_eq": cuda_count.count_gt_eq,
+            "block_score": cuda_gather.fused_block_score,
+            "select_bins": cuda_select.select_bins}
+
+
+def reset_counts():
+    for fn in _counters().values():
+        fn.launches = 0
 
 
 def read_counts():
-    from redis_hnsw_tpu_torch.ops import cuda_count, cuda_gather, cuda_scan
-
-    return {"scan_topk": cuda_scan.flat_topk.launches,
-            "count_gt_eq": cuda_count.count_gt_eq.launches,
-            "block_score": cuda_gather.fused_block_score.launches}
+    return {name: fn.launches for name, fn in _counters().items()}
 
 
 def phase_hnsw(client, dev, n=10_000, n_q=2048):
@@ -663,16 +892,20 @@ def phase_flat(client, dev):
     add_s = time.perf_counter() - t0
     check(S.cert_enabled(1_000_064, dim), "flat-sift1m: certified tier off")
     before = dict(S.CERT_STATS)
-    reset_counts()
-    t0 = time.perf_counter()
-    cnames, csims = idx.search_batch(qs, k, reply="columnar")
-    first_s = time.perf_counter() - t0
-    counts = read_counts()
+    os.environ["REDIS_HNSW_TPU_CERT_ONEPASS"] = "0"  # the two-pass form
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        cnames, csims = idx.search_batch(qs, k, reply="columnar")
+        first_s = time.perf_counter() - t0
+        counts = read_counts()
+        t0 = time.perf_counter()
+        cnames2, csims2 = idx.search_batch(qs, k, reply="columnar")
+        cert_s = time.perf_counter() - t0
+    finally:
+        del os.environ["REDIS_HNSW_TPU_CERT_ONEPASS"]
     check(counts["scan_topk"] > 0 and counts["count_gt_eq"] > 0,
           f"flat-sift1m: a kernel never launched: {counts}")
-    t0 = time.perf_counter()
-    cnames2, csims2 = idx.search_batch(qs, k, reply="columnar")
-    cert_s = time.perf_counter() - t0
     check(np.array_equal(cnames, cnames2)
           and np.array_equal(csims.view(np.int32), csims2.view(np.int32)),
           "flat-sift1m: two certified runs differ")
@@ -703,13 +936,265 @@ def phase_flat(client, dev):
     del xs64
     peak = torch.cuda.max_memory_allocated()
     log(f"phase 3: flat-sift1m: add_batch {n} rows {add_s:.2f} s; "
-        f"search_batch {n_q} queries k={k} certified: first call "
+        f"search_batch {n_q} queries k={k} certified two-pass: first call "
         f"{first_s:.3f} s (table upload), then {n_q / cert_s:.0f} qps; "
         f"exact tier {n_q / exact_s:.0f} qps; certified share {share:.6f}, "
         f"cert stats {stats}; byte-identical to the exact tier on all "
         f"{n_q} queries; launches {counts}; max_memory_allocated "
         f"{peak} bytes")
+    onepass = phase_onepass(idx, qs, k, (enames, esims),
+                            {"certified": n_q / cert_s,
+                             "exact": n_q / exact_s})
     client.delete_index("flat-sift1m")
+    return {name: c + onepass[name] for name, c in counts.items()}
+
+
+def phase_onepass(idx, qs, k, exact_reply, qps):
+    """3c: the certified tier's default, one-pass form (kernel D) on
+    flat-sift1m: byte-identical to the exact tier on every query,
+    certified share >= 0.95 (two of a query's top 10 share one of 7,813
+    bins with probability ~45/7813)."""
+    from redis_hnsw_tpu_torch.ops import scan as S
+
+    check(S.onepass_enabled(), "one-pass: not the certified tier's default")
+    before = dict(S.CERT_STATS)
+    reset_counts()
+    t0 = time.perf_counter()
+    onames, osims = idx.search_batch(qs, k, reply="columnar")
+    first_s = time.perf_counter() - t0
+    counts = read_counts()
+    t0 = time.perf_counter()
+    onames2, osims2 = idx.search_batch(qs, k, reply="columnar")
+    op_s = time.perf_counter() - t0
+    check(counts["select_bins"] > 0 and counts["count_gt_eq"] == 0,
+          f"one-pass: kernel D never launched, or kernel B did: {counts}")
+    enames, esims = exact_reply
+    for names, sims in ((onames, osims), (onames2, osims2)):
+        check(np.array_equal(names, enames)
+              and np.array_equal(sims.view(np.int32), esims.view(np.int32)),
+              "one-pass: replies differ from the exact tier")
+    stats = {key: S.CERT_STATS.get(key, 0) - before.get(key, 0)
+             for key in ("batches", "queries", "fallback_queries",
+                         "audits", "audit_mismatches")}
+    share = 1.0 - stats["fallback_queries"] / stats["queries"]
+    check(share >= 0.95, f"one-pass: certified share {share}")
+    check(stats["audit_mismatches"] == 0, f"one-pass: audit {stats}")
+    log(f"phase 3c: flat-sift1m one-pass (the certified tier's default): "
+        f"{len(qs)} queries byte-identical to the exact tier (two runs); "
+        f"certified share {share:.6f}, cert stats {stats}; first call "
+        f"{len(qs) / first_s:.0f} qps, then {len(qs) / op_s:.0f} qps, beside "
+        f"two-pass certified {qps['certified']:.0f} qps and exact "
+        f"{qps['exact']:.0f} qps; launches {counts}")
+    return counts
+
+
+# -- hamming (phases 2c and 3b) ---------------------------------------------
+
+POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], np.uint8)
+
+
+def hamming_dists(qs, rows_words):
+    """Hamming distances (int64) of queries [B, W] to rows [B, ..., W]
+    of uint32 words, by a byte table (numpy, independent of the port)."""
+    q = qs.reshape(qs.shape[0], *([1] * (rows_words.ndim - 2)), -1)
+    x = np.ascontiguousarray(np.bitwise_xor(q, rows_words))
+    return POPCOUNT8[x.view(np.uint8)].sum(-1, dtype=np.int64)
+
+
+def hamming_oracle(data, qs, k):
+    """numpy brute force: per query the k rows nearest by hamming
+    distance, ties to the lowest row; returns (rows [B, k], sims [B, k]
+    = -distance as f32, -0.0 at distance 0, as the reply carries it)."""
+    n = len(data)
+    rows = np.empty((len(qs), k), np.int64)
+    for lo in range(0, len(qs), 8):
+        key = hamming_dists(qs[lo : lo + 8], data[None]) * n + np.arange(n)
+        part = np.argpartition(key, k - 1, axis=1)[:, :k]
+        rows[lo : lo + 8] = np.take_along_axis(
+            part, np.argsort(np.take_along_axis(key, part, 1), axis=1), 1)
+    return rows, -hamming_dists(qs, data[rows]).astype(np.float32)
+
+
+def hamming_reply_check(rows, sims, names_of_row, names, rsims, label):
+    """Replies equal the oracle's rows and sims byte for byte."""
+    want = np.asarray(names_of_row, object)[rows]
+    check(np.array_equal(names, want),
+          f"{label}: reply names differ from the brute force")
+    check(np.array_equal(rsims.view(np.int32), sims.view(np.int32)),
+          f"{label}: reply sims differ from the brute force")
+
+
+# config5's (ef, iters) sweep (bench.py:464-470)
+HAMMING_SWEEP = ((256, 20), (320, 24), (400, 28), (512, 36))
+
+
+def phase_hnsw_hamming(client, dev, n=10_000, n_q=2048):
+    """2c: hnsw-hamming-256b, bench.py's config5. The scan route (kernel
+    A′) against a numpy brute force byte for byte; the graph engine over
+    config5's sweep until tie-aware recall@10 >= 0.95 (bench.py:143-159:
+    a result counts if its sim reaches the oracle's k-th)."""
+    W, k, name = 8, 10, "hnsw-hamming-256b"
+    rng = np.random.default_rng(SEED + 4)
+    data = rng.integers(0, 2**32, (n, W), dtype=np.uint32)
+    qs = rng.integers(0, 2**32, (n_q, W), dtype=np.uint32)
+    qs[0] = data[17]  # a distance-0 reply
+    names = [f"h{i}" for i in range(n)]
+    reset_counts()
+    client.create_index(name, dim=32 * W, m=16, ef_construction=200,
+                        seed=SEED, metric="hamming", backend="native")
+    t0 = time.perf_counter()
+    for i in range(n):
+        client.add_node(name, names[i], data[i])
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    snames, ssims = client.search_batch(name, qs, k=k, reply="columnar")
+    first_s = time.perf_counter() - t0
+    scan_s, (snames2, ssims2) = timed(
+        lambda: client.search_batch(name, qs, k=k, reply="columnar"), 3)
+    check(np.array_equal(snames, snames2)
+          and np.array_equal(ssims.view(np.int32), ssims2.view(np.int32)),
+          f"{name}: scan replies not repeatable")
+    t0 = time.perf_counter()
+    rows, osims = hamming_oracle(data, qs, k)
+    oracle_s = time.perf_counter() - t0
+    hamming_reply_check(rows, osims, names, snames, ssims, f"{name} scan")
+    kth = osims[:, -1]
+    row_of = {nm: i for i, nm in enumerate(names)}
+    seen = []
+    for ef, iters in HAMMING_SWEEP:
+        gnames, gsims = client.search_batch(
+            name, qs, k=k, engine="graph", ef_search=ef, iters=iters,
+            expand=16, reply="columnar")
+        grows = np.array([[row_of.get(x, -1) for x in row]
+                          for row in gnames.tolist()])
+        distinct = (np.diff(np.sort(grows, axis=1), axis=1) > 0).all()
+        check(distinct and grows.min() >= 0,
+              f"{name} graph: a reply is not {k} distinct names")
+        true = -hamming_dists(qs, data[grows]).astype(np.float32)
+        check(np.array_equal(gsims.view(np.int32), true.view(np.int32))
+              and (np.diff(gsims, axis=1) <= 0).all(),
+              f"{name} graph: sims wrong or not nearest first")
+        recall = float((gsims >= kth[:, None]).sum()) / gsims.size
+        seen.append((ef, iters, recall))
+        if recall >= GRAPH_RECALL:
+            break
+    else:
+        raise CheckFailed(f"{name}: no sweep point reaches tie-aware "
+                          f"recall@{k} >= {GRAPH_RECALL}: {seen}")
+    graph_s, _ = timed(lambda: client.search_batch(
+        name, qs, k=k, engine="graph", ef_search=ef, iters=iters, expand=16,
+        reply="columnar"), 2)
+    counts = read_counts()
+    check(counts["scan_topk_hamming"] > 0,
+          f"{name}: kernel A′ never launched: {counts}")
+    log(f"phase 2c: {name}: built {n} rows by add_node in {build_s:.2f} s "
+        f"({n / build_s:.0f} inserts/s); scan search_batch {n_q} queries "
+        f"k={k}: first call {first_s * 1e3:.1f} ms, then {n_q / scan_s:.0f} "
+        f"qps columnar, byte-identical to a numpy brute force ({oracle_s:.1f}"
+        f" s); graph engine (expand=16) sweep {seen}: chosen ef={ef} "
+        f"iters={iters}, {n_q / graph_s:.0f} qps ({graph_s * 1e3:.1f} ms per "
+        f"batch); launches {counts}")
+    client.delete_index(name)
+    return counts
+
+
+def phase_hamming_lattice(dev, n=2000, n_q=256, devices=("cuda", "cpu")):
+    """2c: a 2,000-row hamming index served on the card and on the CPU:
+    graph replies equal byte for byte with the word blocks (forced with
+    "f32") and with row gathers ("off"), expand 1 and 16, seeds 0 and 4;
+    and the scan's."""
+    import redis_hnsw_tpu_torch as h
+
+    rng = np.random.default_rng(SEED + 7)
+    data = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
+    data[1000:1008] = data[3]  # a tie class
+    qs = rng.integers(0, 2**32, (n_q, 8), dtype=np.uint32)
+    qs[0] = data[3]
+    clients = [h.HNSW(device=d) for d in devices]
+    for c in clients:
+        c.create_index("hl", dim=256, m=8, ef_construction=64, seed=SEED,
+                       metric="hamming")
+        for i in range(n):
+            c.add_node("hl", f"l{i}", data[i])
+    checked = 0
+    for j, tier in enumerate(("f32", "off")):
+        os.environ["REDIS_HNSW_TPU_NBRVEC_DTYPE"] = tier
+        try:
+            for c in clients:  # a mutation rebuilds the tier
+                c.delete_node("hl", f"l{j * 7 + 1}")
+            for kw in (dict(expand=1), dict(expand=16),
+                       dict(expand=16, seeds=4), dict(expand=1, seeds=4),
+                       dict(engine="scan")):
+                kw = dict(dict(engine="graph"), **kw)
+                got = [c.search_batch("hl", qs, k=10, reply="columnar", **kw)
+                       for c in clients]
+                check(np.array_equal(got[0][0], got[1][0])
+                      and np.array_equal(got[0][1].view(np.int32),
+                                         got[1][1].view(np.int32)),
+                      f"hamming-lattice: card and CPU replies differ "
+                      f"({tier}, {kw})")
+                checked += 1
+        finally:
+            del os.environ["REDIS_HNSW_TPU_NBRVEC_DTYPE"]
+    log(f"phase 2c: a {n}-row hamming index, {n_q} queries: card replies "
+        f"equal the CPU's byte for byte in {checked} configurations (word "
+        f"blocks / row gathers, expand 1/16, seeds 0/4, scan)")
+
+
+def phase_flat_hamming(client, dev):
+    """3b: flat-hamming-sift256 -- 1,000,000 x 256-bit rows, the shape of
+    ann-benchmarks' sift-256-hamming (seeded random bits: no download),
+    16,384 queries, k = 10, on the exact hamming tier (kernel A′), which
+    a hamming table takes at every size and with SCAN_CERT=1 too."""
+    from redis_hnsw_tpu_torch.ops import scan as S
+
+    n, W, n_q, k, name = 1_000_000, 8, 16_384, 10, "flat-hamming-sift256"
+    rng = np.random.default_rng(SEED + 8)
+    data = rng.integers(0, 2**32, (n, W), dtype=np.uint32)
+    qs = rng.integers(0, 2**32, (n_q, W), dtype=np.uint32)
+    names = [f"b{i}" for i in range(n)]
+    idx = client.create_index(name, dim=32 * W, kind="flat", metric="hamming")
+    t0 = time.perf_counter()
+    client.add_batch(name, names, data)
+    add_s = time.perf_counter() - t0
+    before = dict(S.CERT_STATS)
+    reset_counts()
+    t0 = time.perf_counter()
+    enames, esims = idx.search_batch(qs, k, reply="columnar")
+    first_s = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["scan_topk_hamming"] > 0,
+          f"{name}: kernel A′ never launched: {counts}")
+    exact_s, (enames2, esims2) = timed(
+        lambda: idx.search_batch(qs, k, reply="columnar"), 1)
+    os.environ["REDIS_HNSW_TPU_SCAN_CERT"] = "1"
+    try:
+        cnames, csims = idx.search_batch(qs, k, reply="columnar")
+    finally:
+        del os.environ["REDIS_HNSW_TPU_SCAN_CERT"]
+    check(S.CERT_STATS == before,
+          f"{name}: a hamming batch took the certified tier")
+    pallas_s, (pnames, psims) = timed(
+        lambda: idx.search_batch(qs, k, reply="columnar", use_pallas=True), 1)
+    for label, (nm, sm) in (("a second run", (enames2, esims2)),
+                            ("SCAN_CERT=1", (cnames, csims)),
+                            ("use_pallas=True", (pnames, psims))):
+        check(np.array_equal(enames, nm)
+              and np.array_equal(esims.view(np.int32), sm.view(np.int32)),
+              f"{name}: replies differ from {label}")
+    sample = np.arange(0, n_q, n_q // 32)
+    t0 = time.perf_counter()
+    rows, osims = hamming_oracle(data, qs[sample], k)
+    oracle_s = time.perf_counter() - t0
+    hamming_reply_check(rows, osims, names, enames[sample], esims[sample],
+                        name)
+    log(f"phase 3b: {name}: add_batch {n} rows {add_s:.2f} s; search_batch "
+        f"{n_q} queries k={k} exact tier: first call {first_s:.3f} s (table "
+        f"upload), then {n_q / exact_s:.0f} qps; use_pallas "
+        f"{n_q / pallas_s:.0f} qps; byte-identical to a second run, to "
+        f"SCAN_CERT=1 and to use_pallas on all {n_q} queries, to a numpy "
+        f"brute force on {len(sample)} ({oracle_s:.1f} s); launches {counts}")
+    client.delete_index(name)
     return counts
 
 
@@ -737,12 +1222,21 @@ def main() -> int:
     dev = torch.device("cuda")
 
     kernels = phase_kernels(dev)
+    kernels.update(phase_hamming_kernels(dev))
     kernels["block_score"] = phase_block_score(dev)
+    kernels["select_bins"] = phase_select(dev)
     client = h.HNSW()
     launches = phase_hnsw(client, dev)
     phase_graph_lattice(dev)
-    for name, c in phase_flat(client, dev).items():
-        launches[name] += c
+    path_counts = [phase_hnsw_hamming(client, dev)]
+    phase_hamming_lattice(dev)
+    path_counts += [phase_flat(client, dev), phase_flat_hamming(client, dev)]
+    for counts in path_counts:
+        for name, c in counts.items():
+            launches[name] += c
+    for name in kernels:
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the main path")
     log(card)
     log(json.dumps({"kernels": [
         dict(name=name, launches=launches[name], **row)

@@ -1,10 +1,13 @@
-// Kernel A: fused exact scan top-k over the whole table.
+// Kernels A and A': fused exact scan top-k over the whole table.
 //
 // Replaces redis_hnsw_tpu/ops/pallas_scan.py::flat_topk_pallas (the
-// pl.pallas_call at :194, _scan_kernel_euclid :88, _merge_topk :50). Per
-// query, the exact top-k rows of the table by score (csrc/score.cuh), best
-// first, ties to the lowest row id, (-inf, -1) in empty slots. Dead rows
-// carry sq = +inf, score -inf, and are never selected.
+// pl.pallas_call at :194, _scan_kernel_euclid :88, _scan_kernel_hamming
+// :122, _merge_topk :50). Per query, the exact top-k rows of the table by
+// score (csrc/score.cuh), best first, ties to the lowest row id, (-inf,
+// -1) in empty slots. Dead rows score -inf (sq = +inf in the euclidean
+// form, bias = -inf in the hamming form) and are never selected. The
+// split and merge kernels are templated on the scorer, so A (euclidean)
+// and A' (hamming) share every line of the selection.
 //
 // The Pallas kernel walks the rows in grid order and carries a running
 // best from one step to the next. Blocks on the H100 run in no order, so:
@@ -23,10 +26,13 @@
 // cores: exact tiers are true fp32), against (B + N)*D*4 bytes read, so
 // the kernel is compute-bound at every serving shape; the selection adds
 // a compare per score and ~k*ln(N/k) insertions per query and split.
+// A' is bound by its B*N*W popcounts (16 per clock per SM) against
+// (B + N)*W*4 bytes, compute-bound too; its selection epilogue is A's.
 // This first version is simple and right: a 4x4 register tile and a
 // shared-memory list; it is not tuned.
 //
-// C interface (ctypes, ops/cuda_scan.py): returns cudaGetLastError().
+// C interface (ctypes, ops/cuda_scan.py): scan_topk_launch (A) and
+// scan_topk_hamming_launch (A'); each returns cudaGetLastError().
 
 #include <climits>
 
@@ -80,21 +86,21 @@ __device__ __forceinline__ void warp_insert(float* ls, int* li, int k,
   __syncwarp();
 }
 
+template <class Scorer>
 __global__ void __launch_bounds__(SCORE_THREADS)
-    topk_split_kernel(const float* __restrict__ Q,
-                      const float* __restrict__ X,
-                      const float* __restrict__ qq,
-                      const float* __restrict__ sq, int B, int N, int D,
-                      int k, int kcap, int rows_per_split,
-                      float* __restrict__ part_s,
+    topk_split_kernel(const Scorer score, int k, int kcap,
+                      int rows_per_split, float* __restrict__ part_s,
                       int* __restrict__ part_i) {
+  using Stage = typename Scorer::Stage;
   extern __shared__ __align__(16) unsigned char smem[];
-  ScoreStage& st = *reinterpret_cast<ScoreStage*>(smem);
+  Stage& st = *reinterpret_cast<Stage*>(smem);
   float(*tile)[TILE_LD] =
-      reinterpret_cast<float(*)[TILE_LD]>(smem + sizeof(ScoreStage));
-  float* ls = reinterpret_cast<float*>(smem + sizeof(ScoreStage) +
+      reinterpret_cast<float(*)[TILE_LD]>(smem + sizeof(Stage));
+  float* ls = reinterpret_cast<float*>(smem + sizeof(Stage) +
                                        sizeof(float) * TILE_Q * TILE_LD);
   int* li = reinterpret_cast<int*>(ls + TILE_Q * kcap);
+  const int B = score.B;
+  const int N = score.N;
 
   const int q0 = blockIdx.x * TILE_Q;
   const int split = blockIdx.y;
@@ -109,13 +115,13 @@ __global__ void __launch_bounds__(SCORE_THREADS)
     ls[e] = -CUDART_INF_F;
     li[e] = INT_MAX;
   }
-  // score_tile's first __syncthreads orders these writes before any read
+  // the scorer's first __syncthreads orders these writes before any read
 
   for (int r0 = r_begin; r0 < r_end; r0 += TILE_R) {
     float s[MICRO][MICRO];
-    // score_tile synchronises the block before it stages, so every
+    // the scorer synchronises the block before it stages, so every
     // warp has finished reading the previous tile when it is rewritten
-    score_tile(Q, X, qq, sq, B, N, D, q0, r0, st, s);
+    score(q0, r0, st, s);
 #pragma unroll
     for (int i = 0; i < MICRO; ++i)
 #pragma unroll
@@ -220,28 +226,30 @@ __global__ void topk_merge_kernel(const float* __restrict__ part_s,
 
 }  // namespace rht
 
-extern "C" int scan_topk_launch(const float* q, const float* x,
-                                const float* qq, const float* sq, int B,
-                                int N, int D, int k, int splits,
-                                float* part_s, int* part_i, float* out_s,
-                                int* out_i, cudaStream_t stream) {
-  using namespace rht;
+namespace rht {
+
+template <class Scorer>
+int launch_topk(const Scorer& score, int k, int splits, float* part_s,
+                int* part_i, float* out_s, int* out_i,
+                cudaStream_t stream) {
+  const int B = score.B;
   if (B <= 0 || k <= 0) return 0;
   if (k > MAX_KCAP || splits < 1 || splits > 32) {
     return (int)cudaErrorInvalidValue;
   }
   const int kcap = ((k + 31) / 32) * 32;
-  const int tiles = (N + TILE_R - 1) / TILE_R;
+  const int tiles = (score.N + TILE_R - 1) / TILE_R;
   const int rows_per_split = ((tiles + splits - 1) / splits) * TILE_R;
-  const size_t smem = sizeof(ScoreStage) + sizeof(float) * TILE_Q * TILE_LD +
+  const size_t smem = sizeof(typename Scorer::Stage) +
+                      sizeof(float) * TILE_Q * TILE_LD +
                       (sizeof(float) + sizeof(int)) * TILE_Q * kcap;
   cudaError_t err = cudaFuncSetAttribute(
-      topk_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      topk_split_kernel<Scorer>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((B + TILE_Q - 1) / TILE_Q, splits);
-  topk_split_kernel<<<grid, SCORE_THREADS, smem, stream>>>(
-      q, x, qq, sq, B, N, D, k, kcap, rows_per_split, part_s, part_i);
+  topk_split_kernel<Scorer><<<grid, SCORE_THREADS, smem, stream>>>(
+      score, k, kcap, rows_per_split, part_s, part_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int warps_per_block = 8;
@@ -249,4 +257,25 @@ extern "C" int scan_topk_launch(const float* q, const float* x,
                       32 * warps_per_block, 0, stream>>>(
       part_s, part_i, B, k, splits, out_s, out_i);
   return (int)cudaGetLastError();
+}
+
+}  // namespace rht
+
+extern "C" int scan_topk_launch(const float* q, const float* x,
+                                const float* qq, const float* sq, int B,
+                                int N, int D, int k, int splits,
+                                float* part_s, int* part_i, float* out_s,
+                                int* out_i, cudaStream_t stream) {
+  return rht::launch_topk(rht::EuclidScorer{q, x, qq, sq, B, N, D}, k,
+                          splits, part_s, part_i, out_s, out_i, stream);
+}
+
+extern "C" int scan_topk_hamming_launch(const int* q, const int* x,
+                                        const float* bias, int B, int N,
+                                        int W, int k, int splits,
+                                        float* part_s, int* part_i,
+                                        float* out_s, int* out_i,
+                                        cudaStream_t stream) {
+  return rht::launch_topk(rht::HammingScorer{q, x, bias, B, N, W}, k,
+                          splits, part_s, part_i, out_s, out_i, stream);
 }

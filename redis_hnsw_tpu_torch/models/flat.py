@@ -1,18 +1,17 @@
 """Flat (brute-force, exact) index.
 
-Port of ``redis_hnsw_tpu/models/flat.py`` (euclidean f32). Not present in
-the reference (which only has the HNSW graph): it is the exact-kNN oracle
-and an index kind of its own -- at up to millions of rows a full scan on
-the card is exact and holds no graph. It serves through the same scan
-engine as the HNSW index (ops/scan.py): the exact tier, or the
-certified-exact tier at >= 2^19 rows. Shares the name table and
-similarity conventions of the HNSW index.
+Port of ``redis_hnsw_tpu/models/flat.py`` (euclidean f32 and hamming).
+Not present in the reference (which only has the HNSW graph): it is the
+exact-kNN oracle and an index kind of its own -- at up to millions of rows
+a full scan on the card is exact and holds no graph. It serves through the
+same scan engine as the HNSW index (ops/scan.py serve_block): the exact
+tier, or for euclidean the certified-exact tier at >= 2^19 rows. Shares
+the name table and similarity conventions of the HNSW index.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..config import IndexConfig, resolve_device
 from ..errors import (
@@ -24,24 +23,6 @@ from ..errors import (
 )
 from ..utils.names import NameTable
 from .hnsw import SearchResult
-
-
-def _dispatch_flat(vecs, sqn, valid, part, *, k: int, cert_sink=None):
-    """Serve one query chunk through the scan (ops/scan.py); returns
-    (ids, sims) numpy. The certified-exact tier where ``cert_enabled``
-    engages (byte-identical to the exact tier), else the exact tier.
-    ``cert_sink`` coalesces certified fallback reruns across the chunk
-    loop (ops/scan.py CertRerunSink)."""
-    from ..ops import scan as SC
-
-    n_q = int(part.shape[0])
-    pd = SC.pad_queries(part, SC.pad_pow2(n_q), vecs.device)
-    if SC.cert_enabled(int(vecs.shape[0]), int(vecs.shape[1])):
-        return SC.certified_topk_l2(
-            vecs, sqn, valid, pd, k=k, n_q=n_q, rerun_sink=cert_sink
-        )
-    ids, sims = SC.scan_topk_exact_l2(vecs, sqn, valid, pd, k=k)
-    return ids[:n_q].cpu().numpy(), sims[:n_q].cpu().numpy()
 
 
 class FlatIndex:
@@ -185,10 +166,12 @@ class FlatIndex:
         """Device tables (vecs, sqn, valid) of the current epoch: rows
         padded to a multiple of 128, sqnorms computed on the host with
         np.einsum (as the JAX package does, so the tables are
-        byte-equal)."""
+        byte-equal; zeros for hamming). Packed hamming words go up as
+        int32, as the snapshot's do: torch has no full uint32 type."""
         from ..ops.scan import scan_dtype
+        from ..ops.snapshot import to_device
 
-        scan_dtype()
+        scan_dtype(self.config.metric)
         if self._dev is None or self._dev_epoch != self._epoch:
             n = max(self._names.high_water, 1)
             n_pad = ((n + 127) // 128) * 128
@@ -201,11 +184,13 @@ class FlatIndex:
                 vecs[:n] = self._vectors[:n]
             valid = np.zeros(n_pad, bool)
             valid[:n] = self._valid[:n]
-            sqn = np.einsum("nd,nd->n", vecs, vecs).astype(np.float32)
+            if self.config.metric == "hamming":
+                sqn = np.zeros(n_pad, np.float32)
+            else:
+                sqn = np.einsum("nd,nd->n", vecs, vecs).astype(np.float32)
             self._dev = None  # free the old tables before the upload
             self._dev = tuple(
-                torch.from_numpy(a).to(self.device)
-                for a in (vecs, sqn, valid)
+                to_device(a, self.device) for a in (vecs, sqn, valid)
             )
             self._dev_epoch = self._epoch
         return self._dev
@@ -216,10 +201,10 @@ class FlatIndex:
         reply: str = "objects",
     ) -> list[list[SearchResult]]:
         """Batched exact k-NN. ``use_pallas=True`` runs the exact tier
-        (kernel A) over the whole query block at once, the port of the
-        JAX package's fused Pallas scan path;
+        (kernel A, or A′ for hamming) over the whole query block at once,
+        the port of the JAX package's fused Pallas scan path;
         the default serves through the scan engine in 2048-query chunks,
-        on the certified tier at >= 2^19 rows. ``approx`` and a
+        on the certified tier at >= 2^19 euclidean rows. ``approx`` and a
         ``recall_target`` at or below the approx tier's floor ask for
         the scan-approx tier, which is not ported yet and raises.
         ``reply="columnar"`` returns the (names, sims) array pair."""
@@ -248,11 +233,7 @@ class FlatIndex:
         )
         if self.node_count == 0:
             return empty_reply(qs.shape[0], k, reply)
-        if self.config.metric == "hamming":
-            raise NotImplementedError(
-                "hamming search_batch is not ported yet (ROADMAP queue 1 "
-                "item 9)"
-            )
+        metric = self.config.metric
         vecs, sqn, valid = self._device()
         k_eff = min(int(k), int(vecs.shape[0]))
         n_q = qs.shape[0]
@@ -260,10 +241,13 @@ class FlatIndex:
             ids = np.empty((0, int(k)), np.int32)
             sims = np.empty((0, int(k)), np.float32)
         elif use_pallas:
-            ids, sims = SC.scan_topk_exact_l2(
-                vecs, sqn, valid, SC.pad_queries(qs, n_q, vecs.device),
-                k=k_eff,
-            )
+            qd = SC.pad_queries(qs, n_q, vecs.device)
+            if metric == "hamming":
+                ids, sims = SC.scan_topk_exact_hamming(vecs, valid, qd,
+                                                       k=k_eff)
+            else:
+                ids, sims = SC.scan_topk_exact_l2(vecs, sqn, valid, qd,
+                                                  k=k_eff)
             ids, sims = ids.cpu().numpy(), sims.cpu().numpy()
         else:
             sink = SC.CertRerunSink()
@@ -271,13 +255,15 @@ class FlatIndex:
             if n_q > MAX_LANES:
                 # one host->device copy for the whole block
                 qd = SC.pad_queries(qs, n_q, vecs.device)
-            parts = [
-                _dispatch_flat(
-                    vecs, sqn, valid, qd[lo : lo + MAX_LANES], k=k_eff,
-                    cert_sink=sink,
-                )
-                for lo in range(0, n_q, MAX_LANES)
-            ]
+            parts = []
+            for lo in range(0, n_q, MAX_LANES):
+                part = qd[lo : lo + MAX_LANES]
+                n_part = int(part.shape[0])
+                parts.append(SC.serve_block(
+                    vecs, sqn, valid,
+                    SC.pad_queries(part, SC.pad_pow2(n_part), vecs.device),
+                    k=k_eff, n_q=n_part, metric=metric, rerun_sink=sink,
+                ))
             sink.flush()  # patches the parts' rows in place
             ids = np.concatenate([p[0] for p in parts])
             sims = np.concatenate([p[1] for p in parts])

@@ -1,4 +1,4 @@
-"""Kernel A: fused exact scan top-k.
+"""Kernels A and A′: fused exact scan top-k.
 
 Port of ``redis_hnsw_tpu/ops/pallas_scan.py::flat_topk_pallas`` (the
 Pallas TPU kernel at pallas_scan.py:165, its pallas_call at :194). Per
@@ -11,6 +11,18 @@ best first, ties to the lowest row id, ``-1`` / ``-inf`` in empty slots.
 ``-inf``, never selected) -- the same encoding as the count kernel's, and
 ``-bias`` of the Pallas kernel's ``euclid_bias``.
 
+A′ (:func:`flat_topk_hamming`, the Pallas kernel's ``_scan_kernel_hamming``
+at pallas_scan.py:122) is the same selection over packed bit rows, int32
+words (the uint32 words' bytes), by the score
+
+    score = bias[row] - popcount(q XOR x)
+
+with ``bias`` 0 on a live row and ``-inf`` on a dead one
+(:func:`hamming_bias`). Its plain version is the JAX package's own
+formulation (ops/scan.py ``pm1_table``, ``_chunk_scores``): the bits as a
++-1 f32 table, one matmul, ``(dot - d_bits) * 0.5``, exact because every
+partial sum is an integer below 2^24.
+
 * On a CUDA tensor, :func:`flat_topk` launches the hand-written CUDA
   kernel ``csrc/scan_topk.cu`` (scores through the routine of
   ``csrc/score.cuh`` that the count kernel shares, so the certificate
@@ -21,8 +33,9 @@ best first, ties to the lowest row id, ``-1`` / ``-inf`` in empty slots.
 
 Bound on the H100: the scoring is 2*B*N*D fp32 operations (true fp32, no
 tensor cores) against (B + N)*D*4 bytes, so it is compute-bound at the
-serving shapes; the kernel's design is in csrc/scan_topk.cu. Its time
-beside that bound is in PERF.md, measured by chip_smoke.py.
+serving shapes; A′ by its B*N*W popcounts. The kernels' design is in
+csrc/scan_topk.cu. Their times beside those bounds are in PERF.md,
+measured by chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -49,8 +62,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def check_operands(queries, vecs, sq_masked, qq, k):
-    """Validate the scan kernels' operands (shared with ops/cuda_count.py)."""
+def _check_table(queries, table, row_op, k, dtype):
+    """Shapes, k, element types and device shared by both score forms:
+    queries [B, D] and table [N, D] of ``dtype``, a [N] f32 row operand."""
     if k > MAX_K:
         raise ValueError(
             f"scan top-k supports k <= {MAX_K} (the kernel's selection "
@@ -58,39 +72,45 @@ def check_operands(queries, vecs, sq_masked, qq, k):
         )
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
-    if queries.dim() != 2 or vecs.dim() != 2:
-        raise ValueError("queries [B, D] and vecs [N, D] must be 2-D")
-    if queries.shape[1] != vecs.shape[1]:
+    if queries.dim() != 2 or table.dim() != 2:
+        raise ValueError("queries [B, D] and the table [N, D] must be 2-D")
+    if queries.shape[1] != table.shape[1]:
         raise ValueError(
-            f"query width {queries.shape[1]} != table width {vecs.shape[1]}"
+            f"query width {queries.shape[1]} != table width {table.shape[1]}"
         )
-    if tuple(sq_masked.shape) != (vecs.shape[0],):
-        raise ValueError("sq_masked must be [N]")
-    if tuple(qq.shape) != (queries.shape[0],):
-        raise ValueError("qq must be [B]")
-    for t in (queries, vecs, sq_masked, qq):
-        if t.dtype != torch.float32:
-            raise TypeError(f"scan top-k takes float32, got {t.dtype}")
+    if tuple(row_op.shape) != (table.shape[0],):
+        raise ValueError("the row operand (sq_masked, bias) must be [N]")
+    for t, want in ((queries, dtype), (table, dtype),
+                    (row_op, torch.float32)):
+        if t.dtype != want:
+            raise TypeError(f"scan top-k takes {want}, got {t.dtype}")
         if t.device != queries.device:
             raise ValueError("all operands must be on one device")
 
 
-def plain_flat_topk(queries, vecs, sq_masked, qq, *, k: int):
-    """Plain PyTorch version of :func:`flat_topk`: chunked matmul-form
-    scores (ops/distance.py pairwise_neg_sq_l2), a stable descending sort
-    per chunk (row order breaks ties), and a merge with the running best
-    -- earlier chunks first, so equal scores keep the lower id."""
-    B = queries.shape[0]
-    N = vecs.shape[0]
-    dev = queries.device
+def check_operands(queries, vecs, sq_masked, qq, k):
+    """Validate the scan kernels' operands (shared with ops/cuda_count.py
+    and ops/cuda_select.py)."""
+    _check_table(queries, vecs, sq_masked, k, torch.float32)
+    if tuple(qq.shape) != (queries.shape[0],):
+        raise ValueError("qq must be [B]")
+    if qq.dtype != torch.float32:
+        raise TypeError(f"scan top-k takes float32, got {qq.dtype}")
+    if qq.device != queries.device:
+        raise ValueError("all operands must be on one device")
+
+
+def _plain_topk(scores_of, B, N, k, dev):
+    """The plain versions' selection: ``scores_of(lo, hi)`` scores one
+    ``CHUNK_N``-row chunk; a stable descending sort per chunk (row order
+    breaks ties) and a merge with the running best -- earlier chunks
+    first, so equal scores keep the lower id."""
     top_s = torch.full((B, 0), NEG_INF, dtype=torch.float32, device=dev)
     top_i = torch.full((B, 0), -1, dtype=torch.int32, device=dev)
     for lo in range(0, N, CHUNK_N):
         hi = min(lo + CHUNK_N, N)
-        scores = D.pairwise_neg_sq_l2(
-            queries, vecs[lo:hi], sq_masked[lo:hi], qq
-        )
-        c_s, c_pos = torch.sort(scores, dim=1, descending=True, stable=True)
+        c_s, c_pos = torch.sort(scores_of(lo, hi), dim=1, descending=True,
+                                stable=True)
         c_s = c_s[:, :k]
         c_i = (c_pos[:, :k] + lo).to(torch.int32)
         m_s = torch.cat([top_s, c_s], dim=1)
@@ -109,6 +129,18 @@ def plain_flat_topk(queries, vecs, sq_masked, qq, *, k: int):
         )
     top_i = torch.where(top_s == NEG_INF, torch.full_like(top_i, -1), top_i)
     return top_i, top_s
+
+
+def plain_flat_topk(queries, vecs, sq_masked, qq, *, k: int):
+    """Plain PyTorch version of :func:`flat_topk`: chunked matmul-form
+    scores (ops/distance.py pairwise_neg_sq_l2) through
+    :func:`_plain_topk`."""
+    return _plain_topk(
+        lambda lo, hi: D.pairwise_neg_sq_l2(
+            queries, vecs[lo:hi], sq_masked[lo:hi], qq
+        ),
+        queries.shape[0], vecs.shape[0], k, queries.device,
+    )
 
 
 def splits_for(device, n_q: int, n_rows: int) -> int:
@@ -183,3 +215,102 @@ def euclid_sq_masked(sqnorms, valid):
     return torch.where(
         valid, sqnorms, torch.full_like(sqnorms, float("inf"))
     )
+
+
+# -- kernel A′: hamming ---------------------------------------------------------
+
+def hamming_bias(valid):
+    """The hamming kernels' row operand: 0 on a live row, -inf on a dead
+    one (the Pallas kernel's ``hamming_bias``)."""
+    return torch.where(
+        valid, torch.zeros(valid.shape, device=valid.device),
+        torch.full(valid.shape, NEG_INF, device=valid.device),
+    )
+
+
+def check_words(queries, words, bias, k):
+    """Validate the hamming kernels' operands: int32 words (packed uint32
+    bits) and a float32 bias (shared with ops/cuda_count.py)."""
+    _check_table(queries, words, bias, k, torch.int32)
+
+
+def pm1_table(words):
+    """[N, W] int32 packed bits -> [N, 32W] f32 in {-1, +1} (the JAX
+    package's ``pm1_table``, bit j of word w in column 32w + j). ``>>`` on
+    int32 is arithmetic, which leaves bit j of ``x >> j`` as it was."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[:, :, None] >> shifts) & 1
+    return (2 * bits - 1).reshape(words.shape[0], -1).float()
+
+
+def hamming_scores(q_pm1, words, bias):
+    """[B, n] hamming scores ``bias - popcount(q XOR x)`` of the +-1 query
+    block ``q_pm1`` [B, 32W] against ``words`` [n, W], in the JAX
+    package's matmul form ``(dot - d_bits) * 0.5`` -- exact, since every
+    partial sum is an integer below 2^24. A live row's distance 0 scores
+    +0.0, as the kernels' ``0 - 0`` does."""
+    dots = torch.mm(q_pm1, pm1_table(words).t())
+    return dots.sub_(q_pm1.shape[1]).mul_(0.5).add_(bias[None, :])
+
+
+def plain_flat_topk_hamming(queries, words, bias, *, k: int):
+    """Plain PyTorch version of :func:`flat_topk_hamming`: chunked
+    :func:`hamming_scores` through :func:`_plain_topk`."""
+    q_pm1 = pm1_table(queries)
+    return _plain_topk(
+        lambda lo, hi: hamming_scores(q_pm1, words[lo:hi], bias[lo:hi]),
+        queries.shape[0], words.shape[0], k, queries.device,
+    )
+
+
+def _hamming_kernel():
+    from ..utils.build import load_kernel
+
+    fn = load_kernel("scan_topk").scan_topk_hamming_launch
+    fn.restype = _I
+    fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+    return fn
+
+
+def flat_topk_hamming(queries, words, bias, *, k: int):
+    """Exact hamming top-k of every query over every row of ``words``.
+
+    ``queries`` [B, W] and ``words`` [N, W] int32 packed bits, ``bias``
+    [N] f32 (:func:`hamming_bias`). Returns (ids [B, k] int32, sims
+    [B, k] f32 = -distance) in (-sim, id) order with -1/-inf padding.
+    ``k`` <= ``MAX_K``. A CUDA tensor launches kernel A′; a CPU tensor
+    takes the plain version.
+    """
+    check_words(queries, words, bias, k)
+    if queries.device.type == "cpu":
+        return plain_flat_topk_hamming(queries, words, bias, k=k)
+    if queries.device.type != "cuda":
+        raise ValueError(f"unsupported device {queries.device}")
+    queries, words, bias = (t.contiguous() for t in (queries, words, bias))
+    B, W = queries.shape
+    N = words.shape[0]
+    dev = queries.device
+    out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out_i, out_s
+    launch = _hamming_kernel()
+    splits = splits_for(dev, B, N)
+    part_s = torch.empty((splits, B, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((splits, B, k), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = launch(
+            queries.data_ptr(), words.data_ptr(), bias.data_ptr(), B, N, W,
+            k, splits, part_s.data_ptr(), part_i.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"scan_topk_hamming kernel launch failed: CUDA error {err}"
+        )
+    flat_topk_hamming.launches += 1
+    return out_i, out_s
+
+
+flat_topk_hamming.launches = 0

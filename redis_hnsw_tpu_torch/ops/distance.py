@@ -22,7 +22,13 @@ Every dot of the frontier scorers sums in the fixed pairwise order of
 :func:`_sum_last`, so a node's score depends only on the query and the
 node, never on where in the tile it sits: the beam's dedup keeps one copy
 of a node only because every re-proposal carries a bit-identical sim.
-The hamming block and row scorers come with ROADMAP queue 1 item 9.
+
+Hamming (packed bits as int32 words, the uint32 words' bytes):
+:func:`pairwise_hamming`, :func:`block_hamming` and
+:func:`frontier_hamming` score ``-popcount(q XOR x)`` with integer torch
+ops on both devices, as the JAX package scores them in XLA. Torch has no
+popcount, so :func:`_popcount` counts bits by shifts and masks on int64:
+integer sims, exact on any data and any device.
 """
 
 from __future__ import annotations
@@ -278,3 +284,56 @@ def resort_desc(ids: torch.Tensor, sims: torch.Tensor):
     sims = torch.gather(sims, 1, by_id)
     order = torch.argsort(-sims, dim=1, stable=True)
     return torch.gather(ids, 1, order), torch.gather(sims, 1, order)
+
+
+# -- Hamming (packed bits, int32 words) --------------------------------------
+
+def _popcount(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 word of ``x``, as int64. Widened to int64
+    and masked to the word's 32 bits first, so no shift fills sign bits
+    and no sum overflows; then the shift-and-mask (SWAR) steps."""
+    v = x.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    v = v + (v >> 8)
+    v = v + (v >> 16)
+    return v & 0x3F
+
+
+def _neg_hamming(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``-popcount(q XOR x)`` summed over the last (word) dim, as f32
+    (-0.0 at distance 0, as the JAX package's ``-sum(...).astype``)."""
+    return -_popcount(torch.bitwise_xor(q, x)).sum(dim=-1).to(torch.float32)
+
+
+def pairwise_hamming(
+    q: torch.Tensor,   # [B, W] int32
+    x: torch.Tensor,   # [N, W] int32
+) -> torch.Tensor:     # [B, N] f32 negative hamming distance
+    return _neg_hamming(q[:, None, :], x[None, :, :])
+
+
+def block_hamming(
+    q: torch.Tensor,          # [B, W] int32
+    nbrvec: torch.Tensor,     # [N, F, W] int32 neighbour blocks
+    cand: torch.Tensor,       # [B, E] parent row ids (in range)
+    mask: torch.Tensor,       # [B, E*F]
+) -> torch.Tensor:            # [B, E*F]
+    """Hamming frontier scores through the neighbour blocks (the packed
+    words of each candidate's neighbours, ops/snapshot.py)."""
+    B, E = cand.shape
+    F = nbrvec.shape[1]
+    blocks = nbrvec[cand.long()]                      # [B, E, F, W]
+    sims = _neg_hamming(q[:, None, None, :], blocks).reshape(B, E * F)
+    return _masked(mask, sims)
+
+
+def frontier_hamming(
+    q: torch.Tensor,          # [B, W] int32
+    vecs: torch.Tensor,       # [N, W] int32
+    ids: torch.Tensor,        # [B, F] (in range)
+    mask: torch.Tensor,       # [B, F]
+) -> torch.Tensor:
+    """Hamming scores of row-gathered frontier rows."""
+    return _masked(mask, _neg_hamming(q[:, None, :], vecs[ids.long()]))

@@ -1,6 +1,7 @@
 """Exact scan engine: brute-force k-NN over the index snapshot.
 
-Port of the euclidean-f32 parts of ``redis_hnsw_tpu/ops/scan.py``. Below
+Port of the euclidean-f32 and hamming parts of ``redis_hnsw_tpu/ops/scan.py``.
+Below
 ``ops/search.py`` SCAN_MAX_ROWS the scan serves ``search_batch``: it is
 exact (recall 1.0), and a whole query batch against the whole table is
 one dense pass that a GPU runs well.
@@ -34,6 +35,21 @@ Two tiers, chosen per table by :func:`cert_enabled`:
   whether the tier still pays for its second pass on the H100 is an open
   question in ROADMAP.md.
 
+  Its **one-pass form** (:func:`_certified_onepass`, the default where
+  ``k <= N/128``; REDIS_HNSW_TPU_CERT_ONEPASS=0 keeps the two passes)
+  selects and proves with kernel D (ops/cuda_select.py) in one pass over
+  the table: the stable top k of the per-bin best rows is the exact top k
+  whenever the largest second-best of any bin, m2, is below its k-th
+  score.
+
+**Hamming** tables are packed bit rows, int32 words, served on the exact
+tier alone at every size: kernel A′ (:func:`scan_topk_exact_hamming`)
+selects by integer scores, exact in f32, so its top k needs no rescore
+and no certificate. (The JAX package's certified hamming tier buys its
+approximate select back to exactness; on the H100 a second pass only
+halves the throughput, PERF.md.) Replies carry ``-distance`` with a zero
+distance as -0.0, as the JAX package's word-packed reply decodes it.
+
 The JAX package's TPU-link machinery (fetch windows, pipelined drains,
 packed int32 replies) reduces to a plain chunk loop here: the replies
 are the same.
@@ -48,7 +64,13 @@ import torch
 
 from . import distance as D
 from .cuda_count import count_gt_eq
-from .cuda_scan import euclid_sq_masked, flat_topk
+from .cuda_scan import (
+    euclid_sq_masked,
+    flat_topk,
+    flat_topk_hamming,
+    hamming_bias,
+)
+from .cuda_select import BIN_L, select_bins
 
 NEG_INF = float("-inf")
 
@@ -65,14 +87,15 @@ def scan_oversample() -> int:
         raise ValueError(f"REDIS_HNSW_TPU_SCAN_OVERSAMPLE={v!r}")
 
 
-def scan_dtype() -> str:
+def scan_dtype(metric: str = "euclidean") -> str:
     """Euclidean scan-table tier, REDIS_HNSW_TPU_SCAN_DTYPE. Only ``f32``
     (the default; selection is exactly exact) is ported; the bf16 and
-    int8 tiers raise."""
+    int8 tiers raise on a euclidean table. A hamming table ignores the
+    tier, as in the JAX package."""
     v = os.environ.get("REDIS_HNSW_TPU_SCAN_DTYPE", "f32")
     if v not in ("f32", "bf16", "int8"):
         raise ValueError(f"REDIS_HNSW_TPU_SCAN_DTYPE={v!r}")
-    if v != "f32":
+    if v != "f32" and metric == "euclidean":
         raise NotImplementedError(
             f"REDIS_HNSW_TPU_SCAN_DTYPE={v} (bf16/int8 scan tiers) is not "
             "ported yet (ROADMAP queue 1 item 9)"
@@ -92,34 +115,60 @@ def check_reply_mode() -> None:
         )
 
 
-def _check_onepass() -> None:
-    """REDIS_HNSW_TPU_CERT_ONEPASS: the one-pass select (Pallas kernel D)
-    is not ported; its default (off) is the two-pass form ported here."""
+def onepass_enabled() -> bool:
+    """REDIS_HNSW_TPU_CERT_ONEPASS, the JAX package's grammar: 0 keeps the
+    certified tier's two-pass form (kernels A and B), 1 takes the one-pass
+    form (kernel D), anything else but auto raises. auto (the default) is
+    on here, where the JAX package leaves it off: on the H100 one pass of
+    kernel D served flat-sift1m 1.52x faster than kernels A + B (PERF.md).
+    Where the one-pass proof fails (m2 >= t), the query is served again
+    by the exact tier."""
     v = os.environ.get("REDIS_HNSW_TPU_CERT_ONEPASS", "auto")
-    if v == "1":
-        raise NotImplementedError(
-            "REDIS_HNSW_TPU_CERT_ONEPASS=1 (one-pass certified select) is "
-            "not ported yet (ROADMAP queue 1 item 10)"
-        )
-    if v not in ("0", "auto"):
-        raise ValueError(f"REDIS_HNSW_TPU_CERT_ONEPASS={v!r}")
+    if v in ("1", "auto"):
+        return True
+    if v == "0":
+        return False
+    raise ValueError(f"REDIS_HNSW_TPU_CERT_ONEPASS={v!r}")
 
 
-def scan_topk(vecs, sqn, live, queries, *, k: int, k_sel: int | None = None):
-    """Top-k of every query against every live row, by matmul-form score.
+def scan_topk(vecs, sqn, live, queries, *, k: int, k_sel: int | None = None,
+              metric: str = "euclidean"):
+    """Top-k of every query against every live row.
 
-    ``vecs`` [N, D] f32 (= snapshot vecs), ``sqn`` [N] row sqnorms,
-    ``live`` [N] bool masks real, undeleted rows. Kernel A selects
+    ``vecs`` [N, D] f32 (= snapshot vecs) with ``sqn`` [N] row sqnorms,
+    scored in matmul form by kernel A; or, with ``metric="hamming"``,
+    [N, W] int32 packed bits scored by kernel A′ (``sqn`` unused).
+    ``live`` [N] bool masks real, undeleted rows. The kernel selects
     ``k_sel`` (default ``k``) rows and the best ``k`` are kept. Returns
-    (ids, sims) sorted descending by (sim, -id) -- kernel A's own order --
-    with -1/-inf in empty slots.
+    (ids, sims) sorted descending by (sim, -id) -- the kernels' own order
+    -- with -1/-inf in empty slots.
     """
     k_sel = k if k_sel is None else max(int(k_sel), k)
-    ids, sims = flat_topk(
-        queries, vecs, euclid_sq_masked(sqn, live), D.sqnorms(queries),
-        k=k_sel,
-    )
+    if metric == "hamming":
+        ids, sims = flat_topk_hamming(
+            queries, vecs, hamming_bias(live), k=k_sel
+        )
+    else:
+        ids, sims = flat_topk(
+            queries, vecs, euclid_sq_masked(sqn, live), D.sqnorms(queries),
+            k=k_sel,
+        )
     return ids[:, :k], sims[:, :k]
+
+
+def hamming_reply_sims(sims):
+    """Kernel A′'s scores as the reply carries them: ``-distance``, with a
+    zero distance as -0.0 where the kernel gives +0.0 (``0 - 0``). The
+    JAX package's word-packed reply decodes ``-float(dist)`` and its graph
+    engine scores ``-popcount``, so both give -0.0 there."""
+    return (0.0 - sims).neg_()
+
+
+def scan_topk_exact_hamming(words, live, queries, *, k: int):
+    """The exact hamming tier: kernel A′'s top k, already in ``(-sim,
+    id)`` order, with the reply's sims (:func:`hamming_reply_sims`)."""
+    ids, sims = scan_topk(words, None, live, queries, k=k, metric="hamming")
+    return ids, hamming_reply_sims(sims)
 
 
 def scan_topk_exact_l2(vecs, sqn, live, queries, *, k: int,
@@ -195,6 +244,31 @@ def _cert_verify(vecs, sqn, live, queries, ids, sims):
     return ids, sims, ok
 
 
+def _certified_onepass(vecs, sqn, live, queries, *, k: int):
+    """One-pass certified select: kernel D gives each query's per-bin
+    best (score, row id) and m2, the largest second-best of any bin. The
+    stable top k over those candidates, whose k-th score is t, is PROVABLY
+    the exact top k, tie class at t included, when ``m2 < t``: a row that
+    is not a candidate scores <= m2. The candidates ascend by row id and
+    a stable descending sort keeps ties in that order, so ties go to the
+    lower id, as in kernel A (torch.topk gives no tie order). Same
+    ``(ids, sims, ok)`` contract as the two-pass form; t = -inf (fewer
+    than k live candidates) never certifies."""
+    sims_c, ids_c, m2 = select_bins(
+        vecs, euclid_sq_masked(sqn, live), queries, D.sqnorms(queries)
+    )
+    top_sims, pos = torch.sort(sims_c, dim=1, descending=True, stable=True)
+    top_sims = top_sims[:, :k]
+    top_ids = torch.gather(ids_c, 1, pos[:, :k])
+    top_ids = torch.where(top_sims == NEG_INF, -1, top_ids)
+    ok = m2 < top_sims[:, -1]
+    sims = D.exact_neg_sq_l2(
+        queries, vecs, top_ids.clamp(min=0).long(), top_sims != NEG_INF
+    )
+    ids, sims = D.resort_desc(top_ids, sims)
+    return ids, sims, ok
+
+
 def scan_certified_l2(vecs, sqn, live, queries, *, k: int):
     """Oversampled selection (kernel A at ``k_sel = scan_oversample() *
     k``, the best k kept), certificate (kernel B) and exact rescore.
@@ -202,8 +276,11 @@ def scan_certified_l2(vecs, sqn, live, queries, *, k: int):
     reply contract plus the per-query verdict (True = PROVABLY the exact
     matmul-form top-k; False = the caller must rerun it through the
     exact tier). Queries with fewer than k live rows certify through the
-    c_gt equality (every live row selected)."""
-    _check_onepass()
+    c_gt equality (every live row selected). With the one-pass form on
+    (the default) and k at most the bin count, kernel D serves instead
+    (:func:`_certified_onepass`)."""
+    if onepass_enabled() and k <= max(1, int(vecs.shape[0]) // BIN_L):
+        return _certified_onepass(vecs, sqn, live, queries, k=k)
     k_sel = min(scan_oversample() * k, int(vecs.shape[0]))
     ids, sims = scan_topk(vecs, sqn, live, queries, k=k, k_sel=k_sel)
     return _cert_verify(vecs, sqn, live, queries, ids, sims)
@@ -240,22 +317,9 @@ def _exact_rows(vecs, sqn, live, qd, rows, *, k: int):
     return ids[:nb].cpu().numpy(), sims[:nb].cpu().numpy()
 
 
-def certified_topk_l2(vecs, sqn, live, qd, *, k: int, n_q: int,
-                      rerun_sink=None):
-    """Run the certified tier on the (padded) query block ``qd`` and
-    re-serve any uncertified queries through the exact tier (now, or at
-    ``rerun_sink``'s flush). The result is byte-identical to
-    :func:`scan_topk_exact_l2` on every query. Returns ``(ids, sims)``
-    numpy arrays of the first ``n_q`` queries."""
-    result = scan_certified_l2(vecs, sqn, live, qd, k=k)
-    return certified_finish(
-        vecs, sqn, live, qd, result, k=k, n_q=n_q, rerun_sink=rerun_sink
-    )
-
-
 def certified_finish(vecs, sqn, live, qd, result, *, k: int, n_q: int,
                      rerun_sink=None):
-    """Host half of :func:`certified_topk_l2`: fetch the reply and the
+    """Host half of the certified tier: fetch the reply and the
     verdicts of :func:`scan_certified_l2`'s ``result``, then re-serve
     the uncertified queries through the exact tier.
 
@@ -353,8 +417,10 @@ def _scan_state(index, max_staleness: int = 0):
     which lags the index's mutation epoch under bounded-staleness
     serving. With a stale snapshot the live mask is truncated at the
     snapshot's row high-water (``live_hw``) so rows allocated after it
-    -- whose vectors the stale table does not hold -- never score."""
-    scan_dtype()
+    -- whose vectors the stale table does not hold -- never score. A
+    hamming snapshot's ``vecs`` are its packed words (int32), which the
+    hamming kernels read as they are; its ``sqn`` are zeros."""
+    scan_dtype(index.config.metric)
     snap = index.device_snapshot(max_staleness)
     snap_epoch = index._snapshot_epoch
     cached = getattr(index, "_scan_cache", None)
@@ -369,17 +435,41 @@ def _scan_state(index, max_staleness: int = 0):
 
 
 def pad_queries(qs, n_pad: int, device):
-    """Query block as a float32 tensor on ``device``, zero-padded to
-    ``n_pad`` rows."""
-    qd = qs if isinstance(qs, torch.Tensor) else torch.from_numpy(
-        np.ascontiguousarray(qs, np.float32)
-    )
-    qd = qd.to(device=device, dtype=torch.float32)
+    """Query block as a tensor on ``device``, zero-padded to ``n_pad``
+    rows: float32, or int32 for packed hamming words (uint32 words keep
+    their bytes, as the snapshot stores them)."""
+    if isinstance(qs, torch.Tensor):
+        qd = qs
+    elif np.asarray(qs).dtype in (np.uint32, np.int32):
+        qd = torch.from_numpy(np.ascontiguousarray(qs).view(np.int32))
+    else:
+        qd = torch.from_numpy(np.ascontiguousarray(qs, np.float32))
+    dtype = torch.int32 if qd.dtype == torch.int32 else torch.float32
+    qd = qd.to(device=device, dtype=dtype)
     if n_pad != qd.shape[0]:
         qd = torch.cat(
             [qd, qd.new_zeros((n_pad - qd.shape[0], qd.shape[1]))]
         )
     return qd
+
+
+def serve_block(vecs, sqn, live, qd, *, k: int, n_q: int, metric: str,
+                rerun_sink=None):
+    """Serve the (padded) query block ``qd`` on the tier its table takes:
+    a hamming table the exact tier (kernel A′); a euclidean table the
+    certified tier where ``cert_enabled`` admits it, else the exact tier.
+    Returns the ``(ids, sims)`` numpy reply of the first ``n_q`` queries;
+    ``rerun_sink`` defers the certified tier's fallback reruns."""
+    if metric == "hamming":
+        ids, sims = scan_topk_exact_hamming(vecs, live, qd, k=k)
+    elif cert_enabled(int(vecs.shape[0]), int(vecs.shape[1])):
+        result = scan_certified_l2(vecs, sqn, live, qd, k=k)
+        return certified_finish(
+            vecs, sqn, live, qd, result, k=k, n_q=n_q, rerun_sink=rerun_sink
+        )
+    else:
+        ids, sims = scan_topk_exact_l2(vecs, sqn, live, qd, k=k)
+    return ids[:n_q].cpu().numpy(), sims[:n_q].cpu().numpy()
 
 
 def scan_dispatch(index, qs, k: int, cert_sink=None, staleness: int = 0):
@@ -392,10 +482,7 @@ def scan_dispatch(index, qs, k: int, cert_sink=None, staleness: int = 0):
     vecs, sqn, live = _scan_state(index, max_staleness=staleness)
     n_q = qs.shape[0]
     qd = pad_queries(qs, pad_pow2(n_q), vecs.device)
-    k_eff = min(int(k), int(vecs.shape[0]))
-    if cert_enabled(int(vecs.shape[0]), int(vecs.shape[1])):
-        return certified_topk_l2(
-            vecs, sqn, live, qd, k=k_eff, n_q=n_q, rerun_sink=cert_sink
-        )
-    ids, sims = scan_topk_exact_l2(vecs, sqn, live, qd, k=k_eff)
-    return ids[:n_q].cpu().numpy(), sims[:n_q].cpu().numpy()
+    return serve_block(
+        vecs, sqn, live, qd, k=min(int(k), int(vecs.shape[0])), n_q=n_q,
+        metric=index.config.metric, rerun_sink=cert_sink,
+    )

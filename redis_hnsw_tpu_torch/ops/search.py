@@ -28,8 +28,14 @@ between two implementations of one function,
 ``REDIS_HNSW_TPU_PALLAS_GATHER``, is not read: the block tier always runs
 kernel C on the card.
 
-Not ported yet, and raising: hamming search (ROADMAP queue 1 item 9), the
-scan-approx tier (item 10), the ids-only reply (item 11).
+Hamming indexes score ``-popcount(q XOR x)`` over packed int32 words with
+torch ops on both devices (ops/distance.py ``block_hamming``,
+``frontier_hamming``; the JAX package scores them in XLA, not Pallas):
+integer sims, exact everywhere, whose final k are reported as they are.
+Seeded search picks its pivots with kernel A′.
+
+Not ported yet, and raising: the scan-approx tier (ROADMAP queue 1 item
+10), the ids-only reply (item 11).
 """
 
 from __future__ import annotations
@@ -95,21 +101,16 @@ def not_ported_approx():
     )
 
 
-def not_ported_hamming():
-    return NotImplementedError(
-        "hamming search_batch is not ported yet (ROADMAP queue 1 item 9)"
-    )
-
-
 # ---------------------------------------------------------------------------
 # Scoring helpers.
 # ---------------------------------------------------------------------------
 
 def _score(metric, q, qn, vecs, vn, ids, mask):
     """Row-gathered scores of ``ids`` [B, J] (in range): kernel C's row
-    form on the card, its plain version on the CPU."""
+    form on the card, its plain version on the CPU; hamming rows through
+    ``frontier_hamming`` on both."""
     if metric == "hamming":
-        raise not_ported_hamming()
+        return D.frontier_hamming(q, vecs, ids, mask)
     if q.device.type == "cpu":
         return D.frontier_neg_sq_l2(q, qn, vecs, vn, ids, mask)
     sims = fused_row_score(q, qn, vecs, vn, ids.to(torch.int32))
@@ -118,7 +119,7 @@ def _score(metric, q, qn, vecs, vn, ids, mask):
 
 def _query_sqnorms(metric, q):
     if metric == "hamming":
-        raise not_ported_hamming()
+        return torch.zeros(q.shape[0], dtype=torch.float32, device=q.device)
     return D.sqnorms(q)
 
 
@@ -316,8 +317,8 @@ def beam_search(
         if nbrvec is not None:
             csafe = crow.clamp(min=0)
             if metric == "hamming":
-                raise not_ported_hamming()
-            if quant_blocks:
+                nsims = D.block_hamming(q, nbrvec, csafe, fresh)
+            elif quant_blocks:
                 nsims = D.block_int8_neg_sq_l2(
                     q8, qs8, qn, nbrvec, nbrsqn, csafe, fresh
                 )
@@ -376,7 +377,8 @@ def search_pipeline(
 ):
     """Descent + beam + direct-form rescore of the final
     ``min(k, ef)``, re-sorted by ``(-sim, id)``; returns (ids, sims)
-    device tensors [B, min(k, ef)]."""
+    device tensors [B, min(k, ef)]. Hamming sims are exact integers
+    already: the final k keep the beam's sims and order."""
     qn = _query_sqnorms(metric, queries)
     ep_ids, ep_sims = greedy_descent(
         metric, queries, qn, vecs, sqn, adj_up, upper_of, ep, max_layer
@@ -407,6 +409,8 @@ def search_pipeline(
     k_eff = min(k, ef)
     k_ids = beam_ids[:, :k_eff]
     valid = beam_sims[:, :k_eff] != NEG_INF
+    if metric == "hamming":
+        return k_ids, torch.where(valid, beam_sims[:, :k_eff], NEG_INF)
     k_sims = D.exact_neg_sq_l2(queries, vecs, k_ids.clamp(min=0).long(), valid)
     # exact rescoring can reorder near-ties vs the matmul-form beam; the
     # reply contract is descending by (sim, -id)
@@ -420,9 +424,10 @@ PIVOT_POOL = 1024
 
 def _pivot_pool(index, snap):
     """Per-epoch cache of (global ids [P] int32, rows [P, D], sqnorms
-    [P]) on the snapshot's device: a strided sample of live rows. Seeded
-    search scans it (kernel A) to give each lane its ``seeds`` closest
-    pivots as extra beam entry points."""
+    [P]) on the snapshot's device: a strided sample of live rows (packed
+    words, and zero sqnorms, for hamming). Seeded search scans it (kernel
+    A, or A′) to give each lane its ``seeds`` closest pivots as extra beam
+    entry points."""
     cached = getattr(index, "_pivot_cache", None)
     if cached is not None and cached[0] == index.epoch:
         return cached[1]
@@ -446,7 +451,8 @@ def _seed_ids_for(pool, qd, seeds: int):
     ids_dev, table, sqn = pool
     s = min(int(seeds), int(table.shape[0]))
     live = torch.ones(table.shape[0], dtype=torch.bool, device=table.device)
-    local, _ = scan_topk(table, sqn, live, qd, k=s)
+    metric = "hamming" if table.dtype == torch.int32 else "euclidean"
+    local, _ = scan_topk(table, sqn, live, qd, k=s, metric=metric)
     return torch.where(local >= 0, ids_dev[local.clamp(min=0).long()], -1)
 
 
@@ -579,8 +585,6 @@ def search_batch(
         raise ValueError(f"unknown reply mode {reply!r}")
     if index.enterpoint < 0 or index.node_count == 0:
         return empty_reply(n_q, k, reply)
-    if cfg.metric == "hamming":
-        raise not_ported_hamming()
     snap = index.device_snapshot(max_staleness=staleness)
     use_scan = engine == "scan" or (
         engine == "auto" and snap.n_pad <= SCAN_MAX_ROWS.get(cfg.metric, 0)

@@ -283,7 +283,7 @@ def _sqnorms_np(index, vec_rows):
     return np.einsum("nd,nd->n", vec_rows, vec_rows).astype(np.float32)
 
 
-def _to_device(arr: np.ndarray, device) -> torch.Tensor:
+def to_device(arr: np.ndarray, device) -> torch.Tensor:
     if arr.dtype == np.uint32:
         # torch has no full uint32 support: packed bits ride as int32
         arr = arr.view(np.int32)
@@ -351,9 +351,9 @@ def build_snapshot(index, prev: Snapshot | None = None) -> Snapshot:
     sq = np.zeros(n_pad, np.float32)
     sq[:n_rows] = _sqnorms_np(index, vecs[:n_rows])
 
-    vecs_d = _to_device(vecs, dev)
-    sq_d = _to_device(sq, dev)
-    adj0_d = _to_device(adj0, dev)
+    vecs_d = to_device(vecs, dev)
+    sq_d = to_device(sq, dev)
+    adj0_d = to_device(adj0, dev)
     nbrvec = nbrsqn = qrows = None
     if nv_dtype is not None:
         nbrvec, nbrsqn = _build_nbrvec(vecs_d, sq_d, adj0_d, dtype=nv_dtype)
@@ -363,8 +363,8 @@ def build_snapshot(index, prev: Snapshot | None = None) -> Snapshot:
         vecs=vecs_d,
         sqnorms=sq_d,
         adj0=adj0_d,
-        adj_up=_to_device(adj_up, dev),
-        upper_of=_to_device(upper_of, dev),
+        adj_up=to_device(adj_up, dev),
+        upper_of=to_device(upper_of, dev),
         ep=max(int(index.enterpoint), 0),
         max_layer=int(index.max_layer),
         metric=cfg.metric,
@@ -396,17 +396,17 @@ def _apply_delta(prev: Snapshot, vrows, vec_data, sq_data, arows,
     dev = prev.vecs.device
     if len(vrows):
         idx = torch.from_numpy(vrows).to(dev)
-        vec_d = _to_device(vec_data, dev)
-        sq_d = _to_device(sq_data, dev)
+        vec_d = to_device(vec_data, dev)
+        sq_d = to_device(sq_data, dev)
         prev.vecs[idx] = vec_d
         prev.sqnorms[idx] = sq_d
         if prev.qrows is not None:
             prev.qrows[idx] = _quantize_rows(vec_d, sq_d)
     if len(arows):
         idx = torch.from_numpy(arows.astype(np.int64)).to(dev)
-        adj_d = _to_device(adj0_data, dev)
+        adj_d = to_device(adj0_data, dev)
         prev.adj0[idx] = adj_d
-        prev.upper_of[idx] = _to_device(upof_vals, dev)
+        prev.upper_of[idx] = to_device(upof_vals, dev)
         if prev.nbrvec is not None:
             # narrowing is per row, so narrowing the gathered rows
             # gives the full build's narrow-then-gather bits
@@ -421,7 +421,7 @@ def _apply_delta(prev: Snapshot, vrows, vec_data, sq_data, arows,
     if len(wipe_flat):
         flat_up[torch.from_numpy(wipe_flat).to(dev)] = -1
     if len(up_flat):
-        flat_up[torch.from_numpy(up_flat).to(dev)] = _to_device(up_data, dev)
+        flat_up[torch.from_numpy(up_flat).to(dev)] = to_device(up_data, dev)
 
 
 def _delta_snapshot(index, prev: Snapshot) -> Snapshot:

@@ -7,8 +7,11 @@ conftest (which imports jax) left out:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 chip_smoke.py covers the main path's full shapes; these are the ragged
-edges and end-to-end searches (scan and graph engines) on the card
-against the same searches on the CPU.
+edges and end-to-end searches (scan and graph engines, euclidean and
+hamming, the one-pass tier) on the card against the same searches on the
+CPU. Tolerances: bitwise on hamming words and integer-lattice data (every
+score exact in f32); 1e-5 relative on Gaussian data, where the kernels'
+FMA chains round otherwise than the plain versions' matmuls.
 """
 
 import numpy as np
@@ -16,7 +19,12 @@ import pytest
 import torch
 
 import redis_hnsw_tpu_torch as T
-from redis_hnsw_tpu_torch.ops import cuda_count, cuda_gather, cuda_scan
+from redis_hnsw_tpu_torch.ops import (
+    cuda_count,
+    cuda_gather,
+    cuda_scan,
+    cuda_select,
+)
 from redis_hnsw_tpu_torch.ops import distance as TD
 
 pytestmark = pytest.mark.cuda
@@ -73,7 +81,8 @@ def test_count_matches_selection_on_gaussian(card):
 
 def test_search_on_card_matches_cpu(card, monkeypatch):
     """The same commands on the card and on the CPU give the same
-    replies on lattice data, on both scan tiers."""
+    replies on lattice data, on the exact tier and the certified tier's
+    two-pass form (its one-pass form is test_onepass_on_card_matches_cpu)."""
     rng = np.random.default_rng(2)
     data = rng.integers(-3, 4, (3000, 32)).astype(np.float32)
     qs = rng.integers(-3, 4, (50, 32)).astype(np.float32)
@@ -87,8 +96,13 @@ def test_search_on_card_matches_cpu(card, monkeypatch):
         idx = c.index("f")
         exact = idx.search_batch(qs, 10, reply="columnar")
         monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", "1")
+        monkeypatch.setenv("REDIS_HNSW_TPU_CERT_ONEPASS", "0")
+        before = cuda_count.count_gt_eq.launches
         cert = idx.search_batch(qs, 10, reply="columnar")
+        if dev == "cuda":
+            assert cuda_count.count_gt_eq.launches == before + 1
         monkeypatch.delenv("REDIS_HNSW_TPU_SCAN_CERT")
+        monkeypatch.delenv("REDIS_HNSW_TPU_CERT_ONEPASS")
         out[dev] = (exact, cert)
     for a, b in zip(out["cuda"], out["cpu"]):
         assert np.array_equal(a[0], b[0])
@@ -179,5 +193,141 @@ def test_graph_on_card_matches_cpu(card, monkeypatch, tier):
         monkeypatch.undo()
         monkeypatch.setenv("REDIS_HNSW_TPU_NBRVEC_DTYPE", tier)
     for a, b in zip(out["cuda"], out["cpu"]):
+        assert np.array_equal(a[0], b[0])
+        assert np.array_equal(a[1].view(np.int32), b[1].view(np.int32))
+
+
+def word_operands(rng, B, N, W, dead, device):
+    q = rng.integers(0, 2**32, (B, W), dtype=np.uint32)
+    x = rng.integers(0, 2**32, (N, W), dtype=np.uint32)
+    x[N // 2] = q[0]  # a distance-0 row and a tie class
+    x[N // 3] = q[0]
+    live = torch.from_numpy(rng.random(N) >= dead).to(device)
+    qt = torch.from_numpy(q.view(np.int32)).to(device)
+    xt = torch.from_numpy(x.view(np.int32)).to(device)
+    return qt, xt, cuda_scan.hamming_bias(live)
+
+
+@pytest.mark.parametrize(
+    "B,N,W,k,dead",
+    [(3, 1000, 8, 10, 0.15), (70, 3001, 1, 256, 0.15), (5, 7, 3, 10, 0.3),
+     (130, 2049, 25, 1, 0.5), (64, 64, 8, 40, 0.0), (9, 5000, 33, 40, 0.15)],
+)
+def test_hamming_kernels_bitwise(card, B, N, W, k, dead):
+    """Kernel A′ against its plain version, bitwise, at ragged shapes (W
+    beyond one 32-word stage)."""
+    rng = np.random.default_rng(B * N + W)
+    qt, xt, bias = word_operands(rng, B, N, W, dead, card)
+    before = cuda_scan.flat_topk_hamming.launches
+    ids, sims = cuda_scan.flat_topk_hamming(qt, xt, bias, k=k)
+    pi, ps = cuda_scan.plain_flat_topk_hamming(qt, xt, bias, k=k)
+    torch.cuda.synchronize()
+    assert cuda_scan.flat_topk_hamming.launches == before + 1
+    assert torch.equal(ids, pi)
+    assert torch.equal(sims.view(torch.int32), ps.view(torch.int32))
+
+
+@pytest.mark.parametrize(
+    "B,N,dim,dead",
+    [(3, 1000, 128, 0.3), (70, 3001, 128, 0.0), (5, 7, 24, 0.3),
+     (130, 2049, 33, 0.5), (64, 128, 128, 0.0)],
+)
+def test_select_bins_bitwise_on_lattice(card, B, N, dim, dead):
+    """Kernel D against its plain version, bitwise on lattice data: bin
+    maxima, their ids (ties to the lowest row, dead bins) and m2."""
+    rng = np.random.default_rng(B + N)
+    qt, xt, sqm, qq = operands(rng, B, N, dim, True, dead, card)
+    if N >= 20:  # ties inside bin 0
+        xt[10:20] = xt[0:10]
+        sqm[10:20] = sqm[0:10]
+    before = cuda_select.select_bins.launches
+    got = cuda_select.select_bins(xt, sqm, qt, qq)
+    want = cuda_select.plain_select_bins(xt, sqm, qt, qq)
+    torch.cuda.synchronize()
+    assert cuda_select.select_bins.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def test_select_bins_best_is_kernel_a_top1(card):
+    """On Gaussian data D's best candidate per query is kernel A's top-1,
+    score and id bit for bit: both score through score.cuh."""
+    rng = np.random.default_rng(3)
+    qt, xt, sqm, qq = operands(rng, 200, 20000, 128, False, 0.1, card)
+    sims, ids, _ = cuda_select.select_bins(xt, sqm, qt, qq)
+    best, pos = torch.sort(sims, dim=1, descending=True, stable=True)
+    ti, ts = cuda_scan.flat_topk(qt, xt, sqm, qq, k=1)
+    assert torch.equal(ids.gather(1, pos[:, :1]), ti)
+    assert torch.equal(best[:, :1].view(torch.int32), ts.view(torch.int32))
+    ps, _, _ = cuda_select.plain_select_bins(xt, sqm, qt, qq)
+    rel = (sims - ps).abs() / ps.abs().clamp(min=1.0)
+    assert rel[torch.isfinite(ps)].max().item() <= 1e-5
+    assert torch.equal(torch.isfinite(sims), torch.isfinite(ps))
+
+
+@pytest.mark.parametrize("tier", ["f32", "off"])
+def test_hamming_search_on_card_matches_cpu(card, monkeypatch, tier):
+    """Hamming replies on the card equal the CPU's byte for byte: the
+    scan (with SCAN_CERT auto and 1: a hamming table takes the exact tier
+    either way), the graph engine (expand 1 and 16, seeds 0 and 4) and
+    the flat kind with use_pallas."""
+    monkeypatch.setenv("REDIS_HNSW_TPU_NBRVEC_DTYPE", tier)
+    rng = np.random.default_rng(11)
+    data = rng.integers(0, 2**32, (1500, 8), dtype=np.uint32)
+    data[700:710] = data[5]
+    qs = rng.integers(0, 2**32, (70, 8), dtype=np.uint32)
+    qs[0] = data[5]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        c = T.HNSW(device=dev)
+        c.create_index("h", dim=256, m=8, ef_construction=64, seed=3,
+                       metric="hamming")
+        for i in range(1500):
+            c.add_node("h", f"n{i}", data[i])
+        for i in range(0, 1500, 13):
+            c.delete_node("h", f"n{i}")
+        c.create_index("f", dim=256, kind="flat", metric="hamming")
+        c.add_batch("f", [f"n{i}" for i in range(1500)], data)
+        reps = [c.search_batch("h", qs, 10, engine="graph", reply="columnar",
+                               **kw)
+                for kw in (dict(), dict(expand=16), dict(seeds=4),
+                           dict(expand=16, seeds=4))]
+        reps.append(c.search_batch("h", qs, 10, reply="columnar"))
+        reps.append(c.index("f").search_batch(qs, 10, reply="columnar",
+                                              use_pallas=True))
+        monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", "1")
+        reps.append(c.search_batch("h", qs, 10, reply="columnar"))
+        reps.append(c.index("f").search_batch(qs, 10, reply="columnar"))
+        monkeypatch.delenv("REDIS_HNSW_TPU_SCAN_CERT")
+        out[dev] = reps
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert np.array_equal(a[0], b[0])
+        assert np.array_equal(a[1].view(np.int32), b[1].view(np.int32))
+
+
+def test_onepass_on_card_matches_cpu(card, monkeypatch):
+    """The one-pass tier on the card (kernel D, the certified tier's
+    default form) gives the CPU's replies, byte for byte, on lattice data,
+    and the exact tier's."""
+    rng = np.random.default_rng(4)
+    data = rng.integers(-3, 4, (5000, 32)).astype(np.float32)
+    qs = rng.integers(-3, 4, (60, 32)).astype(np.float32)
+    names = [f"n{i}" for i in range(5000)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        c = T.HNSW(device=dev)
+        c.create_index("f", dim=32, kind="flat")
+        c.add_batch("f", names, data)
+        c.delete_batch("f", names[::7])
+        idx = c.index("f")
+        exact = idx.search_batch(qs, 5, reply="columnar")
+        monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", "1")
+        before = cuda_select.select_bins.launches
+        onepass = idx.search_batch(qs, 5, reply="columnar")
+        if dev == "cuda":
+            assert cuda_select.select_bins.launches == before + 1
+        monkeypatch.delenv("REDIS_HNSW_TPU_SCAN_CERT")
+        out[dev] = (exact, onepass)
+    for a, b in (*zip(out["cuda"], out["cpu"]), out["cuda"]):
         assert np.array_equal(a[0], b[0])
         assert np.array_equal(a[1].view(np.int32), b[1].view(np.int32))

@@ -1,7 +1,7 @@
 """The torch port stands alone: it imports neither jax nor the JAX
 package, serves from the card unless asked for the CPU, and raises
 NotImplementedError (naming its ROADMAP item) on every branch of the JAX
-package it does not port yet."""
+package it does not port yet -- and serves the branches it has."""
 
 import ast
 import os
@@ -94,9 +94,16 @@ def test_not_ported_branches_raise(monkeypatch):
     raises(8, lambda: c.save_index("g", "/nonexistent"))
     raises(8, lambda: c.restore_index("/nonexistent"))
     raises(8, lambda: c.index("g").enable_autosave("/nonexistent"))
-    raises(9, lambda: c.search_batch("h", np.zeros((1, 2), np.uint32)))
-    raises(9, lambda: c.search_batch("h", np.zeros((1, 2), np.uint32),
-                                     engine="graph"))
+    # hamming is served: the scan, the graph engine and the flat kind
+    hq = np.zeros((1, 2), np.uint32)
+    for engine in ("auto", "scan", "graph"):
+        assert [r.name for r in c.search_batch("h", hq, engine=engine)[0]
+                ] == ["b0"]
+    c.create_index("hf", dim=64, kind="flat", metric="hamming")
+    c.add_batch("hf", ["x", "y"], np.array([[0, 1], [0, 0]], np.uint32))
+    for pallas in (False, True):
+        got = c.index("hf").search_batch(hq, 2, use_pallas=pallas)[0]
+        assert [(r.name, r.sim) for r in got] == [("y", 0.0), ("x", -1.0)]
     raises(10, lambda: c.search_batch("g", q, engine="scan-approx"))
     raises(10, lambda: c.search_batch("f", q, engine="scan-approx"))
     raises(10, lambda: c.search_batch("g", q, recall_target=0.9))
@@ -122,7 +129,9 @@ def test_not_ported_branches_raise(monkeypatch):
             "g", q, k=3, engine="graph")
     monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", "1")
     monkeypatch.setenv("REDIS_HNSW_TPU_CERT_ONEPASS", "1")
-    raises(10, lambda: c.search_batch("f", q))
+    # the one-pass certified select is served (k <= N/128 here)
+    assert len(c.search_batch("f", q, k=1)[0]) == 1
+    assert len(c.search_batch("f", q, k=3)[0]) == 3  # the two-pass gate
     monkeypatch.setenv("REDIS_HNSW_TPU_CERT_ONEPASS", "0")
     assert len(c.search_batch("f", q, k=3)[0]) == 3
     monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_DTYPE", "f64")
