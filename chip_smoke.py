@@ -14,8 +14,11 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
    library yardstick. Kernel C (block gather-score) is timed over a
    SIFT1M-size block table (1,000,064 rows x 32 neighbours x 128 dims,
    f16 and f32); kernel A′ over 1,000,064 x 256-bit rows; kernel D
-   (one-pass bin select) at the flat-sift1m shape, where
-   its best candidate per query must be kernel A's top-1 bit for bit;
+   (one-pass bin select) at its 128 x 128 tile's edges (B, N at
+   127/128/129, D = 1/33/129, split boundaries, a dead bin, a duplicate
+   row) and at the flat-sift1m shape, where its best candidate per query
+   must be kernel A's top-1 and its stable top-10 on every query it
+   certifies kernel A's top-10, bit for bit;
 2. ``hnsw-main``: the reference workload -- an HNSW index of 10,000 x 128
    rows (M=16, efcon=200, native host core) served by ``search_batch``
    on the exact scan tier (kernel A) and on the graph engine (kernel C;
@@ -36,7 +39,7 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
    oracle on a sample;
 3c. the same index on the certified tier's default, one-pass form
    (kernel D): byte-identical to the exact tier on every query,
-   certified share >= 0.95;
+   certified share >= 0.95, and kernel D's share of the batch time;
 3b. ``flat-hamming-sift256``: a flat index of 1,000,000 x 256-bit rows
    (the shape of ann-benchmarks' sift-256-hamming, seeded random bits)
    served 16,384 queries on the exact hamming tier (kernel A′), which a
@@ -118,6 +121,38 @@ def max_sm_clock_hz() -> float:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+class ClockSampler:
+    """The card's SM clock (MHz) and power draw (W), sampled by nvidia-smi
+    every 50 ms while the ``with`` block runs."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "50"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=60)
+        rows = []
+        for line in out.splitlines():
+            try:
+                rows.append([float(v) for v in line.split(",")])
+            except ValueError:
+                pass
+        self.mhz = sorted(r[0] for r in rows)
+        self.watts = max((r[1] for r in rows), default=float("nan"))
+        return False
+
+    def summary(self) -> str:
+        if not self.mhz:
+            return "no clock samples"
+        return (f"SM clock median {self.mhz[len(self.mhz) // 2]:.0f} MHz, min "
+                f"{self.mhz[0]:.0f} ({len(self.mhz)} samples), power up to "
+                f"{self.watts:.0f} W")
 
 
 def timed(fn, reps: int):
@@ -405,11 +440,14 @@ def phase_hamming_kernels(dev):
     }
 
 
-def compare_select(case, lattice, label):
+def compare_select(case, lattice, label, planted=False):
     """Kernel D against its plain version: bitwise on lattice data; on
-    Gaussian data the bin maxima within 1e-5 relative and the best
-    candidate per query equal to kernel A's top-1, score and id, bit for
-    bit. Returns the max abs difference of the bin maxima."""
+    Gaussian data the bin maxima within 1e-5 relative, the best
+    candidate per query equal to kernel A's top-1 and, on every query D
+    certifies (m2 < the 10th candidate), the stable top-10 equal to
+    kernel A's top-10, scores and ids bit for bit. ``planted``: the case
+    comes from :func:`plant_select_edges`. Returns the max abs
+    difference of the bin maxima."""
     from redis_hnsw_tpu_torch.ops import cuda_scan, cuda_select
 
     qt, xt, sqm, qq = case
@@ -425,6 +463,16 @@ def compare_select(case, lattice, label):
                                 (m2, pm2, "m2")):
             check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
                   f"{label}: kernel D {what} differ bitwise")
+        if planted:
+            same = ((xt[128:256] == qt[0]).all(1)
+                    & torch.isfinite(sqm[128:256]))
+            check((sims[:, 2] == float("-inf")).all().item()
+                  and (ids[:, 2] == 256).all().item(),
+                  f"{label}: kernel D's dead bin is not -inf at row 256")
+            check(ids[0, 1].item() == 128 + int(same.int().argmax()) <= 140
+                  and sims[0, 1].item() == 0.0 and m2[0].item() == 0.0,
+                  f"{label}: kernel D's duplicate row: not the lowest id, "
+                  f"or m2 != max1")
         return err
     rel = ((sims - ps).abs() / ps.abs().clamp(min=1.0))[fin]
     check(rel.max().item() <= 1e-5, f"{label}: kernel D bins off plain")
@@ -434,18 +482,70 @@ def compare_select(case, lattice, label):
           and torch.equal(best[:, :1].view(torch.int32),
                           ts.view(torch.int32)),
           f"{label}: kernel D's best candidate is not kernel A's top-1")
+    if sims.shape[1] >= 10:
+        top, top_ids = best[:, :10], ids.gather(1, pos[:, :10])
+        ok = m2 < top[:, -1]
+        ai, as_ = cuda_scan.flat_topk(qt, xt, sqm, qq, k=10)
+        check(torch.equal(top_ids[ok], ai[ok])
+              and torch.equal(top[ok].view(torch.int32),
+                              as_[ok].view(torch.int32)),
+              f"{label}: kernel D's certified top-10 is not kernel A's")
+        log(f"phase 1: {label}: kernel D certifies {int(ok.sum())} of "
+            f"{len(ok)} queries; their top-10 is kernel A's bit for bit")
     return err
 
 
+def plant_select_edges(case):
+    """Bin 2 (rows 256..383) all dead, and query 0 twice in bin 1 (rows
+    140 and 150): kernel D must give the dead bin -inf at row 256, and
+    for query 0 the lowest id of its copies with m2 == max1 == 0."""
+    from redis_hnsw_tpu_torch.ops import distance as Dm
+
+    qt, xt, sqm, _ = case
+    sqm[256:384] = float("inf")
+    xt[150] = qt[0] = xt[140]
+    sqm[140] = sqm[150] = (xt[140] * xt[140]).sum()
+    return qt, xt, sqm, Dm.sqnorms(qt)
+
+
+def rows_at_split_edge(dev, B, delta):
+    """A table size N that ends ``delta`` rows past a split boundary of
+    kernel D's launch (as cuda_select.plan cuts it), with several splits
+    of several bins each."""
+    from redis_hnsw_tpu_torch.ops import cuda_select
+
+    for nb in range(2, 1 << 16):
+        n = nb * cuda_select.BIN_L + delta
+        splits, per = cuda_select.plan(dev, B, n)
+        if splits > 1 and per > 1 and nb % per == 0:
+            return n
+    raise CheckFailed("kernel D: no split boundary found")
+
+
 def phase_select(dev):
-    """Kernel D: bitwise on lattice data at ragged shapes and at
-    flat-sift1m's (B = 2048, N = 1,000,064, D = 128), its best candidate
-    against kernel A's top-1 on Gaussian data there; times beside the
-    fp32 bound and a yardstick (torch.mm, then a per-bin amax)."""
+    """Kernel D: bitwise on lattice data at ragged shapes, at the edges of
+    its 128 x 128 tile and of its splits, and at flat-sift1m's (B = 2048,
+    N = 1,000,064, D = 128); on Gaussian data there its best candidate
+    against kernel A's top-1 and its certified top-10 against kernel A's
+    top-10; times beside the fp32 bound and a yardstick (torch.mm, then a
+    per-bin amax)."""
     from redis_hnsw_tpu_torch.ops import cuda_select
 
     rng = np.random.default_rng(SEED + 6)
     err = 0.0
+    edges = [(1, 129, 1), (127, 127, 33), (128, 128, 129), (129, 129, 128),
+             (128, 1000, 1), (1, 5000, 129)]
+    edges += [(129, rows_at_split_edge(dev, 129, delta), D)
+              for delta, D in ((-1, 128), (0, 33), (1, 128))]
+    for B, N, D in edges:
+        case = make_case(rng, B, N, D, True, 0.1, dev)
+        if N > 256:
+            case = plant_select_edges(case)
+        err = max(err, compare_select(case, True, f"edge B={B} N={N} D={D}",
+                                      planted=N > 256))
+        del case
+    log(f"phase 1: kernel D bitwise at its tile and split edges (B, N, D): "
+        f"{edges}")
     shapes = [("ragged N=1000 B=3 dead", dict(B=3, N=1000, D=128,
                                               dead_frac=0.3)),
               ("ragged N=3001 B=70 D=33", dict(B=70, N=3001, D=33,
@@ -460,20 +560,25 @@ def phase_select(dev):
             del case
     log("phase 1: kernel D agrees with its plain version (bitwise on "
         "lattice data; on Gaussian data its best candidate is kernel A's "
-        "top-1 bit for bit)")
+        "top-1 and its certified top-10 kernel A's, bit for bit)")
     torch.cuda.empty_cache()
     B, N, D = 2048, 1_000_064, 128
     qt, xt, sqm, qq = make_case(rng, B, N, D, False, 0.0, dev)
     nbins = -(-N // cuda_select.BIN_L)
+    splits, per = cuda_select.plan(dev, B, N)
+    with ClockSampler() as clock:
+        d_ms = sync_ms(lambda: cuda_select.select_bins(xt, sqm, qt, qq), 20)
     times = {
-        "d_ms": sync_ms(lambda: cuda_select.select_bins(xt, sqm, qt, qq), 5),
+        "d_ms": d_ms,
         "d_plain_ms": sync_ms(lambda: cuda_select.plain_select_bins(
             xt, sqm, qt, qq), 2),
         "lib_ms": sync_ms(lambda: torch.mm(qt, xt.t()).view(
             B, nbins, cuda_select.BIN_L).amax(dim=2), 3),
     }
-    log(f"phase 1: kernel D times at B={B} N={N} D={D} (ms): "
-        + json.dumps(times))
+    log(f"phase 1: kernel D times at B={B} N={N} D={D} (ms; {splits} splits "
+        f"of {per} bins per 128-query tile, "
+        f"{cuda_select.block_slots(torch.cuda.current_device())} resident "
+        f"blocks; while D ran: {clock.summary()}): " + json.dumps(times))
     bound, by = bound_ms(2.0 * B * N * D,
                          4.0 * (B * D + N * D + N + B) + 8.0 * B * nbins
                          + 4.0 * B)
@@ -877,7 +982,7 @@ def phase_graph_lattice(dev, n=2000, n_q=256, devices=("cuda", "cpu")):
         f"launches {counts}")
 
 
-def phase_flat(client, dev):
+def phase_flat(client, dev, d_ms):
     from redis_hnsw_tpu_torch.ops import scan as S
 
     n, dim, n_q, k = 1_000_000, 128, 16_384, 10
@@ -944,16 +1049,18 @@ def phase_flat(client, dev):
         f"{peak} bytes")
     onepass = phase_onepass(idx, qs, k, (enames, esims),
                             {"certified": n_q / cert_s,
-                             "exact": n_q / exact_s})
+                             "exact": n_q / exact_s}, d_ms)
     client.delete_index("flat-sift1m")
     return {name: c + onepass[name] for name, c in counts.items()}
 
 
-def phase_onepass(idx, qs, k, exact_reply, qps):
+def phase_onepass(idx, qs, k, exact_reply, qps, d_ms):
     """3c: the certified tier's default, one-pass form (kernel D) on
     flat-sift1m: byte-identical to the exact tier on every query,
     certified share >= 0.95 (two of a query's top 10 share one of 7,813
-    bins with probability ~45/7813)."""
+    bins with probability ~45/7813). Kernel D's share of the batch time
+    is its launches per batch times ``d_ms``, its phase 1 time at this
+    shape (2048 queries over 1,000,064 rows)."""
     from redis_hnsw_tpu_torch.ops import scan as S
 
     check(S.onepass_enabled(), "one-pass: not the certified tier's default")
@@ -979,10 +1086,13 @@ def phase_onepass(idx, qs, k, exact_reply, qps):
     share = 1.0 - stats["fallback_queries"] / stats["queries"]
     check(share >= 0.95, f"one-pass: certified share {share}")
     check(stats["audit_mismatches"] == 0, f"one-pass: audit {stats}")
+    d_share = counts["select_bins"] * d_ms / (op_s * 1e3)
     log(f"phase 3c: flat-sift1m one-pass (the certified tier's default): "
         f"{len(qs)} queries byte-identical to the exact tier (two runs); "
         f"certified share {share:.6f}, cert stats {stats}; first call "
-        f"{len(qs) / first_s:.0f} qps, then {len(qs) / op_s:.0f} qps, beside "
+        f"{len(qs) / first_s:.0f} qps, then {len(qs) / op_s:.0f} qps "
+        f"({op_s * 1e3:.1f} ms per {len(qs)} queries, of which kernel D "
+        f"{counts['select_bins']} x {d_ms:.2f} ms = {d_share:.1%}), beside "
         f"two-pass certified {qps['certified']:.0f} qps and exact "
         f"{qps['exact']:.0f} qps; launches {counts}")
     return counts
@@ -1198,6 +1308,40 @@ def phase_flat_hamming(client, dev):
     return counts
 
 
+def ptxas_figures(text: str, name: str) -> dict:
+    """{entry function: its ptxas -v lines} for the entry functions whose
+    mangled name holds ``name``."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function '" in line:
+            cur = line.split("'")[1]
+            cur = cur if name in cur else None
+            if cur:
+                out[cur] = []
+        elif cur and ("spill" in line or "Used" in line):
+            out[cur].append(line.split(":", 1)[-1].strip())
+    return out
+
+
+def log_select_figures(path) -> None:
+    """One line: kernel D's registers, spills and shared memory per form
+    (<4>: 16-byte copies, <1>: 4-byte copies) and its resident blocks."""
+    import ctypes
+
+    from redis_hnsw_tpu_torch.ops import cuda_select
+    from redis_hnsw_tpu_torch.utils import build
+
+    figs = ptxas_figures(build.build_log(path), "select_bins_kernel")
+    smem = ctypes.CDLL(path).select_bins_smem_bytes()
+    forms = "; ".join(
+        f"<{'4' if 'ILi4E' in fn else '1'}> " + ", ".join(lines)
+        for fn, lines in sorted(figs.items()))
+    slots = cuda_select.block_slots(torch.cuda.current_device())
+    log(f"phase 0: select_bins_kernel: {forms or 'no ptxas output'}; "
+        f"{smem} bytes of dynamic shared memory a block; {slots} resident "
+        f"blocks on the card")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1220,6 +1364,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log("  " + line.strip())
     dev = torch.device("cuda")
+    log_select_figures(paths["select_bins"])
 
     kernels = phase_kernels(dev)
     kernels.update(phase_hamming_kernels(dev))
@@ -1230,7 +1375,8 @@ def main() -> int:
     phase_graph_lattice(dev)
     path_counts = [phase_hnsw_hamming(client, dev)]
     phase_hamming_lattice(dev)
-    path_counts += [phase_flat(client, dev), phase_flat_hamming(client, dev)]
+    path_counts += [phase_flat(client, dev, kernels["select_bins"]["ms"]),
+                    phase_flat_hamming(client, dev)]
     for counts in path_counts:
         for name, c in counts.items():
             launches[name] += c

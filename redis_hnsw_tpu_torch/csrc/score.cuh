@@ -1,12 +1,13 @@
-// The one score routine of the scan kernels (scan_topk.cu, count_gt_eq.cu,
-// select_bins.cu).
+// The one score routine of the scan kernels scan_topk.cu and
+// count_gt_eq.cu; select_bins.cu reproduces its chain in its own core.
 //
 // The certified-exact scan selects with scan_topk and proves its selection
 // with count_gt_eq, which counts rows scoring above and at each query's
 // k-th selected score; the one-pass form selects and proves with
 // select_bins alone, and must rank rows as scan_topk does. Those proofs
-// are sound only if the kernels compute BIT-IDENTICAL scores. So all of
-// them compute them here, and every score is
+// are sound only if the kernels compute BIT-IDENTICAL scores. So kernels
+// A and B compute them here, kernel D (select_bins.cu, its own 128 x 128
+// tiles) by the same per-output chain, and every score is
 //
 //   dot   = fma chain over d = 0 .. D-1 in order, starting from +0:
 //           dot = __fmaf_rn(q[d], x[d], dot)

@@ -17,117 +17,298 @@
 // Every row outside the candidate set scores <= m2, so a stable top-k over
 // the candidates whose k-th score t exceeds m2 is the exact top-k of the
 // whole table (ops/scan.py _certified_onepass). That argument ranks the
-// candidates by kernel A's own scores: both kernels score through
-// rht::score_tile (score.cuh), the same 64 x 64 tiles and K-loop, so
-// D's best candidate of a query is kernel A's top-1, bit for bit.
+// candidates by kernel A's own scores, so every score here is, bit for
+// bit, the one score.cuh gives kernel A:
 //
-// The Pallas kernel carries m2 and rolls bin blocks across a sequential
-// row grid. Here a bin is two of score.cuh's 64-row tiles: block (query
-// tile, split) walks its contiguous range of bins; per tile each thread
-// reduces its 4 rows per query, 16 threads (a half-warp) combine theirs
-// with shuffles, and the two tiles of a bin combine in registers. A bin's
-// (max1, id) goes straight to its output column. m2 is reduced across
-// blocks, which run in no order, in a second pass: each block writes one
-// partial per query and split, and m2_reduce_kernel takes their max.
+//   dot   = one __fmaf_rn chain over d = 0 .. D-1 in order, from +0
+//   score = __fsub_rn(__fsub_rn(__fmul_rn(2, dot), qq), sq)
+//
+// This file does not share score.cuh's code: it reproduces that chain in
+// its own core. Dims past D are staged as zeros, and fma(0, 0, dot) == dot
+// for every dot the chain can produce (it never holds -0), so the chunking
+// of d leaves each value unchanged.
 //
 // Bound on the H100: 2*B*N*D fp32 operations against (B + N)*D*4 bytes
-// read plus the B*N/128*8 bytes of bins written -- compute-bound like
-// kernel B, whose scoring it repeats with a per-bin reduction in place of
-// the counts. Not tuned.
+// read plus B*N/128*8 bytes of bins written -- compute-bound at the
+// serving shape (7.8 ms at B = 2048, N = 1M, D = 128). There are no
+// tensor cores on purpose: TF32, 3xTF32 or bf16 splits, split-K and any
+// reassociation round otherwise than kernel A's chain, and the one-pass
+// certificate and its byte-identity with the exact tier need the same
+// bits. So the design aims at the fp32 FMA pipes:
 //
-// C interface (ctypes, ops/cuda_select.py): returns cudaGetLastError().
+// * One block tile is 128 queries x 128 rows = one bin. 128 threads each
+//   hold an 8 x 16 register tile: queries ty + 16i (i < 8) and rows
+//   tx + 8j (j < 16), tx = tid % 8, ty = tid / 8. Per 4 dims a thread
+//   loads its 8 queries' 4 dims (8 16-byte shared-memory loads), then
+//   streams its 16 rows, 32 FMAs per 16-byte load: 512 FMAs for 24
+//   loads. A warp's row loads touch 8 rows and its query loads 4
+//   queries, so every load is a broadcast of at most 128 bytes. (An
+//   8 x 8 tile with 256 threads ran over 15% slower on the H100: 256
+//   FMAs for 16 loads, and spills at 128 registers a thread;
+//   tools/select_bins_study.cu times the variants.)
+// * Operands stream through a STAGES-deep ring of K_CHUNK-dim chunks of
+//   both tiles in dynamic shared memory, filled by cp.async (16-byte
+//   copies; 4-byte copies when D % 4 != 0 or a pointer is not 16-byte
+//   aligned), with one barrier per chunk. The ring runs on across bins,
+//   so the next bin's first chunks load during this bin's last ones and
+//   its epilogue. Rows are stored as they lie in device memory ([row][d],
+//   stride K_CHUNK + 4 floats: 8 consecutive rows hit 32 distinct banks)
+//   and each thread reads 4 dims of one row per load. The query norms
+//   are copied once per block, and each bin's row norms with its first
+//   chunk into a STAGES-deep ring of their own, so the epilogue reads no
+//   device memory (reading them there cost ~4% on the H100).
+// * The epilogue runs once per bin: finish the 128 scores, fold each
+//   query's 16 rows in ascending row order (a strict > keeps the lowest
+//   index), then three 3-round shuffle reductions over the 8 lanes that
+//   share the query: the max, the lowest in-bin index holding it, the max
+//   of everything else (the winner's lane gives its second best, the
+//   others their best). One lane writes (max1, id) and folds m2 into the
+//   block's running m2 per query, kept in shared memory: a thread's
+//   registers (near the 255 limit) go to the FMA loop.
+//
+// Blocks run in no order, so m2 is reduced across them in a second pass:
+// each block writes one partial per query and split, and m2_reduce_kernel
+// takes their max. ops/cuda_select.py chooses the splits from the card's
+// resident block slots (select_bins_slots) so that the waves of blocks
+// come out even.
+//
+// C interface (ctypes, ops/cuda_select.py): select_bins_launch returns
+// cudaGetLastError(), select_bins_slots a negative value on failure.
 
-#include "score.cuh"
+#include <cstdint>
 
-namespace rht {
+#include <cuda_runtime.h>
+#include <math_constants.h>
 
-constexpr int BIN_L = 2 * TILE_R;
+namespace rht_select {
+
+constexpr int BIN_L = 128;    // rows per bin = rows per block tile
+constexpr int TILE_Q = 128;   // queries per block tile
+constexpr int THREADS = 128;
+constexpr int TQ = 16;        // threads along the queries of a tile
+constexpr int TR = 8;         // threads along its rows (lanes of a warp)
+constexpr int MQ = 8;         // register tile: MQ queries x MR rows
+constexpr int MR = 16;
+constexpr int K_CHUNK = 32;   // dims per pipeline stage
+constexpr int LD = K_CHUNK + 4;
+constexpr int STAGES = 3;
+constexpr int STAGE_ROWS = TILE_Q + BIN_L;
+constexpr int STAGE_FLOATS = STAGE_ROWS * LD;
+// the operand ring, the tile's query norms, a ring of row norms, and the
+// tile's running m2
+constexpr int SMEM_FLOATS = STAGES * STAGE_FLOATS + 2 * TILE_Q + STAGES * BIN_L;
+constexpr int SMEM_BYTES = SMEM_FLOATS * (int)sizeof(float);
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
-// Fold the reduction (o1, oi, o2) of a disjoint set of rows of the same
-// bin into (m1, i1, m2): the winner is the higher score, then the lower
-// in-bin index; the loser's best becomes a second-best candidate.
-__device__ __forceinline__ void bin_fold(float& m1, int& i1, float& m2,
-                                         float o1, int oi, float o2) {
-  if (o1 > m1 || (o1 == m1 && oi < i1)) {
-    m2 = o2 > m1 ? o2 : m1;
-    m1 = o1;
-    i1 = oi;
-  } else if (o1 > m2) {
-    m2 = o1;
+static_assert(TQ * MQ == TILE_Q && TR * MR == BIN_L, "tile");
+static_assert(TQ * TR == THREADS, "one register tile per thread");
+static_assert(THREADS == TILE_Q && THREADS == BIN_L, "one norm per thread");
+
+// cp.async of VEC floats; src_bytes < 4 * VEC zero-fills the rest.
+template <int VEC>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (VEC == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
   }
 }
 
-__global__ void __launch_bounds__(SCORE_THREADS)
-    select_bins_kernel(const EuclidScorer score, int nbins,
-                       int bins_per_split, float* __restrict__ sims,
-                       int* __restrict__ ids,
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Start copying dims [d0, d0 + K_CHUNK) of query rows q0.. (stage rows
+// 0..127) and table rows r0.. (stage rows 128..255) into one stage;
+// zeros past B, N and D. VEC = 4 needs D % 4 == 0 and aligned operands,
+// so a 16-byte copy is wholly inside or wholly outside D.
+template <int VEC>
+__device__ __forceinline__ void load_chunk(float* stage,
+                                           const float* __restrict__ Q,
+                                           const float* __restrict__ X,
+                                           int B, int N, int D, int q0,
+                                           int r0, int d0) {
+  constexpr int PER_ROW = K_CHUNK / VEC;
+  constexpr int ROWS_PER_PASS = THREADS / PER_ROW;
+  const int col = threadIdx.x % PER_ROW;
+  const int d = d0 + col * VEC;
+#pragma unroll
+  for (int p = 0; p < STAGE_ROWS / ROWS_PER_PASS; ++p) {
+    const int r = threadIdx.x / PER_ROW + p * ROWS_PER_PASS;
+    const bool is_q = p < TILE_Q / ROWS_PER_PASS;  // r < TILE_Q
+    const int g = is_q ? q0 + r : r0 + r - TILE_Q;
+    const float* base = is_q ? Q : X;
+    const bool ok = g < (is_q ? B : N) && d < D;
+    cp_async<VEC>(stage + r * LD + col * VEC,
+                  ok ? base + (size_t)g * D + d : base, ok ? 4 * VEC : 0);
+  }
+}
+
+// acc[i][j] += the chunk's products of query ty + 16i and row tx + 8j,
+// one FMA per dim in ascending order.
+__device__ __forceinline__ void fma_chunk(const float* stage, int tx, int ty,
+                                          float (&acc)[MQ][MR]) {
+  const float* qs = stage + ty * LD;
+  const float* xs = stage + (TILE_Q + tx) * LD;
+  // unrolled by 2, not 8: fully unrolled, ptxas hoists loads until the
+  // 16-byte form spills at 255 registers
+#pragma unroll 2
+  for (int k = 0; k < K_CHUNK; k += 4) {
+    float qf[MQ][4];
+#pragma unroll
+    for (int i = 0; i < MQ; ++i) {
+      const float4 v = *reinterpret_cast<const float4*>(qs + i * TQ * LD + k);
+      qf[i][0] = v.x;
+      qf[i][1] = v.y;
+      qf[i][2] = v.z;
+      qf[i][3] = v.w;
+    }
+#pragma unroll
+    for (int j = 0; j < MR; ++j) {
+      const float4 v = *reinterpret_cast<const float4*>(xs + j * TR * LD + k);
+      const float xf[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int i = 0; i < MQ; ++i)
+          acc[i][j] = __fmaf_rn(qf[i][c], xf[c], acc[i][j]);
+    }
+  }
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+    select_bins_kernel(const float* __restrict__ Q,
+                       const float* __restrict__ X,
+                       const float* __restrict__ qq,
+                       const float* __restrict__ sq, int B, int N, int D,
+                       int nbins, int bins_per_split,
+                       float* __restrict__ sims, int* __restrict__ ids,
                        float* __restrict__ m2_part) {
-  __shared__ __align__(16) ScoreStage st;
-  const int B = score.B;
+  extern __shared__ __align__(16) float smem[];
   const int q0 = blockIdx.x * TILE_Q;
   const int split = blockIdx.y;
   const int b_begin = split * bins_per_split;
   const int b_end = min(nbins, b_begin + bins_per_split);
-  const int tx = threadIdx.x % (TILE_R / MICRO);
-  const int ty = threadIdx.x / (TILE_R / MICRO);
+  const int kch = max(1, (D + K_CHUNK - 1) / K_CHUNK);
+  const int total = max(0, b_end - b_begin) * kch;
+  const int tx = threadIdx.x % TR;
+  const int ty = threadIdx.x / TR;
 
-  float run_m2[MICRO];
+  float* const qq_s = smem + STAGES * STAGE_FLOATS;
+  float* const sq_s = qq_s + TILE_Q;  // bin b's row norms at b % STAGES
+  float* const m2_s = sq_s + STAGES * BIN_L;
+  m2_s[threadIdx.x] = -CUDART_INF_F;
+  auto load = [&](int c) {
+    const int bin = b_begin + c / kch;
+    const int part = c % kch;
+    load_chunk<VEC>(smem + (c % STAGES) * STAGE_FLOATS, Q, X, B, N, D, q0,
+                    bin * BIN_L, part * K_CHUNK);
+    if (part == 0) {
+      const int r = bin * BIN_L + threadIdx.x;
+      cp_async<1>(sq_s + (bin % STAGES) * BIN_L + threadIdx.x,
+                  r < N ? sq + r : sq, r < N ? 4 : 0);
+    }
+  };
+  {
+    const int qi = q0 + threadIdx.x;  // zero past B
+    cp_async<1>(qq_s + threadIdx.x, qi < B ? qq + qi : qq, qi < B ? 4 : 0);
+  }
 #pragma unroll
-  for (int i = 0; i < MICRO; ++i) run_m2[i] = -CUDART_INF_F;
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < total) load(s);
+    cp_async_commit();
+  }
 
-  for (int bin = b_begin; bin < b_end; ++bin) {
-    float m1[MICRO], m2[MICRO];
-    int i1[MICRO];
+  float acc[MQ][MR];
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float s[MICRO][MICRO];
-      // rows >= N score -inf (score_tile gives them sq = +inf)
-      score(q0, bin * BIN_L + half * TILE_R, st, s);
+  for (int i = 0; i < MQ; ++i)
 #pragma unroll
-      for (int i = 0; i < MICRO; ++i) {
-        const int base = half * TILE_R + tx * MICRO;
-        float a1 = s[i][0];
-        int ai = base;
-        float a2 = -CUDART_INF_F;
+    for (int j = 0; j < MR; ++j) acc[i][j] = 0.f;
+
+  int kc = 0;
+  int bin = b_begin;
+  for (int c = 0; c < total; ++c) {
+    cp_async_wait<STAGES - 2>();  // chunk c has landed (this thread's part)
+    __syncthreads();  // ... everyone's; and chunk c - 1's slot is free
+    if (c + STAGES - 1 < total) load(c + STAGES - 1);
+    cp_async_commit();
+    fma_chunk(smem + (c % STAGES) * STAGE_FLOATS, tx, ty, acc);
+    if (++kc < kch) continue;
+
+    // the bin is scored: reduce it (no device memory read)
+    const int r0 = bin * BIN_L;
+    const float* const sq_bin = sq_s + (bin % STAGES) * BIN_L;
+    float sn[MR];
 #pragma unroll
-        for (int j = 1; j < MICRO; ++j) {
-          bin_fold(a1, ai, a2, s[i][j], base + j, -CUDART_INF_F);
-        }
-        // lanes tx = 0..15 of a half-warp share query ty * 4 + i
+    for (int j = 0; j < MR; ++j) {
+      const int r = tx + j * TR;
+      sn[j] = r0 + r < N ? sq_bin[r] : CUDART_INF_F;  // rows >= N: -inf
+    }
 #pragma unroll
-        for (int off = 8; off > 0; off >>= 1) {
-          const float o1 = __shfl_xor_sync(FULL_MASK, a1, off);
-          const int oi = __shfl_xor_sync(FULL_MASK, ai, off);
-          const float o2 = __shfl_xor_sync(FULL_MASK, a2, off);
-          bin_fold(a1, ai, a2, o1, oi, o2);
-        }
-        if (half == 0) {
-          m1[i] = a1;
-          i1[i] = ai;
-          m2[i] = a2;
+    for (int i = 0; i < MQ; ++i) {
+      const int qi = q0 + ty + i * TQ;
+      const float qn = qq_s[ty + i * TQ];
+      float a1 = -CUDART_INF_F, a2 = -CUDART_INF_F;
+      int aj = 0;
+#pragma unroll
+      for (int j = 0; j < MR; ++j) {
+        const float s =
+            __fsub_rn(__fsub_rn(__fmul_rn(2.f, acc[i][j]), qn), sn[j]);
+        if (j == 0 || s > a1) {
+          a2 = a1;
+          a1 = s;
+          aj = j;
         } else {
-          bin_fold(m1[i], i1[i], m2[i], a1, ai, a2);
+          a2 = s > a2 ? s : a2;
+        }
+        acc[i][j] = 0.f;
+      }
+      const int idx = tx + aj * TR;  // in-bin index of a1
+      float m1 = a1;
+#pragma unroll
+      for (int off = TR / 2; off > 0; off >>= 1) {
+        const float o = __shfl_xor_sync(FULL_MASK, m1, off);
+        m1 = o > m1 ? o : m1;
+      }
+      int win = a1 == m1 ? idx : BIN_L;
+#pragma unroll
+      for (int off = TR / 2; off > 0; off >>= 1) {
+        win = min(win, __shfl_xor_sync(FULL_MASK, win, off));
+      }
+      float m2 = idx == win ? a2 : a1;
+#pragma unroll
+      for (int off = TR / 2; off > 0; off >>= 1) {
+        const float o = __shfl_xor_sync(FULL_MASK, m2, off);
+        m2 = o > m2 ? o : m2;
+      }
+      if (tx == 0) {
+        float& run_m2 = m2_s[ty + i * TQ];
+        run_m2 = m2 > run_m2 ? m2 : run_m2;
+        if (qi < B) {
+          sims[(size_t)qi * nbins + bin] = m1;
+          ids[(size_t)qi * nbins + bin] = r0 + win;
         }
       }
     }
-#pragma unroll
-    for (int i = 0; i < MICRO; ++i) {
-      const int qi = q0 + ty * MICRO + i;
-      if (tx == 0 && qi < B) {
-        sims[(size_t)qi * nbins + bin] = m1[i];
-        ids[(size_t)qi * nbins + bin] = bin * BIN_L + i1[i];
-      }
-      run_m2[i] = m2[i] > run_m2[i] ? m2[i] : run_m2[i];
-    }
+    kc = 0;
+    ++bin;
   }
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < MICRO; ++i) {
-      const int qi = q0 + ty * MICRO + i;
-      if (qi < B) m2_part[(size_t)split * B + qi] = run_m2[i];
-    }
-  }
+  cp_async_wait<0>();  // no copy outlives the block (an empty split)
+  __syncthreads();
+  const int qi = q0 + threadIdx.x;
+  if (qi < B) m2_part[(size_t)split * B + qi] = m2_s[threadIdx.x];
 }
 
 __global__ void m2_reduce_kernel(const float* __restrict__ m2_part, int B,
@@ -142,14 +323,51 @@ __global__ void m2_reduce_kernel(const float* __restrict__ m2_part, int B,
   m2[q] = m;
 }
 
-}  // namespace rht
+template <int VEC>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(select_bins_kernel<VEC>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              SMEM_BYTES);
+}
+
+template <int VEC>
+int blocks_per_sm() {
+  int n = 0;
+  if (allow_smem<VEC>() != cudaSuccess) return -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, select_bins_kernel<VEC>, THREADS, SMEM_BYTES) != cudaSuccess) {
+    return -1;
+  }
+  return n;
+}
+
+}  // namespace rht_select
+
+// Resident blocks of kernel D the current card holds at once (the fewer
+// of its two forms), or a negative value on failure.
+extern "C" int select_bins_slots() {
+  using namespace rht_select;
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    return -1;
+  }
+  const int a = blocks_per_sm<4>();
+  const int b = blocks_per_sm<1>();
+  if (a <= 0 || b <= 0) return -1;
+  return (a < b ? a : b) * sms;
+}
+
+// The dynamic shared memory of one block, in bytes.
+extern "C" int select_bins_smem_bytes() { return rht_select::SMEM_BYTES; }
 
 extern "C" int select_bins_launch(const float* q, const float* x,
                                   const float* qq, const float* sq, int B,
                                   int N, int D, int splits, float* sims,
                                   int* ids, float* m2_part, float* m2,
                                   cudaStream_t stream) {
-  using namespace rht;
+  using namespace rht_select;
   if (B <= 0 || N <= 0) return 0;
   const int nbins = (N + BIN_L - 1) / BIN_L;
   if (splits < 1 || splits > nbins || splits > 65535) {
@@ -157,10 +375,18 @@ extern "C" int select_bins_launch(const float* q, const float* x,
   }
   const int bins_per_split = (nbins + splits - 1) / splits;
   const dim3 grid((B + TILE_Q - 1) / TILE_Q, splits);
-  select_bins_kernel<<<grid, SCORE_THREADS, 0, stream>>>(
-      EuclidScorer{q, x, qq, sq, B, N, D}, nbins, bins_per_split, sims, ids,
-      m2_part);
-  cudaError_t err = cudaGetLastError();
+  const bool vec4 = D % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  cudaError_t err = vec4 ? allow_smem<4>() : allow_smem<1>();
+  if (err != cudaSuccess) return (int)err;
+  if (vec4) {
+    select_bins_kernel<4><<<grid, THREADS, SMEM_BYTES, stream>>>(
+        q, x, qq, sq, B, N, D, nbins, bins_per_split, sims, ids, m2_part);
+  } else {
+    select_bins_kernel<1><<<grid, THREADS, SMEM_BYTES, stream>>>(
+        q, x, qq, sq, B, N, D, nbins, bins_per_split, sims, ids, m2_part);
+  }
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   m2_reduce_kernel<<<(B + 255) / 256, 256, 0, stream>>>(m2_part, B, splits,
                                                          m2);

@@ -15,9 +15,12 @@ ops/scan.py ``_certified_onepass`` builds the certified tier's one-pass
 form on it: every row outside the candidates scores <= m2.
 
 * On a CUDA tensor, :func:`select_bins` launches ``csrc/select_bins.cu``
-  or raises. It scores through the routine of ``csrc/score.cuh`` that
-  kernel A (ops/cuda_scan.py) selects with, so candidates rank by kernel
-  A's scores bit for bit.
+  or raises. Its own fp32 core (128 x 128 block tiles, one per bin, 8 x 8
+  register tiles, a cp.async ring) reproduces the FMA chain by which
+  kernel A (ops/cuda_scan.py, ``csrc/score.cuh``) scores, so candidates
+  rank by kernel A's scores bit for bit. :func:`plan_splits` cuts each
+  query tile's bins into splits so that the blocks fill whole waves of
+  the card's resident slots.
 * On a CPU tensor it runs :func:`plain_select_bins`: the chunked
   ``pairwise_neg_sq_l2`` scores of the plain top-k, over the same
   ``CHUNK_N`` chunks (a multiple of ``BIN_L``, so no bin straddles two), so
@@ -33,6 +36,7 @@ PERF.md (chip_smoke.py).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -40,6 +44,7 @@ from . import cuda_scan
 from . import distance as D
 
 BIN_L = 128
+TILE_Q = 128  # queries per block tile of the kernel
 NEG_INF = float("-inf")
 
 _P = ctypes.c_void_p
@@ -76,13 +81,50 @@ def plain_select_bins(vecs, sq_masked, q, qq):
     return torch.cat(sims, dim=1), torch.cat(ids, dim=1), m2
 
 
-def _kernel():
+@functools.lru_cache(maxsize=1024)
+def plan_splits(slots: int, q_tiles: int, nbins: int) -> int:
+    """Splits per query tile for ``q_tiles`` tiles over ``nbins`` bins on
+    a card holding ``slots`` resident blocks: the fewest that minimise
+    waves x bins per split (blocks of equal work finish together, so a
+    wave lasts as long as its largest block), trying up to four waves."""
+    best, best_cost = 1, None
+    for s in range(1, max(1, min(nbins, 4 * slots // q_tiles, 65535)) + 1):
+        cost = -(-q_tiles * s // slots) * -(-nbins // s)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+def _lib():
     from ..utils.build import load_kernel
 
-    fn = load_kernel("select_bins").select_bins_launch
-    fn.restype = _I
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
-    return fn
+    lib = load_kernel("select_bins")
+    lib.select_bins_launch.restype = _I
+    lib.select_bins_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P,
+                                       _P, _P, _P, _P]
+    lib.select_bins_slots.restype = _I
+    lib.select_bins_slots.argtypes = []
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def block_slots(device_index: int) -> int:
+    """Blocks of the kernel that card ``device_index`` holds at once."""
+    with torch.cuda.device(device_index):
+        slots = _lib().select_bins_slots()
+    if slots <= 0:
+        raise RuntimeError("select_bins: cannot read the card's occupancy")
+    return slots
+
+
+def plan(device, B: int, N: int) -> tuple[int, int]:
+    """(splits, bins per split) of a launch over B queries and N rows."""
+    nbins = -(-N // BIN_L)
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    splits = plan_splits(block_slots(index), -(-B // TILE_Q), nbins)
+    return splits, -(-nbins // splits)
 
 
 def select_bins(vecs, sq_masked, q, qq):
@@ -110,8 +152,8 @@ def select_bins(vecs, sq_masked, q, qq):
     m2 = torch.full((B,), NEG_INF, dtype=torch.float32, device=dev)
     if B == 0 or N == 0:
         return sims, ids, m2
-    launch = _kernel()
-    splits = min(cuda_scan.splits_for(dev, B, N), nbins)
+    launch = _lib().select_bins_launch
+    splits, _ = plan(dev, B, N)
     m2_part = torch.empty((splits, B), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = launch(

@@ -227,19 +227,47 @@ def test_hamming_kernels_bitwise(card, B, N, W, k, dead):
     assert torch.equal(sims.view(torch.int32), ps.view(torch.int32))
 
 
+def rows_at_split_edge(dev, B, delta):
+    """A table size N that ends ``delta`` rows past a split boundary of
+    kernel D's launch (as cuda_select.plan cuts it), with several splits
+    of several bins each."""
+    for nb in range(2, 1 << 16):
+        n = nb * cuda_select.BIN_L + delta
+        splits, per = cuda_select.plan(dev, B, n)
+        if splits > 1 and per > 1 and nb % per == 0:
+            return n
+    raise AssertionError("no split boundary found")
+
+
 @pytest.mark.parametrize(
     "B,N,dim,dead",
     [(3, 1000, 128, 0.3), (70, 3001, 128, 0.0), (5, 7, 24, 0.3),
-     (130, 2049, 33, 0.5), (64, 128, 128, 0.0)],
+     (130, 2049, 33, 0.5), (64, 128, 128, 0.0),
+     # the 128 x 128 tile's edges: B and N at 127/128/129, D not a
+     # multiple of 4 or past one 32-dim stage, split boundaries +-1
+     (1, 129, 1, 0.0), (127, 127, 33, 0.2), (128, 128, 129, 0.0),
+     (129, 129, 128, 0.1), (128, 1000, 1, 0.0), (1, 5000, 129, 0.0),
+     (129, "split-1", 128, 0.0), (129, "split+0", 33, 0.1),
+     (129, "split+1", 128, 0.0)],
 )
 def test_select_bins_bitwise_on_lattice(card, B, N, dim, dead):
     """Kernel D against its plain version, bitwise on lattice data: bin
-    maxima, their ids (ties to the lowest row, dead bins) and m2."""
+    maxima, their ids (ties to the lowest row, dead bins) and m2. Where
+    the table has 3 bins, bin 2 is all dead (-inf at its first row id)
+    and bin 1 holds query 0 twice (rows 140 and 150): the lowest id of
+    query 0's copies wins and m2 equals that bin's max1, 0."""
+    if isinstance(N, str):
+        N = rows_at_split_edge(card, B, int(N[len("split"):]))
     rng = np.random.default_rng(B + N)
     qt, xt, sqm, qq = operands(rng, B, N, dim, True, dead, card)
     if N >= 20:  # ties inside bin 0
         xt[10:20] = xt[0:10]
         sqm[10:20] = sqm[0:10]
+    if N > 256:
+        sqm[256:384] = float("inf")
+        xt[150] = qt[0] = xt[140]
+        sqm[140] = sqm[150] = (xt[140] * xt[140]).sum()
+        qq = TD.sqnorms(qt)
     before = cuda_select.select_bins.launches
     got = cuda_select.select_bins(xt, sqm, qt, qq)
     want = cuda_select.plain_select_bins(xt, sqm, qt, qq)
@@ -247,11 +275,33 @@ def test_select_bins_bitwise_on_lattice(card, B, N, dim, dead):
     assert cuda_select.select_bins.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    if N > 256:
+        sims, ids, m2 = got
+        assert (sims[:, 2] == float("-inf")).all() and (ids[:, 2] == 256).all()
+        same = (xt[128:256] == qt[0]).all(1) & torch.isfinite(sqm[128:256])
+        assert ids[0, 1].item() == 128 + int(same.int().argmax()) <= 140
+        assert sims[0, 1].item() == 0.0 and m2[0].item() == 0.0
+
+
+def test_select_bins_unaligned_operands(card):
+    """Views 4 bytes off a 16-byte boundary take kernel D's 4-byte-copy
+    form, with D % 4 == 0: still bitwise equal to the plain version."""
+    rng = np.random.default_rng(9)
+    qt, xt, sqm, qq = operands(rng, 130, 3000, 128, True, 0.1, card)
+    q_off = torch.empty(qt.numel() + 1, device=card)[1:].view_as(qt)
+    x_off = torch.empty(xt.numel() + 1, device=card)[1:].view_as(xt)
+    q_off.copy_(qt)
+    x_off.copy_(xt)
+    assert q_off.data_ptr() % 16 and x_off.data_ptr() % 16
+    got = cuda_select.select_bins(x_off, sqm, q_off, qq)
+    want = cuda_select.plain_select_bins(xt, sqm, qt, qq)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
 def test_select_bins_best_is_kernel_a_top1(card):
     """On Gaussian data D's best candidate per query is kernel A's top-1,
-    score and id bit for bit: both score through score.cuh."""
+    score and id bit for bit: both compute one in-order FMA chain."""
     rng = np.random.default_rng(3)
     qt, xt, sqm, qq = operands(rng, 200, 20000, 128, False, 0.1, card)
     sims, ids, _ = cuda_select.select_bins(xt, sqm, qt, qq)
@@ -263,6 +313,22 @@ def test_select_bins_best_is_kernel_a_top1(card):
     rel = (sims - ps).abs() / ps.abs().clamp(min=1.0)
     assert rel[torch.isfinite(ps)].max().item() <= 1e-5
     assert torch.equal(torch.isfinite(sims), torch.isfinite(ps))
+
+
+def test_select_bins_certified_top10_is_kernel_a(card):
+    """On Gaussian data, on every query D certifies (m2 < the 10th
+    candidate score), D's stable top-10 is kernel A's top-10, ids and
+    scores bit for bit -- the one-pass certificate's premise."""
+    rng = np.random.default_rng(8)
+    qt, xt, sqm, qq = operands(rng, 300, 100_000, 128, False, 0.05, card)
+    sims, ids, m2 = cuda_select.select_bins(xt, sqm, qt, qq)
+    top, pos = torch.sort(sims, dim=1, descending=True, stable=True)
+    top, top_ids = top[:, :10], ids.gather(1, pos[:, :10])
+    ok = m2 < top[:, -1]
+    ai, as_ = cuda_scan.flat_topk(qt, xt, sqm, qq, k=10)
+    assert ok.float().mean().item() >= 0.8
+    assert torch.equal(top_ids[ok], ai[ok])
+    assert torch.equal(top[ok].view(torch.int32), as_[ok].view(torch.int32))
 
 
 @pytest.mark.parametrize("tier", ["f32", "off"])

@@ -97,6 +97,23 @@ def test_select_bins_best_is_topk_top1(rng):
     assert torch.equal(s[:, :1].view(torch.int32), ts.view(torch.int32))
 
 
+@pytest.mark.parametrize(
+    "slots,q_tiles,nbins,want",
+    [(264, 16, 7813, 33),  # flat-sift1m on 132 SMs x 2: two full waves
+     (264, 1, 8, 8),       # one block per bin
+     (264, 2, 600, 120),   # one full wave, 5 bins a block
+     (264, 16, 300, 16),
+     (264, 3000, 5, 1)],   # more query tiles than four waves hold
+)
+def test_plan_splits(slots, q_tiles, nbins, want):
+    """Kernel D's row splits: the fewest that minimise waves x bins per
+    split over the card's resident block slots."""
+    got = cuda_select.plan_splits(slots, q_tiles, nbins)
+    assert got == want
+    waves = -(-q_tiles * got // slots)
+    assert got <= nbins and (got == 1 or waves <= 4)
+
+
 # -- the one-pass tier --------------------------------------------------------------
 
 @pytest.fixture
