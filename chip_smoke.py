@@ -6,12 +6,18 @@ Run from the root of a checkout, on a machine with one NVIDIA H100 (or
 another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
 ``redis_hnsw_tpu_torch/csrc`` into ``build/``, then:
 
-0. prints the card's name and power limit and the kernels' build time;
+0. prints the card's name and power limit, the kernels' build time and,
+   for kernels A and D (one fp32 core), ptxas registers, spills, shared
+   memory and resident blocks;
 1. holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at ragged edges: bitwise on integer-lattice
    data (every score exact in f32) and on random hamming words, to a
    stated tolerance on Gaussian data; times kernel, plain version and a
-   library yardstick. Kernel C (block gather-score) is timed over a
+   library yardstick. Kernel A (exact scan top-k) is also held bitwise
+   at its 128 x 128 tile's and its splits' edges, with equal rows planted
+   across them, at k = 1 ... 1000 and in its 4-byte-copy form, and timed
+   with the SM clock sampled, at B = 16 over 1,000,064 rows and at
+   hnsw-main's 2048 x 16,384. Kernel C (block gather-score) is timed over a
    SIFT1M-size block table (1,000,064 rows x 32 neighbours x 128 dims,
    f16 and f32); kernel A′ over 1,000,064 x 256-bit rows; kernel D
    (one-pass bin select) at its 128 x 128 tile's edges (B, N at
@@ -202,9 +208,10 @@ def make_case(rng, B, N, D, lattice, dead_frac, dev, live_rows=None):
     return qt, xt, sqm, Dm.sqnorms(qt)
 
 
-def compare_topk(case, k, lattice, label):
+def compare_topk(case, k, lattice, label, planted=None):
     """Kernel A vs its plain version on one case; returns the max abs
-    difference of the per-slot sims (matmul form)."""
+    difference of the per-slot sims (matmul form). ``planted``: the row
+    at whose sides :func:`plant_equal_rows` put query 0's copies."""
     from redis_hnsw_tpu_torch.ops import cuda_scan
     from redis_hnsw_tpu_torch.ops import distance as Dm
 
@@ -220,6 +227,10 @@ def compare_topk(case, k, lattice, label):
         check(torch.equal(ids, pids), f"{label}: kernel A ids differ")
         check(torch.equal(sims.view(torch.int32), psims.view(torch.int32)),
               f"{label}: kernel A sims differ bitwise")
+        if planted is not None:
+            want = [planted - 1, planted, planted + 1][:k]
+            check(ids[0, :3].tolist() == want,
+                  f"{label}: kernel A misorders equal rows at {planted}")
         return err
     # Gaussian: direct-form rescored sims agree per slot to 1e-5
     # relative; ids agree wherever the plain version's neighbouring
@@ -279,6 +290,8 @@ def phase_kernels(dev):
         ("ragged N=1000 B=3 dead", dict(B=3, N=1000, D=128, dead_frac=0.3)),
         ("few live rows", dict(B=5, N=1000, D=128, dead_frac=0, live_rows=6)),
         ("hnsw-main shape", dict(B=2048, N=16384, D=128, dead_frac=0.01)),
+        ("one-pass fallback shape", dict(B=16, N=1_000_064, D=128,
+                                         dead_frac=0.0001)),
         ("flat-sift1m shape", dict(B=2048, N=1_000_064, D=128,
                                    dead_frac=0.0001)),
     ]
@@ -299,11 +312,19 @@ def phase_kernels(dev):
     qt, xt, sqm, qq = make_case(rng, B, N, D, False, 0.0, dev)
     ids, sims = cuda_scan.flat_topk(qt, xt, sqm, qq, k=k_sel)
     t = sims[:, 9].contiguous()
+    with ClockSampler() as clock:
+        a_ms = sync_ms(lambda: cuda_scan.flat_topk(qt, xt, sqm, qq,
+                                                   k=k_sel), 20)
+    q16, qq16 = qt[:16].contiguous(), qq[:16].contiguous()
     times = {
-        "a_ms": sync_ms(lambda: cuda_scan.flat_topk(qt, xt, sqm, qq,
-                                                    k=k_sel), 5),
+        "a_ms": a_ms,
         "a10_ms": sync_ms(lambda: cuda_scan.flat_topk(qt, xt, sqm, qq,
-                                                      k=10), 5),
+                                                      k=10), 20),
+        # the one-pass fallback's batch, and hnsw-main's scan
+        "a_b16_ms": sync_ms(lambda: cuda_scan.flat_topk(q16, xt, sqm, qq16,
+                                                        k=10), 20),
+        "a_hnsw_ms": sync_ms(lambda: cuda_scan.flat_topk(
+            qt, xt[:16_384], sqm[:16_384], qq, k=10), 20),
         "a_plain_ms": sync_ms(lambda: cuda_scan.plain_flat_topk(
             qt, xt, sqm, qq, k=k_sel), 2),
         "lib_ms": sync_ms(lambda: torch.topk(torch.mm(qt, xt.t()), k_sel,
@@ -313,22 +334,28 @@ def phase_kernels(dev):
         "b_plain_ms": sync_ms(lambda: cuda_count.plain_count_gt_eq(
             xt, sqm, qt, qq, t), 2),
     }
-    log(f"phase 1: times at B={B} N={N} D={D} (ms): "
-        + json.dumps(times))
+    splits = {shape: cuda_scan.plan(dev, b, n) for shape, (b, n) in
+              (("B=2048", (B, N)), ("B=16", (16, N)),
+               ("2048x16384", (B, 16_384)))}
+    log(f"phase 1: times at B={B} N={N} D={D} (ms; kernel A's (splits, "
+        f"tiles per split) {splits}; while A ran at k={k_sel}: "
+        f"{clock.summary()}): " + json.dumps(times))
     shape = {"B": B, "N": N, "D": D}
     flops = 2.0 * B * N * D
     in_bytes = 4.0 * (B * D + N * D + N + B)
     a_bound, a_by = bound_ms(flops, in_bytes + 8.0 * B * k_sel)
     b_bound, b_by = bound_ms(flops, in_bytes + 4.0 * B + 8.0 * B)
-    del qt, xt, sqm, qq, ids, sims, t
+    del qt, xt, sqm, qq, ids, sims, t, q16, qq16
     torch.cuda.empty_cache()
+    err_a = max(err_a, phase_scan_edges(dev))
     return {
         "scan_topk": dict(
             route="cuda", source="redis_hnsw_tpu_torch/csrc/scan_topk.cu",
             replaces="redis_hnsw_tpu/ops/pallas_scan.py:165",
             max_abs_err=err_a, ms=times["a_ms"], plain_ms=times["a_plain_ms"],
             bound_ms=a_bound, bound_by=a_by, library_ms=times["lib_ms"],
-            shape=dict(shape, k=k_sel),
+            ms_k10=times["a10_ms"], ms_b16=times["a_b16_ms"],
+            ms_hnsw=times["a_hnsw_ms"], shape=dict(shape, k=k_sel),
         ),
         "count_gt_eq": dict(
             route="cuda", source="redis_hnsw_tpu_torch/csrc/count_gt_eq.cu",
@@ -338,6 +365,65 @@ def phase_kernels(dev):
             shape=shape,
         ),
     }
+
+
+def plant_equal_rows(case, edge):
+    """Query 0's copy at rows edge - 1, edge and edge + 1, all live: its
+    top 3 must be those rows in id order."""
+    qt, xt, sqm, _ = case
+    xt[edge - 1 : edge + 2] = qt[0]
+    sqm[edge - 1 : edge + 2] = (qt[0] * qt[0]).sum()
+
+
+def phase_scan_edges(dev):
+    """Kernel A bitwise against its plain version on lattice data: at the
+    edges of its 128 x 128 tile (B, N at 1/127/128/129, B = 2049) and of
+    its splits (N one row short of, at and past a boundary), with dead
+    rows and equal rows planted across the tile edge and the boundary; at
+    every width (k = 1 ... 1000, past kernel A′'s 256), also with fewer
+    live rows than k; and in its 4-byte-copy form (D = 33, and operands
+    4 bytes off a 16-byte boundary). Returns the max abs difference."""
+    from redis_hnsw_tpu_torch.ops import cuda_scan
+
+    rng = np.random.default_rng(SEED + 9)
+    err, cases = 0.0, 0
+    for B in (1, 127, 128, 129, 2049):
+        for N in (1, 127, 128, 129, "split-1", "split+0", "split+1"):
+            edge = 128
+            if isinstance(N, str):
+                N, edge = split_edge(cuda_scan.plan, dev, B,
+                                     int(N[len("split"):]))
+            case = make_case(rng, B, N, 128, True, 0.1, dev)
+            planted = edge if N > edge + 1 else None
+            if planted:
+                plant_equal_rows(case, edge)
+            err = max(err, compare_topk(case, 10, True,
+                                        f"A edge B={B} N={N}", planted))
+            cases += 1
+    for k in (1, 10, 40, 64, 256, 300, 1000):
+        for live_rows in (None, 7):
+            case = make_case(rng, 130, 5000, 128, True, 0.2, dev,
+                             live_rows=live_rows)
+            plant_equal_rows(case, 128)
+            err = max(err, compare_topk(
+                case, k, True, f"A k={k} live_rows={live_rows}",
+                None if live_rows else 128))
+            cases += 1
+    for D, off in ((33, 0), (128, 1)):
+        qt, xt, sqm, qq = make_case(rng, 130, 3000, D, True, 0.1, dev)
+        q_off = torch.empty(qt.numel() + off, device=dev)[off:].view_as(qt)
+        x_off = torch.empty(xt.numel() + off, device=dev)[off:].view_as(xt)
+        q_off.copy_(qt)
+        x_off.copy_(xt)
+        case = (q_off, x_off, sqm, qq)
+        plant_equal_rows(case, 128)
+        err = max(err, compare_topk(case, 40, True,
+                                    f"A 4-byte form D={D} offset={off}", 128))
+        cases += 1
+    log(f"phase 1: kernel A bitwise equal to its plain version in {cases} "
+        f"edge cases (tile and split edges, planted equal rows, k = 1 ... "
+        f"1000, few live rows, the 4-byte form)")
+    return err
 
 
 def word_case(rng, B, N, W, dead_frac, dev):
@@ -508,18 +594,17 @@ def plant_select_edges(case):
     return qt, xt, sqm, Dm.sqnorms(qt)
 
 
-def rows_at_split_edge(dev, B, delta):
-    """A table size N that ends ``delta`` rows past a split boundary of
-    kernel D's launch (as cuda_select.plan cuts it), with several splits
-    of several bins each."""
-    from redis_hnsw_tpu_torch.ops import cuda_select
-
-    for nb in range(2, 1 << 16):
-        n = nb * cuda_select.BIN_L + delta
-        splits, per = cuda_select.plan(dev, B, n)
-        if splits > 1 and per > 1 and nb % per == 0:
-            return n
-    raise CheckFailed("kernel D: no split boundary found")
+def split_edge(plan, dev, B, delta):
+    """(N, first boundary row): a table size N that ends ``delta`` rows
+    past a split boundary of a launch of kernel A or D (as its module's
+    ``plan`` cuts the 128-row tiles), with several splits of several
+    tiles each."""
+    for nt in range(2, 1 << 16):
+        n = nt * 128 + delta
+        splits, per = plan(dev, B, n)
+        if splits > 1 and per > 1 and nt % per == 0:
+            return n, per * 128
+    raise CheckFailed("no split boundary found")
 
 
 def phase_select(dev):
@@ -535,7 +620,7 @@ def phase_select(dev):
     err = 0.0
     edges = [(1, 129, 1), (127, 127, 33), (128, 128, 129), (129, 129, 128),
              (128, 1000, 1), (1, 5000, 129)]
-    edges += [(129, rows_at_split_edge(dev, 129, delta), D)
+    edges += [(129, split_edge(cuda_select.plan, dev, 129, delta)[0], D)
               for delta, D in ((-1, 128), (0, 33), (1, 128))]
     for B, N, D in edges:
         case = make_case(rng, B, N, D, True, 0.1, dev)
@@ -1323,21 +1408,20 @@ def ptxas_figures(text: str, name: str) -> dict:
     return out
 
 
-def log_select_figures(path) -> None:
-    """One line: kernel D's registers, spills and shared memory per form
-    (<4>: 16-byte copies, <1>: 4-byte copies) and its resident blocks."""
+def log_core_figures(path, kernel: str, smem_fn: str, slots: int) -> None:
+    """One line: a D-core kernel's registers, spills and shared memory per
+    form (<4>: 16-byte copies, <1>: 4-byte copies) and its resident
+    blocks (kernels A and D)."""
     import ctypes
 
-    from redis_hnsw_tpu_torch.ops import cuda_select
     from redis_hnsw_tpu_torch.utils import build
 
-    figs = ptxas_figures(build.build_log(path), "select_bins_kernel")
-    smem = ctypes.CDLL(path).select_bins_smem_bytes()
+    figs = ptxas_figures(build.build_log(path), kernel)
+    smem = getattr(ctypes.CDLL(path), smem_fn)()
     forms = "; ".join(
         f"<{'4' if 'ILi4E' in fn else '1'}> " + ", ".join(lines)
         for fn, lines in sorted(figs.items()))
-    slots = cuda_select.block_slots(torch.cuda.current_device())
-    log(f"phase 0: select_bins_kernel: {forms or 'no ptxas output'}; "
+    log(f"phase 0: {kernel}: {forms or 'no ptxas output'}; "
         f"{smem} bytes of dynamic shared memory a block; {slots} resident "
         f"blocks on the card")
 
@@ -1364,7 +1448,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log("  " + line.strip())
     dev = torch.device("cuda")
-    log_select_figures(paths["select_bins"])
+    from redis_hnsw_tpu_torch.ops import cuda_scan, cuda_select
+
+    card_index = torch.cuda.current_device()
+    log_core_figures(paths["scan_topk"], "scan_tile_kernel",
+                     "scan_topk_smem_bytes", cuda_scan.block_slots(card_index))
+    log_core_figures(paths["select_bins"], "select_bins_kernel",
+                     "select_bins_smem_bytes",
+                     cuda_select.block_slots(card_index))
 
     kernels = phase_kernels(dev)
     kernels.update(phase_hamming_kernels(dev))

@@ -1,13 +1,15 @@
-// The one score routine of the scan kernels scan_topk.cu and
-// count_gt_eq.cu; select_bins.cu reproduces its chain in its own core.
+// The score routine of count_gt_eq.cu (kernel B), and the hamming score
+// of scan_topk.cu's kernel A′; kernels A (scan_topk.cu) and D
+// (select_bins.cu) reproduce its euclidean chain in their own 128 x 128
+// cores.
 //
 // The certified-exact scan selects with scan_topk and proves its selection
 // with count_gt_eq, which counts rows scoring above and at each query's
 // k-th selected score; the one-pass form selects and proves with
 // select_bins alone, and must rank rows as scan_topk does. Those proofs
-// are sound only if the kernels compute BIT-IDENTICAL scores. So kernels
-// A and B compute them here, kernel D (select_bins.cu, its own 128 x 128
-// tiles) by the same per-output chain, and every score is
+// are sound only if the kernels compute BIT-IDENTICAL scores. So kernel B
+// computes them here, kernels A and D by the same per-output chain, and
+// every score is
 //
 //   dot   = fma chain over d = 0 .. D-1 in order, starting from +0:
 //           dot = __fmaf_rn(q[d], x[d], dot)
@@ -44,9 +46,8 @@
 // kernel's -count + 0 does. Its H100 bound is the popcount rate (16 per
 // clock per SM, a quarter of the integer ALU rate), B*N*W of them.
 //
-// Scorer structs (EuclidScorer, HammingScorer) carry one form's operands,
-// so scan_topk.cu, templated on the scorer, keeps one selection body for
-// both metrics.
+// HammingScorer carries the hamming form's operands for scan_topk.cu's
+// split kernel, which is templated on its scorer.
 
 #pragma once
 
@@ -204,20 +205,6 @@ __device__ __forceinline__ void hamming_tile(const int* __restrict__ Q,
     }
   }
 }
-
-struct EuclidScorer {
-  using Stage = ScoreStage;
-  const float* Q;
-  const float* X;
-  const float* qq;
-  const float* sq;
-  int B, N, D;
-
-  __device__ __forceinline__ void operator()(
-      int q0, int r0, Stage& st, float (&s)[MICRO][MICRO]) const {
-    score_tile(Q, X, qq, sq, B, N, D, q0, r0, st, s);
-  }
-};
 
 struct HammingScorer {
   using Stage = WordStage;

@@ -11,10 +11,11 @@ score ``-inf``.
 
 Soundness: the certificate (ops/scan.py) compares these counts with the
 counts over the selected scores, so the recomputed scores must be
-bit-identical to the selection pass's. On CUDA both kernels score through
-the one routine in ``csrc/score.cuh`` (a sequential fp32 FMA chain over
-the dims, then explicitly rounded subtractions), so they are by
-construction; on the CPU both plain versions score through
+bit-identical to the selection pass's. On CUDA both kernels compute the
+chain of ``csrc/score.cuh`` (a sequential fp32 FMA chain over the dims,
+then explicitly rounded subtractions) -- this kernel through that routine,
+kernel A through its own 128 x 128 core -- so they are by arithmetic; on
+the CPU both plain versions score through
 ops/distance.py ``pairwise_neg_sq_l2`` over the same ``CHUNK_N`` chunks.
 The every-256th-batch audit in ops/scan.py certified_finish still turns
 any residual drift into a counted, repaired signal.

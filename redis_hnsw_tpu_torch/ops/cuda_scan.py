@@ -24,12 +24,21 @@ formulation (ops/scan.py ``pm1_table``, ``_chunk_scores``): the bits as a
 partial sum is an integer below 2^24.
 
 * On a CUDA tensor, :func:`flat_topk` launches the hand-written CUDA
-  kernel ``csrc/scan_topk.cu`` (scores through the routine of
-  ``csrc/score.cuh`` that the count kernel shares, so the certificate
-  sees bit-identical scores) or raises.
-* On a CPU tensor it runs :func:`plain_flat_topk`: ``CHUNK_N``-row chunks
-  through ``torch.mm``, a stable sort and a merge -- the kernel's
-  reference in the tests.
+  kernel ``csrc/scan_topk.cu`` or raises. It scores with kernel D's core
+  (128 x 128 block tiles, 8 x 16 fp32 register tiles, a cp.async ring)
+  by the FMA chain of ``csrc/score.cuh``, through which the count kernel
+  scores, so the certificate sees bit-identical scores. Each score is
+  tested in registers against its query's admission threshold; survivors
+  go to a per-(split, query) heap in device memory, so every k is served.
+  :func:`plan` cuts the rows into splits that fill whole waves of the
+  card's resident blocks; a second kernel merges the splits' sorted
+  lists (:func:`plain_merge_lists` is its plain version).
+  :func:`flat_topk_hamming` launches kernel A′ (64 x 64 tiles, sorted
+  lists in shared memory), which takes k <= ``HAMMING_MAX_K``.
+* On a CPU tensor they run :func:`plain_flat_topk` /
+  :func:`plain_flat_topk_hamming`: ``CHUNK_N``-row chunks through
+  ``torch.mm`` and :func:`chunked_topk` -- the kernels' references in the
+  tests.
 
 Bound on the H100: the scoring is 2*B*N*D fp32 operations (true fp32, no
 tensor cores) against (B + N)*D*4 bytes, so it is compute-bound at the
@@ -41,6 +50,7 @@ measured by chip_smoke.py.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -48,9 +58,12 @@ from . import distance as D
 
 NEG_INF = float("-inf")
 
-# Largest selection width the kernel's shared-memory lists hold: k_sel =
-# 4k at the default oversample covers k <= 64 on the certified tier.
-MAX_K = 256
+# Largest selection width of kernel A′'s shared-memory lists. Kernel A
+# has none (its lists live in device memory); a hamming scan above it
+# takes ops/scan.py's chunked route.
+HAMMING_MAX_K = 256
+
+TILE = 128  # queries, and rows, per block tile of kernel A
 
 # Rows scored per chunk by the plain version: bounds its [B, CHUNK_N]
 # score tile. The plain count (ops/cuda_count.py) chunks identically, so
@@ -65,11 +78,6 @@ _I = ctypes.c_int
 def _check_table(queries, table, row_op, k, dtype):
     """Shapes, k, element types and device shared by both score forms:
     queries [B, D] and table [N, D] of ``dtype``, a [N] f32 row operand."""
-    if k > MAX_K:
-        raise ValueError(
-            f"scan top-k supports k <= {MAX_K} (the kernel's selection "
-            f"width), got k={k}"
-        )
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     if queries.dim() != 2 or table.dim() != 2:
@@ -100,11 +108,14 @@ def check_operands(queries, vecs, sq_masked, qq, k):
         raise ValueError("all operands must be on one device")
 
 
-def _plain_topk(scores_of, B, N, k, dev):
-    """The plain versions' selection: ``scores_of(lo, hi)`` scores one
-    ``CHUNK_N``-row chunk; a stable descending sort per chunk (row order
-    breaks ties) and a merge with the running best -- earlier chunks
-    first, so equal scores keep the lower id."""
+def chunked_topk(scores_of, B, N, k, dev):
+    """Top k by chunks, as the JAX package's XLA scan selects
+    (redis_hnsw_tpu/ops/scan.py ``_select_merge``): ``scores_of(lo,
+    hi)`` scores one ``CHUNK_N``-row chunk; a stable descending sort per
+    chunk (row order breaks ties) and a merge with the running best --
+    earlier chunks first, so equal scores keep the lower id. The plain
+    versions select with it, and so does ops/scan.py's route for hamming
+    widths above kernel A′'s."""
     top_s = torch.full((B, 0), NEG_INF, dtype=torch.float32, device=dev)
     top_i = torch.full((B, 0), -1, dtype=torch.int32, device=dev)
     for lo in range(0, N, CHUNK_N):
@@ -134,8 +145,8 @@ def _plain_topk(scores_of, B, N, k, dev):
 def plain_flat_topk(queries, vecs, sq_masked, qq, *, k: int):
     """Plain PyTorch version of :func:`flat_topk`: chunked matmul-form
     scores (ops/distance.py pairwise_neg_sq_l2) through
-    :func:`_plain_topk`."""
-    return _plain_topk(
+    :func:`chunked_topk`."""
+    return chunked_topk(
         lambda lo, hi: D.pairwise_neg_sq_l2(
             queries, vecs[lo:hi], sq_masked[lo:hi], qq
         ),
@@ -143,23 +154,69 @@ def plain_flat_topk(queries, vecs, sq_masked, qq, *, k: int):
     )
 
 
+def plain_merge_lists(part_s, part_i, k: int):
+    """Plain version of kernel A's merge (``list_merge_kernel``): the best
+    k of ``S`` per-split lists ``part_s``/``part_i`` [S, B, k], each
+    sorted best first over a contiguous row range, split 0 lowest. Split
+    order is row order, so a stable sort of the lists laid end to end
+    keeps ties on the lower id. (-inf, -1) past the last real entry."""
+    S, B, kk = part_s.shape
+    flat_s = part_s.permute(1, 0, 2).reshape(B, S * kk)
+    flat_i = part_i.permute(1, 0, 2).reshape(B, S * kk)
+    top_s, pos = torch.sort(flat_s, dim=1, descending=True, stable=True)
+    top_s = top_s[:, :k]
+    top_i = torch.gather(flat_i, 1, pos[:, :k])
+    top_i = torch.where(top_s == NEG_INF, torch.full_like(top_i, -1), top_i)
+    return top_i, top_s
+
+
 def splits_for(device, n_q: int, n_rows: int) -> int:
-    """Row splits per query tile: enough blocks for ~4 per SM, at most
-    32 (one merge lane each) and at most one per 64-row tile."""
+    """Row splits per 64-query tile of kernels A′ and B: enough blocks
+    for ~4 per SM, at most 32 (one merge lane each) and at most one per
+    64-row tile."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     q_tiles = -(-n_q // 64)
     want = -(-4 * sms // q_tiles)
     return max(1, min(32, want, -(-n_rows // 64)))
 
 
-def _kernel():
+def _lib():
     from ..utils.build import load_kernel
 
     lib = load_kernel("scan_topk")
-    fn = lib.scan_topk_launch
-    fn.restype = _I
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
-    return fn
+    lib.scan_topk_launch.restype = _I
+    lib.scan_topk_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                                     _P, _P, _P]
+    lib.scan_topk_slots.restype = _I
+    lib.scan_topk_slots.argtypes = []
+    lib.scan_topk_slab_len.restype = _I
+    lib.scan_topk_slab_len.argtypes = [_I]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def block_slots(device_index: int) -> int:
+    """Blocks of kernel A's split kernel that card ``device_index`` holds
+    at once."""
+    with torch.cuda.device(device_index):
+        slots = _lib().scan_topk_slots()
+    if slots <= 0:
+        raise RuntimeError("scan_topk: cannot read the card's occupancy")
+    return slots
+
+
+def plan(device, B: int, N: int) -> tuple[int, int]:
+    """(splits, 128-row tiles per split) of kernel A over B queries and N
+    rows: kernel D's wave planner (ops/cuda_select.py plan_splits) over
+    kernel A's own resident blocks."""
+    from .cuda_select import plan_splits
+
+    tiles = max(1, -(-N // TILE))
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    splits = plan_splits(block_slots(index), -(-B // TILE), tiles)
+    return splits, -(-tiles // splits)
 
 
 def flat_topk(queries, vecs, sq_masked, qq, *, k: int):
@@ -168,9 +225,8 @@ def flat_topk(queries, vecs, sq_masked, qq, *, k: int):
     ``queries`` [B, D] f32, ``vecs`` [N, D] f32, ``sq_masked`` [N] f32
     (row sqnorms, +inf on dead rows), ``qq`` [B] f32 (query sqnorms,
     computed once by the caller). Returns (ids [B, k] int32, sims [B, k]
-    f32) in (-sim, id) order with -1/-inf padding. ``k`` <= ``MAX_K``.
-    A CUDA tensor launches the kernel; a CPU tensor takes the plain
-    version.
+    f32) in (-sim, id) order with -1/-inf padding, at any ``k``. A CUDA
+    tensor launches the kernel; a CPU tensor takes the plain version.
     """
     check_operands(queries, vecs, sq_masked, qq, k)
     if queries.device.type == "cpu":
@@ -187,16 +243,16 @@ def flat_topk(queries, vecs, sq_masked, qq, *, k: int):
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
     if B == 0:
         return out_i, out_s
-    launch = _kernel()
-    splits = splits_for(dev, B, N)
-    part_s = torch.empty((splits, B, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((splits, B, k), dtype=torch.int32, device=dev)
+    lib = _lib()
+    splits, _ = plan(dev, B, N)
+    slabs = torch.empty((splits, B, lib.scan_topk_slab_len(k), 2),
+                        dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = launch(
+        err = lib.scan_topk_launch(
             queries.data_ptr(), vecs.data_ptr(), qq.data_ptr(),
-            sq_masked.data_ptr(), B, N, Dw, k, splits,
-            part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
-            out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            sq_masked.data_ptr(), B, N, Dw, k, splits, slabs.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"scan_topk kernel launch failed: CUDA error {err}")
@@ -229,8 +285,13 @@ def hamming_bias(valid):
 
 
 def check_words(queries, words, bias, k):
-    """Validate the hamming kernels' operands: int32 words (packed uint32
-    bits) and a float32 bias (shared with ops/cuda_count.py)."""
+    """Validate kernel A′'s operands: int32 words (packed uint32 bits), a
+    float32 bias and k <= ``HAMMING_MAX_K``."""
+    if k > HAMMING_MAX_K:
+        raise ValueError(
+            f"hamming scan top-k supports k <= {HAMMING_MAX_K} (kernel "
+            f"A′'s selection width), got k={k}"
+        )
     _check_table(queries, words, bias, k, torch.int32)
 
 
@@ -255,9 +316,9 @@ def hamming_scores(q_pm1, words, bias):
 
 def plain_flat_topk_hamming(queries, words, bias, *, k: int):
     """Plain PyTorch version of :func:`flat_topk_hamming`: chunked
-    :func:`hamming_scores` through :func:`_plain_topk`."""
+    :func:`hamming_scores` through :func:`chunked_topk`."""
     q_pm1 = pm1_table(queries)
-    return _plain_topk(
+    return chunked_topk(
         lambda lo, hi: hamming_scores(q_pm1, words[lo:hi], bias[lo:hi]),
         queries.shape[0], words.shape[0], k, queries.device,
     )
@@ -278,8 +339,8 @@ def flat_topk_hamming(queries, words, bias, *, k: int):
     ``queries`` [B, W] and ``words`` [N, W] int32 packed bits, ``bias``
     [N] f32 (:func:`hamming_bias`). Returns (ids [B, k] int32, sims
     [B, k] f32 = -distance) in (-sim, id) order with -1/-inf padding.
-    ``k`` <= ``MAX_K``. A CUDA tensor launches kernel A′; a CPU tensor
-    takes the plain version.
+    ``k`` <= ``HAMMING_MAX_K``. A CUDA tensor launches kernel A′; a CPU
+    tensor takes the plain version.
     """
     check_words(queries, words, bias, k)
     if queries.device.type == "cpu":

@@ -15,12 +15,12 @@ ops/scan.py ``_certified_onepass`` builds the certified tier's one-pass
 form on it: every row outside the candidates scores <= m2.
 
 * On a CUDA tensor, :func:`select_bins` launches ``csrc/select_bins.cu``
-  or raises. Its own fp32 core (128 x 128 block tiles, one per bin, 8 x 8
-  register tiles, a cp.async ring) reproduces the FMA chain by which
-  kernel A (ops/cuda_scan.py, ``csrc/score.cuh``) scores, so candidates
-  rank by kernel A's scores bit for bit. :func:`plan_splits` cuts each
-  query tile's bins into splits so that the blocks fill whole waves of
-  the card's resident slots.
+  or raises. Its own fp32 core (128 x 128 block tiles, one per bin,
+  8 x 16 register tiles, a cp.async ring; kernel A carries a copy)
+  reproduces the FMA chain by which kernel A (ops/cuda_scan.py) scores,
+  so candidates rank by kernel A's scores bit for bit.
+  :func:`plan_splits` cuts each query tile's bins into splits so that
+  the blocks fill whole waves of the card's resident slots.
 * On a CPU tensor it runs :func:`plain_select_bins`: the chunked
   ``pairwise_neg_sq_l2`` scores of the plain top-k, over the same
   ``CHUNK_N`` chunks (a multiple of ``BIN_L``, so no bin straddles two), so

@@ -68,6 +68,90 @@ def test_kernels_bitwise_on_lattice(card, B, N, dim, k, dead):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def split_edge(plan, dev, B, delta):
+    """(N, first boundary row): a table size N that ends ``delta`` rows
+    past a split boundary of a launch of kernel A or D (as its module's
+    ``plan`` cuts the 128-row tiles), with several splits of several
+    tiles each."""
+    for nt in range(2, 1 << 16):
+        n = nt * 128 + delta
+        splits, per = plan(dev, B, n)
+        if splits > 1 and per > 1 and nt % per == 0:
+            return n, per * 128
+    raise AssertionError("no split boundary found")
+
+
+def plant_equal_rows(qt, xt, sqm, edge):
+    """Query 0's copy at rows edge - 1, edge and edge + 1 (all live): its
+    top 3 are those rows, in id order."""
+    xt[edge - 1 : edge + 2] = qt[0]
+    sqm[edge - 1 : edge + 2] = (qt[0] * qt[0]).sum()
+
+
+def assert_scan_topk_bitwise(qt, xt, sqm, qq, k, planted=None):
+    before = cuda_scan.flat_topk.launches
+    ids, sims = cuda_scan.flat_topk(qt, xt, sqm, qq, k=k)
+    pi, ps = cuda_scan.plain_flat_topk(qt, xt, sqm, qq, k=k)
+    torch.cuda.synchronize()
+    assert cuda_scan.flat_topk.launches == before + 1
+    assert torch.equal(ids, pi)
+    assert torch.equal(sims.view(torch.int32), ps.view(torch.int32))
+    if planted is not None:
+        assert ids[0, :3].tolist() == [planted - 1, planted, planted + 1]
+
+
+@pytest.mark.parametrize("B", [1, 127, 128, 129, 2049])
+@pytest.mark.parametrize(
+    "N", [1, 127, 128, 129, 1000, "split-1", "split+0", "split+1"])
+def test_scan_topk_tile_and_split_edges(card, B, N):
+    """Kernel A against its plain version, bitwise on lattice data, at the
+    edges of its 128 x 128 tile (B, N at 127/128/129, B past 16 tiles)
+    and of its splits (N one row short of, at and past a boundary), with
+    dead rows; equal rows planted across the tile edge (rows 127-129)
+    and across the first split boundary."""
+    edge = 128
+    if isinstance(N, str):
+        N, edge = split_edge(cuda_scan.plan, card, B, int(N[len("split"):]))
+    rng = np.random.default_rng(B * 7 + N)
+    qt, xt, sqm, qq = operands(rng, B, N, 128, True, 0.1, card)
+    planted = None
+    if N > edge + 1:
+        plant_equal_rows(qt, xt, sqm, edge)
+        planted = edge
+    assert_scan_topk_bitwise(qt, xt, sqm, qq, 10, planted)
+
+
+@pytest.mark.parametrize("k", [1, 10, 40, 64, 256, 300, 1000])
+@pytest.mark.parametrize("live_rows", [None, 7])
+def test_scan_topk_widths(card, k, live_rows):
+    """Every width, bitwise: k from 1 to past kernel A′'s 256, and fewer
+    live rows than k (the (-1, -inf) tail)."""
+    rng = np.random.default_rng(k)
+    qt, xt, sqm, qq = operands(rng, 130, 5000, 128, True, 0.2, card)
+    if live_rows is not None:
+        dead = torch.ones(5000, dtype=torch.bool, device=card)
+        dead[torch.from_numpy(rng.choice(5000, live_rows, replace=False))
+             .to(card)] = False
+        sqm[dead] = float("inf")
+    plant_equal_rows(qt, xt, sqm, 128)
+    assert_scan_topk_bitwise(qt, xt, sqm, qq, k)
+
+
+@pytest.mark.parametrize("dim", [33, 128])
+def test_scan_topk_four_byte_form(card, dim):
+    """D % 4 != 0, and views 4 bytes off a 16-byte boundary, take kernel
+    A's 4-byte-copy form: still bitwise equal to the plain version."""
+    rng = np.random.default_rng(dim)
+    qt, xt, sqm, qq = operands(rng, 130, 3000, dim, True, 0.1, card)
+    q_off = torch.empty(qt.numel() + 1, device=card)[1:].view_as(qt)
+    x_off = torch.empty(xt.numel() + 1, device=card)[1:].view_as(xt)
+    q_off.copy_(qt)
+    x_off.copy_(xt)
+    assert q_off.data_ptr() % 16 and x_off.data_ptr() % 16
+    plant_equal_rows(q_off, x_off, sqm, 128)
+    assert_scan_topk_bitwise(q_off, x_off, sqm, qq, 40, 128)
+
+
 def test_count_matches_selection_on_gaussian(card):
     """The certificate's premise on the card: with t = kernel A's k-th
     score, kernel B counts exactly k-1 rows above t and one at t."""
@@ -81,8 +165,9 @@ def test_count_matches_selection_on_gaussian(card):
 
 def test_search_on_card_matches_cpu(card, monkeypatch):
     """The same commands on the card and on the CPU give the same
-    replies on lattice data, on the exact tier and the certified tier's
-    two-pass form (its one-pass form is test_onepass_on_card_matches_cpu)."""
+    replies on lattice data, on the exact tier (k = 10 and 300) and the
+    certified tier's two-pass form (its one-pass form is
+    test_onepass_on_card_matches_cpu)."""
     rng = np.random.default_rng(2)
     data = rng.integers(-3, 4, (3000, 32)).astype(np.float32)
     qs = rng.integers(-3, 4, (50, 32)).astype(np.float32)
@@ -95,6 +180,7 @@ def test_search_on_card_matches_cpu(card, monkeypatch):
         c.delete_batch("f", names[::5])
         idx = c.index("f")
         exact = idx.search_batch(qs, 10, reply="columnar")
+        wide = idx.search_batch(qs, 300, reply="columnar")
         monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", "1")
         monkeypatch.setenv("REDIS_HNSW_TPU_CERT_ONEPASS", "0")
         before = cuda_count.count_gt_eq.launches
@@ -103,7 +189,7 @@ def test_search_on_card_matches_cpu(card, monkeypatch):
             assert cuda_count.count_gt_eq.launches == before + 1
         monkeypatch.delenv("REDIS_HNSW_TPU_SCAN_CERT")
         monkeypatch.delenv("REDIS_HNSW_TPU_CERT_ONEPASS")
-        out[dev] = (exact, cert)
+        out[dev] = (exact, wide, cert)
     for a, b in zip(out["cuda"], out["cpu"]):
         assert np.array_equal(a[0], b[0])
         assert np.array_equal(a[1].view(np.int32), b[1].view(np.int32))
@@ -227,18 +313,6 @@ def test_hamming_kernels_bitwise(card, B, N, W, k, dead):
     assert torch.equal(sims.view(torch.int32), ps.view(torch.int32))
 
 
-def rows_at_split_edge(dev, B, delta):
-    """A table size N that ends ``delta`` rows past a split boundary of
-    kernel D's launch (as cuda_select.plan cuts it), with several splits
-    of several bins each."""
-    for nb in range(2, 1 << 16):
-        n = nb * cuda_select.BIN_L + delta
-        splits, per = cuda_select.plan(dev, B, n)
-        if splits > 1 and per > 1 and nb % per == 0:
-            return n
-    raise AssertionError("no split boundary found")
-
-
 @pytest.mark.parametrize(
     "B,N,dim,dead",
     [(3, 1000, 128, 0.3), (70, 3001, 128, 0.0), (5, 7, 24, 0.3),
@@ -257,7 +331,7 @@ def test_select_bins_bitwise_on_lattice(card, B, N, dim, dead):
     and bin 1 holds query 0 twice (rows 140 and 150): the lowest id of
     query 0's copies wins and m2 equals that bin's max1, 0."""
     if isinstance(N, str):
-        N = rows_at_split_edge(card, B, int(N[len("split"):]))
+        N = split_edge(cuda_select.plan, card, B, int(N[len("split"):]))[0]
     rng = np.random.default_rng(B + N)
     qt, xt, sqm, qq = operands(rng, B, N, dim, True, dead, card)
     if N >= 20:  # ties inside bin 0
@@ -336,7 +410,7 @@ def test_hamming_search_on_card_matches_cpu(card, monkeypatch, tier):
     """Hamming replies on the card equal the CPU's byte for byte: the
     scan (with SCAN_CERT auto and 1: a hamming table takes the exact tier
     either way), the graph engine (expand 1 and 16, seeds 0 and 4) and
-    the flat kind with use_pallas."""
+    the flat kind with use_pallas, and at k = 300."""
     monkeypatch.setenv("REDIS_HNSW_TPU_NBRVEC_DTYPE", tier)
     rng = np.random.default_rng(11)
     data = rng.integers(0, 2**32, (1500, 8), dtype=np.uint32)
@@ -361,6 +435,8 @@ def test_hamming_search_on_card_matches_cpu(card, monkeypatch, tier):
         reps.append(c.search_batch("h", qs, 10, reply="columnar"))
         reps.append(c.index("f").search_batch(qs, 10, reply="columnar",
                                               use_pallas=True))
+        # above kernel A′'s width: the wide route on both devices
+        reps.append(c.index("f").search_batch(qs, 300, reply="columnar"))
         monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", "1")
         reps.append(c.search_batch("h", qs, 10, reply="columnar"))
         reps.append(c.index("f").search_batch(qs, 10, reply="columnar"))

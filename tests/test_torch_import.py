@@ -1,7 +1,8 @@
 """The torch port stands alone: it imports neither jax nor the JAX
 package, serves from the card unless asked for the CPU, and raises
 NotImplementedError (naming its ROADMAP item) on every branch of the JAX
-package it does not port yet -- and serves the branches it has."""
+package it does not port yet -- and serves the branches it has, at every
+k the JAX package serves."""
 
 import ast
 import os
@@ -138,14 +139,52 @@ def test_not_ported_branches_raise(monkeypatch):
     with pytest.raises(ValueError, match="SCAN_DTYPE"):
         c.search_batch("g", q)
     monkeypatch.delenv("REDIS_HNSW_TPU_SCAN_DTYPE")
-    # the kernel's selection width: k_sel = 4k on the certified tier
-    c.create_index("big", dim=8, kind="flat")
-    c.add_batch("big", [f"b{i}" for i in range(400)],
-                np.random.default_rng(0).standard_normal((400, 8)))
-    assert len(c.search_batch("big", q, k=64)[0]) == 64
-    with pytest.raises(ValueError, match="k <= 256"):
-        c.search_batch("big", q, k=65)
-    monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", "0")
-    assert len(c.search_batch("big", q, k=256)[0]) == 256
-    with pytest.raises(ValueError, match="k <= 256"):
-        c.search_batch("big", q, k=300)
+
+
+@pytest.mark.parametrize(
+    "metric,k,cert",
+    [("euclidean", 65, "1"),    # the two-pass tier selects k_sel = 260
+     ("euclidean", 257, "0"),   # the exact tier above 256
+     ("euclidean", 300, "0"),
+     ("hamming", 300, "0")],    # above kernel A′'s width: the wide route
+)
+def test_wide_k_matches_jax(monkeypatch, metric, k, cert):
+    """Every k the JAX package serves is served, on a 400-row flat index:
+    replies equal the JAX package's byte for byte on lattice data."""
+    import jax  # noqa: F401  (the JAX package, CPU-pinned by conftest)
+
+    import redis_hnsw_tpu as J
+
+    monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", cert)
+    monkeypatch.setenv("REDIS_HNSW_TPU_CERT_ONEPASS", "0")
+    rng = np.random.default_rng(k)
+    if metric == "hamming":
+        data = rng.integers(0, 2**32, (400, 3), dtype=np.uint32)
+        data[300:310] = data[7]  # a tie class
+        qs = rng.integers(0, 2**32, (5, 3), dtype=np.uint32)
+        qs[0] = data[7]
+        dim = 96
+    else:
+        data = rng.integers(-3, 4, (400, 8)).astype(np.float32)
+        data[200:220] = data[0:20]  # ties at every score
+        qs = rng.integers(-3, 4, (5, 8)).astype(np.float32)
+        dim = 8
+    names = [f"b{i}" for i in range(400)]
+    got, want = (
+        pkg.FlatIndex("big", pkg.IndexConfig(dim=dim, metric=metric), **kw)
+        for pkg, kw in ((T, dict(device="cpu")), (J, {}))
+    )
+    for idx in (got, want):
+        idx.add_batch(names, data)
+        idx.delete_batch(names[::9])
+    g = got.search_batch(qs, k, reply="columnar")
+    w = want.search_batch(qs, k, reply="columnar")
+    assert g[0].shape == (5, k)
+    assert np.array_equal(g[0], w[0])
+    if metric == "hamming":
+        # by value: the port replies a zero distance as -0.0 where the
+        # JAX package's flat exact path gives +0.0 (ROADMAP queue 3)
+        assert np.array_equal(g[1], w[1])
+        assert np.signbit(g[1][0, :10]).all()
+    else:
+        assert np.array_equal(g[1].view(np.int32), w[1].view(np.int32))

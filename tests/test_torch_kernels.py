@@ -85,8 +85,50 @@ def test_plain_topk_edges(rng, monkeypatch):
     monkeypatch.setattr(cuda_scan, "CHUNK_N", 128)
     got = cuda_scan.flat_topk(*ops, k=40)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    with pytest.raises(ValueError, match="k <= 256"):
-        cuda_scan.flat_topk(*ops, k=257)
+    # kernel A has no width: k past N pads with (-1, -inf)
+    ids, sims = cuda_scan.flat_topk(*ops, k=1001)
+    assert torch.equal(ids[:, :40], want[0]) and torch.equal(sims[:, :40],
+                                                               want[1])
+    assert (ids[:, -1] == -1).all() and torch.isinf(sims[:, -1]).all()
+
+
+@pytest.mark.parametrize(
+    "B,N,want",
+    [(2048, 1_000_064, (33, 237)),  # flat-sift1m: two full waves
+     (16, 1_000_064, (261, 30)),    # the one-pass fallback: one wave
+     (2048, 16_384, (16, 8)),       # hnsw-main's scan
+     (1, 129, (2, 1)),
+     (5, 0, (1, 1))],
+)
+def test_scan_plan(monkeypatch, B, N, want):
+    """Kernel A's row splits: kernel D's wave planner over kernel A's own
+    resident blocks (132 SMs x 2 here), so B = 2048 and a single query
+    tile both fill whole waves."""
+    monkeypatch.setattr(cuda_scan, "block_slots", lambda index: 264)
+    splits, per = cuda_scan.plan(torch.device("cuda", 0), B, N)
+    assert (splits, per) == want
+    tiles = max(1, -(-N // 128))
+    assert (splits - 1) * per < tiles <= splits * per
+
+
+@pytest.mark.parametrize("splits", [1, 33, 100])
+def test_merge_lists_over_many_splits(rng, splits):
+    """The merge of kernel A's per-split lists, more than 32 of them (one
+    merge lane used to hold one list): equal to one top-k over the whole
+    table, ties to the lower id, padding where splits run dry."""
+    q, x, live, sq, qq = make(rng, 6, 3000, 8, True)
+    ops = torch_operands(q, x, live, sq, qq)
+    k = 50
+    bounds = np.linspace(0, 3000, splits + 1).astype(int)
+    parts = [cuda_scan.plain_flat_topk(ops[0], ops[1][lo:hi],
+                                       ops[2][lo:hi], ops[3], k=k)
+             for lo, hi in zip(bounds[:-1], bounds[1:])]
+    part_i = torch.stack([torch.where(i >= 0, i + int(lo), i)
+                          for (i, _), lo in zip(parts, bounds)])
+    part_s = torch.stack([s for _, s in parts])
+    got = cuda_scan.plain_merge_lists(part_s, part_i, k)
+    want = cuda_scan.flat_topk(*ops, k=k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("N", [2048, 2048 - 724])

@@ -1,0 +1,149 @@
+"""Time every CUDA kernel of a checkout of redis_hnsw_tpu_torch at the
+main path's shapes, on one card, and print one JSON line.
+
+    python3 tools/kernel_times.py [--root DIR] [--label NAME]
+    python3 tools/kernel_times.py --a-splits 16,33,66
+
+
+``--root`` is the checkout whose package (and kernel sources) is timed,
+this one by default; it builds its kernels into ``DIR/build``. To compare
+two trees on one card, run them in turns on one machine (parent, change,
+change, parent), e.g. with the parent unpacked by ``git archive`` into a
+directory that .gitignore lists.
+
+Shapes: kernels A, B and D at B = 2048 queries over 1,000,064 rows of
+D = 128 (A at k = 10 and k_sel = 40, and also at B = 16 over those rows
+and at hnsw-main's 2048 x 16,384, k = 10); A′ at 2048 x 1,000,064 rows of
+8 words, k_sel = 40 and k = 10; C (f32 blocks) at B = 2048, E = 16 over a
+1,000,064 x 32 x 128 block table. Plus the yardstick torch.mm +
+torch.topk at k = 40 and the card's SM clock while A ran. Times are
+means of CUDA-event windows after a warm-up; data come from fixed seeds.
+
+``--a-splits`` times only kernel A at B = 2048 over 1,000,064 rows (k =
+10 and 40) with its row splits forced to each count given (a study of
+kernel A's split planner; the kernel's results do not depend on it).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+
+def sync_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def smi(query: str) -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return out.stdout.strip()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--label", default="")
+    ap.add_argument("--a-splits", default="")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, os.path.abspath(args.root))
+    from redis_hnsw_tpu_torch.ops import (
+        cuda_count,
+        cuda_gather,
+        cuda_scan,
+        cuda_select,
+    )
+    from redis_hnsw_tpu_torch.ops import distance as Dm
+    from redis_hnsw_tpu_torch.utils import build
+
+    assert os.path.abspath(build.REPO_ROOT) == os.path.abspath(args.root)
+    build.build_kernels()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    B, N, D = 2048, 1_000_064, 128
+    x = torch.randn((N, D), generator=g, device=dev)
+    q = torch.randn((B, D), generator=g, device=dev)
+    sq, qq = Dm.sqnorms(x), Dm.sqnorms(q)
+    t = {}
+    if args.a_splits:
+        planned = cuda_scan.plan(dev, B, N)
+        want = cuda_scan.flat_topk(q, x, sq, qq, k=40)
+        for s in map(int, args.a_splits.split(",")):
+            tiles = -(-N // cuda_scan.TILE)
+            cuda_scan.plan = lambda *a, s=s: (s, -(-tiles // s))
+            got = cuda_scan.flat_topk(q, x, sq, qq, k=40)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
+            for k in (10, 40):
+                t[f"a{k}_splits{s}_ms"] = sync_ms(
+                    lambda: cuda_scan.flat_topk(q, x, sq, qq, k=k), 10)
+        print(json.dumps({"label": args.label, "planned": planned,
+                          "card": smi("name,power.limit"), **t}))
+        return 0
+    t["a_ms"] = sync_ms(lambda: cuda_scan.flat_topk(q, x, sq, qq, k=40), 10)
+    t["a_clock"] = smi("clocks.sm")
+    t["a10_ms"] = sync_ms(lambda: cuda_scan.flat_topk(q, x, sq, qq, k=10),
+                          10)
+    t["lib_ms"] = sync_ms(lambda: torch.topk(torch.mm(q, x.t()), 40, dim=1),
+                          5)
+    q16, qq16 = q[:16].contiguous(), qq[:16].contiguous()
+    t["a_b16_ms"] = sync_ms(
+        lambda: cuda_scan.flat_topk(q16, x, sq, qq16, k=10), 20)
+    xs, sqs = x[:16_384], sq[:16_384]
+    t["a_hnsw_ms"] = sync_ms(
+        lambda: cuda_scan.flat_topk(q, xs, sqs, qq, k=10), 20)
+    tt = cuda_scan.flat_topk(q, x, sq, qq, k=40)[1][:, 9].contiguous()
+    t["b_ms"] = sync_ms(lambda: cuda_count.count_gt_eq(x, sq, q, qq, tt), 5)
+    t["d_ms"] = sync_ms(lambda: cuda_select.select_bins(x, sq, q, qq), 10)
+    del x, q, sq, qq, xs, sqs, q16, qq16
+    torch.cuda.empty_cache()
+
+    W = 8
+    xw = torch.randint(-2**31, 2**31 - 1, (N, W), generator=g, device=dev,
+                       dtype=torch.int32)
+    qw = torch.randint(-2**31, 2**31 - 1, (B, W), generator=g, device=dev,
+                       dtype=torch.int32)
+    bias = torch.zeros(N, device=dev)
+    t["a_hamming_ms"] = sync_ms(
+        lambda: cuda_scan.flat_topk_hamming(qw, xw, bias, k=40), 10)
+    t["a_hamming10_ms"] = sync_ms(
+        lambda: cuda_scan.flat_topk_hamming(qw, xw, bias, k=10), 10)
+    del xw, qw, bias
+    torch.cuda.empty_cache()
+
+    E, F = 16, 32
+    nbrvec = torch.randn((N, F, D), generator=g, device=dev)
+    nbrsqn = Dm.sqnorms(nbrvec)
+    qc = torch.randn((B, D), generator=g, device=dev)
+    qn = Dm.sqnorms(qc)
+    cand = torch.randint(0, N, (B, E), generator=g, device=dev,
+                         dtype=torch.int32)
+    t["c_ms"] = sync_ms(lambda: cuda_gather.fused_block_score(
+        qc, qn, nbrvec, nbrsqn, cand), 20)
+    print(json.dumps({"label": args.label, "root": args.root,
+                      "card": smi("name,power.limit"), **t}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
