@@ -7,8 +7,8 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
 ``redis_hnsw_tpu_torch/csrc`` into ``build/``, then:
 
 0. prints the card's name and power limit, the kernels' build time and,
-   for kernels A and D (one fp32 core), ptxas registers, spills, shared
-   memory and resident blocks;
+   for kernels A, A′ and D (the split kernels), ptxas registers, spills,
+   shared memory and resident blocks;
 1. holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at ragged edges: bitwise on integer-lattice
    data (every score exact in f32) and on random hamming words, to a
@@ -19,7 +19,11 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
    with the SM clock sampled, at B = 16 over 1,000,064 rows and at
    hnsw-main's 2048 x 16,384. Kernel C (block gather-score) is timed over a
    SIFT1M-size block table (1,000,064 rows x 32 neighbours x 128 dims,
-   f16 and f32); kernel A′ over 1,000,064 x 256-bit rows; kernel D
+   f16 and f32); kernel A′ (exact hamming top-k) is held bitwise in the
+   same kinds of edge cases, with tie classes planted, at k = 1 ... 1000
+   and W = 1 ... 32 in both copy forms, and timed over 1,000,064 x
+   256-bit rows (k_sel = 40 and k = 10, with the SM clock sampled), at
+   B = 16 over those rows and at 2048 x 16,384; kernel D
    (one-pass bin select) at its 128 x 128 tile's edges (B, N at
    127/128/129, D = 1/33/129, split boundaries, a dead bin, a duplicate
    row) and at the flat-sift1m shape, where its best candidate per query
@@ -75,6 +79,7 @@ import torch  # noqa: E402
 
 PEAK_FP32_FLOPS = 67e12   # H100 SXM, fp32 outside the tensor cores
 PEAK_F16_FLOPS = 989e12   # H100 SXM, fp16 tensor cores, dense
+PEAK_INT8_OPS = 1979e12   # H100 SXM, int8 tensor cores, dense
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # Population counts per clock per SM at compute capability 9.0 (CUDA C++
 # Programming Guide, arithmetic instruction throughput table); times the
@@ -380,7 +385,7 @@ def phase_scan_edges(dev):
     edges of its 128 x 128 tile (B, N at 1/127/128/129, B = 2049) and of
     its splits (N one row short of, at and past a boundary), with dead
     rows and equal rows planted across the tile edge and the boundary; at
-    every width (k = 1 ... 1000, past kernel A′'s 256), also with fewer
+    every width (k = 1 ... 1000), also with fewer
     live rows than k; and in its 4-byte-copy form (D = 33, and operands
     4 bytes off a 16-byte boundary). Returns the max abs difference."""
     from redis_hnsw_tpu_torch.ops import cuda_scan
@@ -445,9 +450,24 @@ def words_on(a, dev):
     return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)
 
 
-def compare_hamming(case, k, label):
-    """Kernel A′ against its plain version, bitwise. Returns the max abs
-    difference."""
+def plant_word_ties(case, edge):
+    """Query 0's copy at rows edge - 1 .. edge + 1, live (its top 3, in id
+    order), and row edge - 2's copy at rows edge + 2 .. edge + 5 (a tie
+    class at every distance across the edge); word_case's copies of query
+    0 move to distance 1 first."""
+    qt, xt, bias = case
+    n = xt.shape[0]
+    xt[n // 2, 0] ^= 1
+    xt[n // 3, 0] ^= 1
+    xt[edge - 1 : edge + 2] = qt[0]
+    bias[edge - 1 : edge + 2] = 0.0
+    xt[edge + 2 : edge + 6] = xt[edge - 2]
+
+
+def compare_hamming(case, k, label, planted=None):
+    """Kernel A′ against its plain version, bitwise. ``planted``: the row
+    at whose sides :func:`plant_word_ties` put query 0's copies. Returns
+    the max abs difference."""
     from redis_hnsw_tpu_torch.ops import cuda_scan
 
     qt, xt, bias = case
@@ -458,15 +478,80 @@ def compare_hamming(case, k, label):
     check(torch.equal(ids, pids), f"{label}: kernel A′ ids differ")
     check(torch.equal(sims.view(torch.int32), psims.view(torch.int32)),
           f"{label}: kernel A′ sims differ bitwise")
+    if planted is not None:
+        want = [planted - 1, planted, planted + 1][:k]
+        check(ids[0, :3].tolist() == want,
+              f"{label}: kernel A′ misorders equal rows at {planted}")
     return (sims - psims)[fin].abs().max().item() if fin.any() else 0.0
 
 
+def hamming_plan(dev, B, N):
+    from redis_hnsw_tpu_torch.ops import cuda_scan
+
+    return cuda_scan.plan(dev, B, N, hamming=True)
+
+
+def phase_hamming_edges(dev):
+    """Kernel A′ bitwise against its plain version: at the edges of its
+    128 x 128 tile (B, N at 1/127/128/129, B = 2049) and of its splits (N
+    one row short of, at and past a boundary), with dead rows and tie
+    classes planted across the tile edge and the boundary; at every width
+    (k = 1 ... 1000), also with fewer live rows than k; and at W = 1, 3,
+    8, 25 and 32, on an aligned table and on one 4 bytes off a 16-byte
+    boundary (its 16-byte and 4-byte copy forms). Returns the max abs
+    difference."""
+    rng = np.random.default_rng(SEED + 10)
+    err, cases = 0.0, 0
+    for B in (1, 127, 128, 129, 2049):
+        for N in (1, 127, 128, 129, "split-1", "split+0", "split+1"):
+            edge = 128
+            if isinstance(N, str):
+                N, edge = split_edge(hamming_plan, dev, B,
+                                     int(N[len("split"):]))
+            case = word_case(rng, B, N, 8, 0.1, dev)
+            planted = edge if N > edge + 5 else None
+            if planted:
+                plant_word_ties(case, edge)
+            err = max(err, compare_hamming(case, 10, f"A′ edge B={B} N={N}",
+                                           planted))
+            cases += 1
+    for k in (1, 10, 40, 64, 256, 257, 300, 1000):
+        for live_rows in (None, 7):
+            case = word_case(rng, 130, 5000, 3, 0.2, dev)
+            if live_rows:
+                case[2].fill_(float("-inf"))
+                case[2][torch.from_numpy(rng.choice(5000, live_rows,
+                                                    replace=False)).to(dev)] = 0
+            plant_word_ties(case, 128)
+            err = max(err, compare_hamming(
+                case, k, f"A′ k={k} live_rows={live_rows}", 128))
+            cases += 1
+    for W in (1, 3, 8, 25, 32):
+        for off in (0, 1):
+            qt, xt, bias = word_case(rng, 130, 3000, W, 0.1, dev)
+            x_off = torch.empty(xt.numel() + off, dtype=torch.int32,
+                                device=dev)[off:].view_as(xt)
+            x_off.copy_(xt)
+            case = (qt, x_off, bias)
+            plant_word_ties(case, 128)
+            err = max(err, compare_hamming(
+                case, 40, f"A′ W={W} offset={off}", 128))
+            cases += 1
+    log(f"phase 1: kernel A′ bitwise equal to its plain version in {cases} "
+        f"edge cases (tile and split edges, planted tie classes, k = 1 ... "
+        f"1000, few live rows, W = 1/3/8/25/32 in both copy forms)")
+    return err
+
+
 def phase_hamming_kernels(dev):
-    """Kernel A′: bitwise at ragged shapes and at flat-hamming-sift256's
-    (B = 2048, 1,000,064 rows of 8 words, k = 10 and k_sel = 40); times
-    beside the popcount bound and a tensor-core yardstick (torch.mm of
-    the +-1 tables in f16, exact for +-1 values, then torch.topk), which
-    the port never calls."""
+    """Kernel A′: bitwise at ragged shapes, at flat-hamming-sift256's (B =
+    2048, 1,000,064 rows of 8 words, k = 10 and k_sel = 40) and in
+    :func:`phase_hamming_edges`; timed there with the SM clock sampled,
+    also at B = 16 over those rows and at hnsw-hamming-256b's 2048 x
+    16,384, beside its int8 tensor-core bound (the popcount bound logged
+    beside it) and a tensor-core yardstick (torch.mm of the +-1 tables in
+    f16, exact for +-1 values, then torch.topk), which the port never
+    calls."""
     from redis_hnsw_tpu_torch.ops import cuda_scan
 
     rng = np.random.default_rng(SEED + 5)
@@ -485,34 +570,49 @@ def phase_hamming_kernels(dev):
         log(f"phase 1: {label} {kw}: kernel A′ (k={ks}) agrees bitwise")
         del case
     torch.cuda.empty_cache()
+    err_a = max(err_a, phase_hamming_edges(dev))
 
     B, N, W, k_sel = 2048, 1_000_064, 8, 40
     qt, xt, bias = word_case(rng, B, N, W, 0.0, dev)
     q16 = cuda_scan.pm1_table(qt).half()
     x16 = cuda_scan.pm1_table(xt).half()
+    with ClockSampler() as clock:
+        a_ms = sync_ms(lambda: cuda_scan.flat_topk_hamming(
+            qt, xt, bias, k=k_sel), 20)
+    qs16 = qt[:16].contiguous()
     times = {
-        "a_ms": sync_ms(lambda: cuda_scan.flat_topk_hamming(
-            qt, xt, bias, k=k_sel), 5),
+        "a_ms": a_ms,
         "a10_ms": sync_ms(lambda: cuda_scan.flat_topk_hamming(
-            qt, xt, bias, k=10), 5),
+            qt, xt, bias, k=10), 20),
+        "a_b16_ms": sync_ms(lambda: cuda_scan.flat_topk_hamming(
+            qs16, xt, bias, k=10), 20),
+        "a_hnsw_ms": sync_ms(lambda: cuda_scan.flat_topk_hamming(
+            qt, xt[:16_384], bias[:16_384], k=10), 20),
         "a_plain_ms": sync_ms(lambda: cuda_scan.plain_flat_topk_hamming(
             qt, xt, bias, k=k_sel), 2),
         "lib_ms": sync_ms(lambda: torch.topk(torch.mm(q16, x16.t()), k_sel,
                                              dim=1), 3),
     }
     del q16, x16
-    log(f"phase 1: hamming times at B={B} N={N} W={W} (ms): "
-        + json.dumps(times))
+    splits = {shape: hamming_plan(dev, b, n) for shape, (b, n) in
+              (("B=2048", (B, N)), ("B=16", (16, N)),
+               ("2048x16384", (B, 16_384)))}
+    log(f"phase 1: hamming times at B={B} N={N} W={W} (ms; kernel A′'s "
+        f"(splits, tiles per split) {splits}; while A′ ran at k={k_sel}: "
+        f"{clock.summary()}): " + json.dumps(times))
+    ops = 2.0 * B * N * 32 * W
     popc = float(B) * N * W
-    in_bytes = 4.0 * (B * W + N * W + N)
+    in_bytes = 4.0 * (B * W + N * W + N) + 8.0 * B * k_sel
+    a_bound, a_by = bound_ms(ops, in_bytes, PEAK_INT8_OPS)
     peak = popc_peak(dev)
-    a_bound, a_by = bound_ms(popc, in_bytes + 8.0 * B * k_sel, peak)
+    popc_bound, _ = bound_ms(popc, in_bytes, peak)
     tc_bound, _ = bound_ms(2.0 * B * N * 32 * W, 2.0 * 32 * W * (B + N),
                            PEAK_F16_FLOPS)
-    log(f"phase 1: hamming bounds: {popc:.4g} popcounts at {peak:.4g}/s "
-        f"-> A′ {a_bound:.4f} ms ({a_by}); the tensor-core yardstick's own "
-        f"bound {tc_bound:.4f} ms")
-    del qt, xt, bias
+    log(f"phase 1: hamming bounds: {ops:.4g} int8 operations at "
+        f"{PEAK_INT8_OPS:.4g}/s -> A′ {a_bound:.4f} ms ({a_by}); as "
+        f"{popc:.4g} popcounts at {peak:.4g}/s {popc_bound:.4f} ms; the f16 "
+        f"yardstick's own bound {tc_bound:.4f} ms")
+    del qt, xt, bias, qs16
     torch.cuda.empty_cache()
     shape = {"B": B, "N": N, "W": W}
     return {
@@ -521,7 +621,9 @@ def phase_hamming_kernels(dev):
             replaces="redis_hnsw_tpu/ops/pallas_scan.py:122",
             max_abs_err=err_a, ms=times["a_ms"], plain_ms=times["a_plain_ms"],
             bound_ms=a_bound, bound_by=a_by, library_ms=times["lib_ms"],
-            ms_k10=times["a10_ms"], shape=dict(shape, k=k_sel),
+            ms_k10=times["a10_ms"], ms_b16=times["a_b16_ms"],
+            ms_hnsw=times["a_hnsw_ms"], bound_ms_popcount=popc_bound,
+            shape=dict(shape, k=k_sel),
         ),
     }
 
@@ -1409,9 +1511,9 @@ def ptxas_figures(text: str, name: str) -> dict:
 
 
 def log_core_figures(path, kernel: str, smem_fn: str, slots: int) -> None:
-    """One line: a D-core kernel's registers, spills and shared memory per
+    """One line: a split kernel's registers, spills and shared memory per
     form (<4>: 16-byte copies, <1>: 4-byte copies) and its resident
-    blocks (kernels A and D)."""
+    blocks (kernels A, A′ and D)."""
     import ctypes
 
     from redis_hnsw_tpu_torch.utils import build
@@ -1419,7 +1521,7 @@ def log_core_figures(path, kernel: str, smem_fn: str, slots: int) -> None:
     figs = ptxas_figures(build.build_log(path), kernel)
     smem = getattr(ctypes.CDLL(path), smem_fn)()
     forms = "; ".join(
-        f"<{'4' if 'ILi4E' in fn else '1'}> " + ", ".join(lines)
+        f"<{'4' if 'Li4E' in fn else '1'}> " + ", ".join(lines)
         for fn, lines in sorted(figs.items()))
     log(f"phase 0: {kernel}: {forms or 'no ptxas output'}; "
         f"{smem} bytes of dynamic shared memory a block; {slots} resident "
@@ -1453,6 +1555,9 @@ def main() -> int:
     card_index = torch.cuda.current_device()
     log_core_figures(paths["scan_topk"], "scan_tile_kernel",
                      "scan_topk_smem_bytes", cuda_scan.block_slots(card_index))
+    log_core_figures(paths["scan_topk"], "hamming_tile_kernel",
+                     "scan_topk_hamming_smem_bytes",
+                     cuda_scan.hamming_block_slots(card_index))
     log_core_figures(paths["select_bins"], "select_bins_kernel",
                      "select_bins_smem_bytes",
                      cuda_select.block_slots(card_index))

@@ -73,243 +73,52 @@
 //   l + 32, ...; the warp takes the best of the lanes', and the winner
 //   advances that list and rescans its own.
 //
-// Kernel A' (hamming; topk_split_kernel<HammingScorer>, topk_merge_kernel)
-// -- the exact hamming tier. A' is bound by its B*N*W popcounts (16 per
-// clock per SM) against (B + N)*W*4 bytes. Its design is the first one:
-// block (64-query tile, split) scores through score.cuh's hamming_tile
-// (4 x 4 register tiles), stores the tile in shared memory, and one warp
-// per query inserts what beats its list's k-th entry into a sorted list
-// in shared memory (ballot for the position, shift, write); k <= 256,
-// splits <= 32 (one merge lane each).
+// Kernel A′ (hamming; hamming_tile_kernel<MmaCore>, list_merge_kernel)
+// -- the exact hamming tier, flat use_pallas on a hamming table and the
+// hamming graph engine's seed pivots. score = bias - popcount(q XOR x)
+// over W int32 words, bias 0 on a live row and -inf on a dead one.
+//
+//   Bound on the H100: as popcounts, B*N*W of them at 16 per clock per
+//   SM (3.92 ms at B = 2048, N = 1M, W = 8); as the +-1 dot product that
+//   the JAX package's matmul form computes, 2*B*N*32W int8 operations on
+//   the tensor cores (0.53 ms at the dense int8 peak), against (B + N)*W*4
+//   bytes. So A′ scores on the tensor cores: mma.sync m16n8k32 s8 x s8 ->
+//   s32, the queries as +-1 bytes, the rows as 0/1 bytes, and count =
+//   popc(q) - dot, exact in int32 (MmaCore; the bit -> byte order and
+//   the identity are at its definition). score = __fsub_rn(bias, (float)
+//   count): the plain version's bits. wgmma and TMA are left for later.
+//
+//   Selection: kernel A's. A block scores a 128-query x 128-row tile with
+//   128 threads (4 warps of 32 rows x 128 queries); the row words and
+//   bias stream through a 3-stage cp.async ring of 128-row x 8-word
+//   chunks (16-byte copies where W % 4 == 0 and the table is aligned,
+//   else 4-byte ones), and the tile's queries are expanded to bytes once
+//   per 8-word chunk (once per block for W <= 8). Each count is tested in
+//   registers against its query's key (shared memory); a warp appends a
+//   query's survivors to the (split, query) slab's buffer with one shared
+//   atomic (MmaCore::each). Thread q owns query q's heap: before a tile's
+//   appends, once some buffer holds more than DRAIN_AT (16) entries,
+//   every owner drains its buffer into its heap (one vote barrier a
+//   tile). Draining that early keeps the keys fresh: 40-50% fewer
+//   appends than draining only when a buffer could not take a tile.
+//   The heaps, drain, heap-sort and list_merge_kernel are kernel A's, so
+//   nothing bounds k but device memory, and the splits are planned from
+//   A′'s own resident blocks and its fixed work a split (ops/cuda_scan.py
+//   plan): at B = 2048 over 1M rows, one wave of 16 long splits, not two
+//   of 33. Where the time goes, and the forms tried, is in
+//   tools/hamming_core_study.cu and PERF.md.
 //
 // C interface (ctypes, ops/cuda_scan.py): scan_topk_launch (A),
-// scan_topk_slots, scan_topk_slab_len, scan_topk_smem_bytes, and
-// scan_topk_hamming_launch (A'); the launches return cudaGetLastError().
+// scan_topk_slots, scan_topk_slab_len, scan_topk_smem_bytes,
+// scan_topk_hamming_launch (A′), scan_topk_hamming_slots and
+// scan_topk_hamming_smem_bytes; the launches return cudaGetLastError().
 
 #include <cfloat>
 #include <climits>
 #include <cstdint>
 
-#include "score.cuh"
-
-namespace rht {
-
-constexpr unsigned FULL_MASK = 0xffffffffu;
-constexpr int MAX_KCAP = 256;
-constexpr int TILE_LD = TILE_R + 1;
-
-// (as, ai) ranks strictly before (bs, bi): higher score, then lower id.
-__device__ __forceinline__ bool beats(float as, int ai, float bs, int bi) {
-  return as > bs || (as == bs && ai < bi);
-}
-
-// Insert (vs, vid) into the sorted list ls/li of length k, which it is
-// known to beat at slot k-1. Called by all 32 lanes of one warp.
-__device__ __forceinline__ void warp_insert(float* ls, int* li, int k,
-                                            float vs, int vid, int lane) {
-  int pos = 0;
-  for (int base = 0; base < k; base += 32) {
-    const int j = base + lane;
-    const bool b = j < k && beats(ls[j], li[j], vs, vid);
-    pos += __popc(__ballot_sync(FULL_MASK, b));
-  }
-  float hs[MAX_KCAP / 32];
-  int hi[MAX_KCAP / 32];
-#pragma unroll
-  for (int c = 0; c < MAX_KCAP / 32; ++c) {
-    const int j = c * 32 + lane;
-    if (j >= pos && j < k - 1) {
-      hs[c] = ls[j];
-      hi[c] = li[j];
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int c = 0; c < MAX_KCAP / 32; ++c) {
-    const int j = c * 32 + lane;
-    if (j >= pos && j < k - 1) {
-      ls[j + 1] = hs[c];
-      li[j + 1] = hi[c];
-    }
-  }
-  __syncwarp();
-  if (lane == 0) {
-    ls[pos] = vs;
-    li[pos] = vid;
-  }
-  __syncwarp();
-}
-
-template <class Scorer>
-__global__ void __launch_bounds__(SCORE_THREADS)
-    topk_split_kernel(const Scorer score, int k, int kcap,
-                      int rows_per_split, float* __restrict__ part_s,
-                      int* __restrict__ part_i) {
-  using Stage = typename Scorer::Stage;
-  extern __shared__ __align__(16) unsigned char smem[];
-  Stage& st = *reinterpret_cast<Stage*>(smem);
-  float(*tile)[TILE_LD] =
-      reinterpret_cast<float(*)[TILE_LD]>(smem + sizeof(Stage));
-  float* ls = reinterpret_cast<float*>(smem + sizeof(Stage) +
-                                       sizeof(float) * TILE_Q * TILE_LD);
-  int* li = reinterpret_cast<int*>(ls + TILE_Q * kcap);
-  const int B = score.B;
-  const int N = score.N;
-
-  const int q0 = blockIdx.x * TILE_Q;
-  const int split = blockIdx.y;
-  const int r_begin = split * rows_per_split;
-  const int r_end = min(N, r_begin + rows_per_split);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int tx = threadIdx.x % (TILE_R / MICRO);
-  const int ty = threadIdx.x / (TILE_R / MICRO);
-
-  for (int e = threadIdx.x; e < TILE_Q * kcap; e += SCORE_THREADS) {
-    ls[e] = -CUDART_INF_F;
-    li[e] = INT_MAX;
-  }
-  // the scorer's first __syncthreads orders these writes before any read
-
-  for (int r0 = r_begin; r0 < r_end; r0 += TILE_R) {
-    float s[MICRO][MICRO];
-    // the scorer synchronises the block before it stages, so every
-    // warp has finished reading the previous tile when it is rewritten
-    score(q0, r0, st, s);
-#pragma unroll
-    for (int i = 0; i < MICRO; ++i)
-#pragma unroll
-      for (int j = 0; j < MICRO; ++j) {
-        const int ri = r0 + tx * MICRO + j;
-        tile[ty * MICRO + i][tx * MICRO + j] =
-            ri < r_end ? s[i][j] : -CUDART_INF_F;
-      }
-    __syncthreads();
-    for (int qi = warp; qi < TILE_Q && q0 + qi < B;
-         qi += SCORE_THREADS / 32) {
-      float* qs = ls + qi * kcap;
-      int* qids = li + qi * kcap;
-      for (int half = 0; half < TILE_R; half += 32) {
-        const float cs = tile[qi][half + lane];
-        const int cid = r0 + half + lane;
-        const bool want =
-            cs > -CUDART_INF_F && beats(cs, cid, qs[k - 1], qids[k - 1]);
-        unsigned mask = __ballot_sync(FULL_MASK, want);
-        while (mask) {
-          const int src = __ffs(mask) - 1;
-          mask &= mask - 1;
-          const float vs = __shfl_sync(FULL_MASK, cs, src);
-          const int vid = __shfl_sync(FULL_MASK, cid, src);
-          // the k-th entry may have risen since the ballot; the check
-          // reads one shared value, so the branch is warp-uniform
-          if (beats(vs, vid, qs[k - 1], qids[k - 1])) {
-            warp_insert(qs, qids, k, vs, vid, lane);
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < TILE_Q * k; e += SCORE_THREADS) {
-    const int qi = e / k;
-    const int j = e % k;
-    if (q0 + qi < B) {
-      const size_t o = ((size_t)split * B + q0 + qi) * k + j;
-      part_s[o] = ls[qi * kcap + j];
-      part_i[o] = li[qi * kcap + j];
-    }
-  }
-}
-
-__global__ void topk_merge_kernel(const float* __restrict__ part_s,
-                                  const int* __restrict__ part_i, int B,
-                                  int k, int splits,
-                                  float* __restrict__ out_s,
-                                  int* __restrict__ out_i) {
-  const int q = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (q >= B) return;  // whole warps only: blockDim.x is a multiple of 32
-  int p = 0;
-  float hs = -CUDART_INF_F;
-  int hid = INT_MAX;
-  if (lane < splits) {
-    const size_t o = ((size_t)lane * B + q) * k;
-    hs = part_s[o];
-    hid = part_i[o];
-  }
-  for (int j = 0; j < k; ++j) {
-    float bs = hs;
-    int bid = hid;
-    int bl = lane;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float os = __shfl_xor_sync(FULL_MASK, bs, off);
-      const int oid = __shfl_xor_sync(FULL_MASK, bid, off);
-      const int ol = __shfl_xor_sync(FULL_MASK, bl, off);
-      if (beats(os, oid, bs, bid)) {
-        bs = os;
-        bid = oid;
-        bl = ol;
-      }
-    }
-    const bool valid = bs > -CUDART_INF_F;
-    if (lane == 0) {
-      out_s[(size_t)q * k + j] = valid ? bs : -CUDART_INF_F;
-      out_i[(size_t)q * k + j] = valid ? bid : -1;
-    }
-    if (!valid) {
-      // every remaining head is empty: pad the rest of the row
-      for (int jj = j + 1 + lane; jj < k; jj += 32) {
-        out_s[(size_t)q * k + jj] = -CUDART_INF_F;
-        out_i[(size_t)q * k + jj] = -1;
-      }
-      break;
-    }
-    if (lane == bl) {
-      ++p;
-      hs = -CUDART_INF_F;
-      hid = INT_MAX;
-      if (p < k) {
-        const size_t o = ((size_t)lane * B + q) * k + p;
-        hs = part_s[o];
-        hid = part_i[o];
-      }
-    }
-  }
-}
-
-template <class Scorer>
-int launch_topk(const Scorer& score, int k, int splits, float* part_s,
-                int* part_i, float* out_s, int* out_i,
-                cudaStream_t stream) {
-  const int B = score.B;
-  if (B <= 0 || k <= 0) return 0;
-  if (k > MAX_KCAP || splits < 1 || splits > 32) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int kcap = ((k + 31) / 32) * 32;
-  const int tiles = (score.N + TILE_R - 1) / TILE_R;
-  const int rows_per_split = ((tiles + splits - 1) / splits) * TILE_R;
-  const size_t smem = sizeof(typename Scorer::Stage) +
-                      sizeof(float) * TILE_Q * TILE_LD +
-                      (sizeof(float) + sizeof(int)) * TILE_Q * kcap;
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_split_kernel<Scorer>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + TILE_Q - 1) / TILE_Q, splits);
-  topk_split_kernel<Scorer><<<grid, SCORE_THREADS, smem, stream>>>(
-      score, k, kcap, rows_per_split, part_s, part_i);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int warps_per_block = 8;
-  topk_merge_kernel<<<(B + warps_per_block - 1) / warps_per_block,
-                      32 * warps_per_block, 0, stream>>>(
-      part_s, part_i, B, k, splits, out_s, out_i);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace rht
+#include <cuda_runtime.h>
+#include <math_constants.h>
 
 // -- kernel A -------------------------------------------------------------
 
@@ -760,6 +569,7 @@ __global__ void __launch_bounds__(32 * MERGE_WARPS)
   }
 }
 
+
 template <int VEC>
 cudaError_t allow_smem() {
   return cudaFuncSetAttribute(scan_tile_kernel<VEC>,
@@ -778,25 +588,508 @@ int blocks_per_sm() {
   return n;
 }
 
-}  // namespace rht_scan
-
-// Resident blocks of kernel A's split kernel the current card holds at
-// once (the fewer of its two forms), or a negative value on failure.
-extern "C" int scan_topk_slots() {
-  using namespace rht_scan;
+// The current card's SM count, or a negative value on failure.
+inline int card_sms() {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess) {
     return -1;
   }
-  const int a = blocks_per_sm<4>();
-  const int b = blocks_per_sm<1>();
-  if (a <= 0 || b <= 0) return -1;
+  return sms;
+}
+
+// Launch list_merge_kernel over the slabs of a split kernel (A or A′).
+inline int launch_merge(const int2* slabs, int slab_len, int B, int k,
+                        int splits, float* out_s, int* out_i,
+                        cudaStream_t stream) {
+  const int merge_smem = MERGE_WARPS * splits * (int)sizeof(int);
+  if (merge_smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        list_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        merge_smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  list_merge_kernel<<<(B + MERGE_WARPS - 1) / MERGE_WARPS, 32 * MERGE_WARPS,
+                      merge_smem, stream>>>(slabs, slab_len, B, k, splits,
+                                            out_s, out_i);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace rht_scan
+
+// -- kernel A′ --------------------------------------------------------------
+
+namespace rht_ham {
+
+using rht_scan::BUF_CAP;
+using rht_scan::HEAP_AT;
+using rht_scan::cp_async;
+using rht_scan::cp_async_commit;
+using rht_scan::cp_async_wait;
+using rht_scan::drain;
+using rht_scan::empty_entry;
+using rht_scan::heap_len;
+using rht_scan::sift_down;
+
+constexpr int TILE = 128;     // queries, and rows, per block tile
+constexpr int THREADS = 128;  // one owned query per thread
+constexpr int WC = 8;         // words per pipeline stage
+constexpr int STAGES = 3;
+constexpr int STAGE_WORDS = TILE * WC;
+constexpr unsigned SPREAD = 0x01010101u;
+
+static_assert(THREADS == TILE, "one owned query and one staged row a thread");
+static_assert(BUF_CAP == 2 * TILE, "a buffer takes two tiles");
+
+// The int8 tensor-core core. Bit j of word w is k index 32w + kappa(j):
+// byte 4c + i of a word's 32-byte k block holds bit c + 8i (c < 8, i <
+// 4), a permutation of the JAX package's pm1_table order under which a
+// fragment register is (word >> c) & 0x01010101 -- dot products do not
+// depend on the order of k. The queries are the A operand as +-1 bytes,
+// expanded once per word chunk into shared memory and read with
+// ldmatrix; the rows are the B operand as 0/1 bytes, expanded in
+// registers from the staged words. Then
+//   dot = sum over set row bits of (+-1) = 2 popc(q & x) - popc(x),
+//   popc(q ^ x) = popc(q) + popc(x) - 2 popc(q & x) = popc(q) - dot,
+// exact in int32 (|dot| <= 32W). Padding words and queries expand to 0
+// bytes and add nothing; padding rows are masked by id.
+//
+// Warp w computes rows 32w .. 32w + 31 of the 128 x 128 tile against all
+// 128 queries: 8 m16 query tiles x 4 n8 row tiles of m16n8k32 products,
+// 128 int32 accumulators a thread. A word costs a warp 32 mma, 8
+// ldmatrix.x4 and 8 two-instruction B expansions.
+struct MmaCore {
+  static constexpr int QS_BYTES = WC * TILE * 32;  // [word][query][32 B]
+  static constexpr int NEVER = INT_MAX;
+  // a block merges its buffers before a tile's appends once one holds
+  // more than DRAIN_AT entries (at most BUF_CAP - TILE: a tile must fit).
+  // Early merges keep the keys fresh, so fewer rows are appended.
+  static constexpr int DRAIN_AT = 16;
+  struct Acc {
+    int c[8][4][4];
+  };
+
+  // Admission keys: a query admits a row iff its count is below `lim`,
+  // i.e. iff dot > popc(q) - lim.
+  __device__ static int key(int popcq, int lim) { return popcq - lim; }
+  __device__ static int count(int v, int popcq) { return popcq - v; }
+
+  __device__ static void zero(Acc& acc) {
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc.c[m][n][e] = 0;
+  }
+
+  // 0/1 bytes -> +1/-1 bytes (0x01 / 0xFF): ~(b * 0xFE), no carries.
+  __device__ static unsigned pm1(unsigned b) { return ~(b * 0xFEu); }
+
+  // Expand words [w0, w0 + wn) of the tile's queries into qs: query ql's
+  // 32-byte block of word j at j * TILE * 32 + ql * 32, its two 16-byte
+  // halves swapped on queries with bit 2 set, so that ldmatrix's 8-row
+  // reads hit 32 distinct banks. Called by all threads, which then sync.
+  __device__ static void stage(unsigned char* qs, const int* __restrict__ Q,
+                               int B, int W, int q0, int w0, int wn) {
+    const int ql = threadIdx.x;
+    const int q = q0 + ql;
+    const int sw = ((ql >> 2) & 1) * 16;
+#pragma unroll
+    for (int j = 0; j < WC; ++j) {
+      uint4 lo = make_uint4(0, 0, 0, 0), hi = lo;
+      if (q < B && j < wn) {
+        const unsigned x = (unsigned)__ldg(Q + (size_t)q * W + w0 + j);
+        lo = make_uint4(pm1(x & SPREAD), pm1((x >> 1) & SPREAD),
+                        pm1((x >> 2) & SPREAD), pm1((x >> 3) & SPREAD));
+        hi = make_uint4(pm1((x >> 4) & SPREAD), pm1((x >> 5) & SPREAD),
+                        pm1((x >> 6) & SPREAD), pm1((x >> 7) & SPREAD));
+      }
+      unsigned char* dst = qs + j * TILE * 32 + ql * 32;
+      *reinterpret_cast<uint4*>(dst + sw) = lo;
+      *reinterpret_cast<uint4*>(dst + (16 ^ sw)) = hi;
+    }
+  }
+
+  __device__ static unsigned word_of(const int4& h, int j) {
+    return (unsigned)(j == 0 ? h.x : j == 1 ? h.y : j == 2 ? h.z : h.w);
+  }
+
+  // acc += the products of the staged query words and the row words xs
+  // ([TILE][WC], one ring stage) over words 0 .. wn - 1 of the chunk.
+  __device__ static void chunk(const unsigned char* qs, const int* xs, int wn,
+                               Acc& acc) {
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int tig = lane % 4;
+    // ldmatrix.x4: lanes 8m .. 8m + 7 address matrix m, which is rows
+    // (m & 1) * 8 .. + 7 of a 16-query tile and 16-byte half m >> 1
+    const int r = (lane & 7) + ((lane >> 3) & 1) * 8;
+    const unsigned base =
+        (unsigned)__cvta_generic_to_shared(qs) + r * 32 +
+        (((lane >> 4) ^ ((r >> 2) & 1)) * 16);
+#pragma unroll
+    for (int j0 = 0; j0 < WC; j0 += 4) {
+      if (j0 >= wn) break;
+      int4 xw[4];  // words j0 .. j0 + 3 of this lane's row of each n tile
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        xw[n] = reinterpret_cast<const int4*>(
+            xs + (warp * 32 + n * 8 + g) * WC)[j0 / 4];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j0 + j >= wn) break;
+        // the word's 8 A fragments first, so their loads overlap
+        unsigned a[8][4];
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+          asm volatile(
+              "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+              "[%4];\n"
+              : "=r"(a[m][0]), "=r"(a[m][1]), "=r"(a[m][2]), "=r"(a[m][3])
+              : "r"(base + (j0 + j) * TILE * 32 + m * 16 * 32)
+              : "memory");
+        }
+        unsigned b0[4], b1[4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const unsigned x = word_of(xw[n], j);
+          b0[n] = (x >> tig) & SPREAD;        // k = 4 tig + i: bit tig + 8i
+          b1[n] = (x >> (tig + 4)) & SPREAD;  // k + 16: bit tig + 4 + 8i
+        }
+#pragma unroll
+        for (int m = 0; m < 8; ++m)
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            int* c = acc.c[m][n];
+            asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+                "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+                "{%0, %1, %2, %3};\n"
+                : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+                : "r"(a[m][0]), "r"(a[m][1]), "r"(a[m][2]), "r"(a[m][3]),
+                  "r"(b0[n]), "r"(b1[n]));
+          }
+      }
+    }
+  }
+
+  // Append every accumulator that passes its query's key (keys and
+  // append counters: [TILE] in shared memory) on a live row (live(row)),
+  // as emit(query, row, acc, slot); zeroes the accumulators. Element e of
+  // tile (m, n) is query 16m + g + 8(e / 2), row 32 warp + 8n + 2 tig +
+  // e % 2, so the 4 lanes 4g .. 4g + 3 hold a query's 32 rows of the
+  // warp: for each (m, h), query 16m + g + 8h, the group of lanes with
+  // the same g. A query's survivors of the warp are appended together:
+  // each lane tests its 8 counts into a mask, branch-free; the 4 lanes
+  // prefix-sum their survivor counts by shuffles, one of them reserves
+  // the slots with one shared atomic, and each lane writes its survivors
+  // in a rolled loop. G (m, h) pairs go through these steps side by side,
+  // so that their latencies overlap, behind one warp vote: survivors are
+  // rare once the heaps fill, and a warp with none skips the rest.
+  template <int G = 4, class Live, class Emit>
+  __device__ static void each(Acc& acc, const int* key_s, int* cnt_s,
+                              Live&& live, Emit&& emit) {
+    constexpr unsigned FULL = 0xffffffffu;
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int tig = lane % 4;
+    const int row0 = warp * 32 + 2 * tig;  // bit j of a mask: + 8(j/2) + j%2
+    unsigned live8 = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      live8 |= (unsigned)live(row0 + 8 * (j / 2) + j % 2) << j;
+    }
+#pragma unroll
+    for (int mh0 = 0; mh0 < 16; mh0 += G) {
+      unsigned mask[G];
+      unsigned any = 0;
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const int m = (mh0 + u) / 2, h = (mh0 + u) % 2;
+        const int key = key_s[16 * m + g + 8 * h];
+        unsigned mk = 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          mk |= (unsigned)(acc.c[m][j / 2][2 * h + j % 2] > key) << j;
+        }
+        mask[u] = mk & live8;
+        any |= mask[u];
+      }
+      if (!__any_sync(FULL, any)) continue;
+      int cnt[G], incl[G];  // incl: inclusive prefix over the 4 lanes
+#pragma unroll
+      for (int u = 0; u < G; ++u) incl[u] = cnt[u] = __popc(mask[u]);
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const int up = __shfl_up_sync(FULL, incl[u], 1, 4);
+        if (tig >= 1) incl[u] += up;
+      }
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const int up = __shfl_up_sync(FULL, incl[u], 2, 4);
+        if (tig >= 2) incl[u] += up;
+      }
+      int slot[G];
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const int ql = 16 * ((mh0 + u) / 2) + g + 8 * ((mh0 + u) % 2);
+        slot[u] = 0;
+        if (tig == 3 && incl[u] > 0) slot[u] = atomicAdd(&cnt_s[ql], incl[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        slot[u] = __shfl_sync(FULL, slot[u], 3, 4) + incl[u] - cnt[u];
+      }
+#pragma unroll
+      for (int u = 0; u < G; ++u) {
+        const int m = (mh0 + u) / 2, h = (mh0 + u) % 2;
+        for (unsigned b = mask[u]; b; b &= b - 1) {
+          const int j = __ffs(b) - 1;
+          int v = acc.c[m][0][2 * h];
+#pragma unroll
+          for (int w = 1; w < 8; ++w) {
+            v = j == w ? acc.c[m][w / 2][2 * h + w % 2] : v;
+          }
+          emit(16 * m + g + 8 * h, row0 + 8 * (j / 2) + j % 2, v,
+               slot[u]++);
+        }
+      }
+    }
+    zero(acc);
+  }
+};
+
+// The count limit of a query whose heap root is `root`: a row is
+// admitted iff its count is below it. Strictly below: within a split the
+// rows come in ascending id order, so every heap entry is an earlier row
+// than the tile being filtered, and a row that ties the root (even a
+// stale root, whose score only rises) ranks after it and after the
+// split's final k-th entry. An empty heap (root -inf) admits every row.
+__device__ __forceinline__ int count_limit(int2 root) {
+  const float s = __int_as_float(root.x);
+  return s == -CUDART_INF_F ? INT_MAX : (int)(-s);
+}
+
+// Start copying words [w0, w0 + WC) of table rows r0 .. r0 + TILE - 1
+// into one ring stage ([TILE][WC]); zeros past N and W. VEC = 4 needs
+// W % 4 == 0 and an aligned table, so a 16-byte copy is wholly inside or
+// wholly outside W.
+template <int VEC>
+__device__ __forceinline__ void load_words(int* stage,
+                                           const int* __restrict__ X, int N,
+                                           int W, int r0, int w0) {
+  constexpr int PER_ROW = WC / VEC;
+  constexpr int ROWS_PER_PASS = THREADS / PER_ROW;
+  const int col = threadIdx.x % PER_ROW;
+  const int w = w0 + col * VEC;
+#pragma unroll
+  for (int p = 0; p < TILE / ROWS_PER_PASS; ++p) {
+    const int r = threadIdx.x / PER_ROW + p * ROWS_PER_PASS;
+    const bool ok = r0 + r < N && w < W;
+    cp_async<VEC>(reinterpret_cast<float*>(stage + r * WC + col * VEC),
+                  reinterpret_cast<const float*>(
+                      ok ? X + (size_t)(r0 + r) * W + w : X),
+                  ok ? 4 * VEC : 0);
+  }
+}
+
+template <class Core>
+constexpr int smem_bytes() {
+  // the word ring, a ring of bias rows, the query chunk, then per query
+  // its popcount, key and append counter
+  return STAGES * STAGE_WORDS * 4 + STAGES * TILE * 4 + Core::QS_BYTES +
+         3 * TILE * 4;
+}
+
+// Block (query tile, split) selects, per query, the top k of its split's
+// rows into the (split, query) slab, as kernel A does: its lists are
+// kernel A's heaps, merged by list_merge_kernel.
+template <class Core, int VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+    hamming_tile_kernel(const int* __restrict__ Q, const int* __restrict__ X,
+                        const float* __restrict__ bias, int B, int N, int W,
+                        int k, int ntiles, int tiles_per_split, int slab_len,
+                        int2* __restrict__ slabs) {
+  static_assert(Core::DRAIN_AT <= BUF_CAP - TILE, "a tile must fit");
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* const ring = reinterpret_cast<int*>(smem);
+  float* const bias_s = reinterpret_cast<float*>(ring + STAGES * STAGE_WORDS);
+  unsigned char* const qs =
+      reinterpret_cast<unsigned char*>(bias_s + STAGES * TILE);
+  int* const popc_s = reinterpret_cast<int*>(qs + Core::QS_BYTES);
+  int* const key_s = popc_s + TILE;
+  int* const cnt_s = key_s + TILE;
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * TILE;
+  const int split = blockIdx.y;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(ntiles, t_begin + tiles_per_split);
+  const int nch = max(1, (W + WC - 1) / WC);
+  const int total = max(0, t_end - t_begin) * nch;
+  const bool own_live = q0 + tid < B;  // thread tid owns query q0 + tid
+  int2* const slab0 = slabs + ((size_t)split * B + q0) * slab_len;
+  int2* const heap = slab0 + (size_t)tid * slab_len + HEAP_AT;
+  const int buf_at = heap_len(k);
+
+  int popcq = 0;
+  if (own_live) {
+    for (int w = 0; w < W; ++w) popcq += __popc(Q[(size_t)(q0 + tid) * W + w]);
+    for (int i = 0; i < k; ++i) heap[i] = empty_entry();
+  }
+  popc_s[tid] = popcq;
+  key_s[tid] = own_live ? Core::key(popcq, INT_MAX) : Core::NEVER;
+  cnt_s[tid] = 0;
+  // the loop's first barrier orders these before any read
+
+  auto load = [&](int u) {
+    const int t = t_begin + u / nch;
+    const int part = u % nch;
+    load_words<VEC>(ring + (u % STAGES) * STAGE_WORDS, X, N, W, t * TILE,
+                    part * WC);
+    if (part == 0) {
+      const int r = t * TILE + tid;
+      cp_async<1>(bias_s + (t % STAGES) * TILE + tid, r < N ? bias + r : bias,
+                  r < N ? 4 : 0);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < total) load(s);
+    cp_async_commit();
+  }
+
+  typename Core::Acc acc;
+  Core::zero(acc);
+  for (int u = 0; u < total; ++u) {
+    const int t = t_begin + u / nch;
+    const int part = u % nch;
+    cp_async_wait<STAGES - 2>();  // unit u has landed (this thread's part)
+    __syncthreads();  // ... everyone's; and unit u - 1's slot is free
+    if (u + STAGES - 1 < total) load(u + STAGES - 1);
+    cp_async_commit();
+    const int w0 = part * WC;
+    const int wn = min(WC, W - w0);
+    if (nch > 1 || u == 0) {
+      Core::stage(qs, Q, B, W, q0, w0, wn);
+      __syncthreads();
+    }
+    Core::chunk(qs, ring + (u % STAGES) * STAGE_WORDS, wn, acc);
+    if (part + 1 < nch) continue;
+
+    // the tile is scored. First, if some buffer could not take another
+    // tile, every owner merges its buffer (the counts are complete: the
+    // barriers above came after the last tile's appends).
+    if (__syncthreads_or(cnt_s[tid] > Core::DRAIN_AT)) {
+      const int n = cnt_s[tid];
+      if (n > 0) {
+        key_s[tid] = Core::key(popcq, count_limit(drain(heap, k, n)));
+        cnt_s[tid] = 0;
+      }
+      __syncthreads();
+    }
+    // then append every admitted live row to its query's buffer
+    const int r0 = t * TILE;
+    const float* const bias_t = bias_s + (t % STAGES) * TILE;
+    Core::each(
+        acc, key_s, cnt_s,
+        [&](int rl) { return r0 + rl < N && bias_t[rl] != -CUDART_INF_F; },
+        [&](int ql, int rl, int v, int slot) {
+          const float s = __fsub_rn(
+              bias_t[rl], __int2float_rn(Core::count(v, popc_s[ql])));
+          slab0[(size_t)ql * slab_len + buf_at + slot] =
+              make_int2(__float_as_int(s), r0 + rl);
+        });
+  }
+  cp_async_wait<0>();  // no copy outlives the block (an empty split)
+  __syncthreads();     // the last tile's appends are in
+  if (own_live) {
+    drain(heap, k, cnt_s[tid]);
+    // heap-sort in place: the list g[0..k), best first
+    for (int m = k - 1; m >= 1; --m) {
+      const int2 last = heap[m];
+      heap[m] = heap[0];
+      heap[0] = sift_down(heap, m, 0, last);
+    }
+  }
+}
+
+template <class Core, int VEC>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(hamming_tile_kernel<Core, VEC>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_bytes<Core>());
+}
+
+template <class Core, int VEC>
+int blocks_per_sm() {
+  int n = 0;
+  if (allow_smem<Core, VEC>() != cudaSuccess) return -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, hamming_tile_kernel<Core, VEC>, THREADS, smem_bytes<Core>()) !=
+      cudaSuccess) {
+    return -1;
+  }
+  return n;
+}
+
+template <class Core>
+int slots() {
+  const int sms = rht_scan::card_sms();
+  const int a = blocks_per_sm<Core, 4>();
+  const int b = blocks_per_sm<Core, 1>();
+  if (sms <= 0 || a <= 0 || b <= 0) return -1;
   return (a < b ? a : b) * sms;
 }
 
-// Entries (int2) of one (split, query) slab at selection width k.
+template <class Core>
+int launch(const int* q, const int* x, const float* bias, int B, int N, int W,
+           int k, int splits, int2* slabs, float* out_s, int* out_i,
+           cudaStream_t stream) {
+  if (B <= 0 || k <= 0) return 0;
+  const int ntiles = (N + TILE - 1) / TILE;
+  if (N < 0 || W < 1 || splits < 1 || splits > (ntiles > 1 ? ntiles : 1) ||
+      splits > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int tiles_per_split = (ntiles + splits - 1) / splits;
+  const int slab_len = heap_len(k) + BUF_CAP;
+  const dim3 grid((B + TILE - 1) / TILE, splits);
+  const bool vec4 = W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  cudaError_t err = vec4 ? allow_smem<Core, 4>() : allow_smem<Core, 1>();
+  if (err != cudaSuccess) return (int)err;
+  if (vec4) {
+    hamming_tile_kernel<Core, 4><<<grid, THREADS, smem_bytes<Core>(), stream>>>(
+        q, x, bias, B, N, W, k, ntiles, tiles_per_split, slab_len, slabs);
+  } else {
+    hamming_tile_kernel<Core, 1><<<grid, THREADS, smem_bytes<Core>(), stream>>>(
+        q, x, bias, B, N, W, k, ntiles, tiles_per_split, slab_len, slabs);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return rht_scan::launch_merge(slabs, slab_len, B, k, splits, out_s, out_i,
+                                stream);
+}
+
+}  // namespace rht_ham
+
+// Resident blocks of kernel A's split kernel the current card holds at
+// once (the fewer of its two forms), or a negative value on failure.
+extern "C" int scan_topk_slots() {
+  using namespace rht_scan;
+  const int sms = card_sms();
+  const int a = blocks_per_sm<4>();
+  const int b = blocks_per_sm<1>();
+  if (sms <= 0 || a <= 0 || b <= 0) return -1;
+  return (a < b ? a : b) * sms;
+}
+
+// Entries (int2) of one (split, query) slab at selection width k, in
+// kernels A and A′.
 extern "C" int scan_topk_slab_len(int k) {
   return rht_scan::heap_len(k) + rht_scan::BUF_CAP;
 }
@@ -833,25 +1126,27 @@ extern "C" int scan_topk_launch(const float* q, const float* x,
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int merge_smem = MERGE_WARPS * splits * (int)sizeof(int);
-  if (merge_smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(list_merge_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               merge_smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  list_merge_kernel<<<(B + MERGE_WARPS - 1) / MERGE_WARPS, 32 * MERGE_WARPS,
-                      merge_smem, stream>>>(slabs, slab_len, B, k, splits,
-                                            out_s, out_i);
-  return (int)cudaGetLastError();
+  return launch_merge(slabs, slab_len, B, k, splits, out_s, out_i, stream);
 }
 
+// Kernel A′'s resident blocks on the current card (the fewer of its two
+// forms), or a negative value on failure.
+extern "C" int scan_topk_hamming_slots() {
+  return rht_ham::slots<rht_ham::MmaCore>();
+}
+
+// Kernel A′'s dynamic shared memory a block, in bytes.
+extern "C" int scan_topk_hamming_smem_bytes() {
+  return rht_ham::smem_bytes<rht_ham::MmaCore>();
+}
+
+// slabs: [splits][B][scan_topk_slab_len(k)] int2 scratch; bias is 0 on a
+// live row and -inf on a dead one.
 extern "C" int scan_topk_hamming_launch(const int* q, const int* x,
                                         const float* bias, int B, int N,
                                         int W, int k, int splits,
-                                        float* part_s, int* part_i,
-                                        float* out_s, int* out_i,
+                                        int2* slabs, float* out_s, int* out_i,
                                         cudaStream_t stream) {
-  return rht::launch_topk(rht::HammingScorer{q, x, bias, B, N, W}, k,
-                          splits, part_s, part_i, out_s, out_i, stream);
+  return rht_ham::launch<rht_ham::MmaCore>(q, x, bias, B, N, W, k, splits,
+                                           slabs, out_s, out_i, stream);
 }

@@ -1,7 +1,5 @@
-// The score routine of count_gt_eq.cu (kernel B), and the hamming score
-// of scan_topk.cu's kernel A′; kernels A (scan_topk.cu) and D
-// (select_bins.cu) reproduce its euclidean chain in their own 128 x 128
-// cores.
+// The score routine of count_gt_eq.cu (kernel B); kernels A (scan_topk.cu)
+// and D (select_bins.cu) reproduce its chain in their own 128 x 128 cores.
 //
 // The certified-exact scan selects with scan_topk and proves its selection
 // with count_gt_eq, which counts rows scoring above and at each query's
@@ -32,22 +30,6 @@
 // shared memory. The H100 bound of this work is its fp32 FMA rate
 // (2*B*N*D operations against B*D + N*D floats read); the register tile
 // gives 16 FMAs per two 16-byte shared-memory loads.
-//
-// The hamming score (hamming_tile) takes the same tiling over packed bit
-// rows, W int32 words each (torch has no full uint32 type; the bytes are
-// the JAX package's uint32 words):
-//
-//   count = sum over words of __popc(q[w] ^ x[w])       (an integer)
-//   score = __fsub_rn(bias, (float)count)
-//
-// with bias 0 on a live row and -inf on a dead one (the Pallas kernel's
-// hamming_bias). The count is exact in f32, so every kernel that scores
-// through it agrees by arithmetic; 0 - 0 gives +0.0, as the Pallas
-// kernel's -count + 0 does. Its H100 bound is the popcount rate (16 per
-// clock per SM, a quarter of the integer ALU rate), B*N*W of them.
-//
-// HammingScorer carries the hamming form's operands for scan_topk.cu's
-// split kernel, which is templated on its scorer.
 
 #pragma once
 
@@ -140,83 +122,5 @@ __device__ __forceinline__ void score_tile(const float* __restrict__ Q,
     }
   }
 }
-
-struct WordStage {
-  int q[TILE_D][STAGE_LD];  // [word][query]
-  int x[TILE_D][STAGE_LD];  // [word][row]
-};
-
-// Copy words [w0, w0 + wn) of TILE_Q consecutive rows of a row-major
-// [n, W] word matrix, starting at row r0, into dst[w][row] (zero past n).
-// Only the first wn word slots are written; callers read no others.
-__device__ __forceinline__ void stage_words(int (*dst)[STAGE_LD],
-                                            const int* __restrict__ src,
-                                            int r0, int n, int W, int w0,
-                                            int wn) {
-  for (int e = threadIdx.x; e < TILE_Q * wn; e += SCORE_THREADS) {
-    const int r = e / wn;
-    const int w = e - r * wn;
-    dst[w][r] = r0 + r < n ? src[(size_t)(r0 + r) * W + w0 + w] : 0;
-  }
-}
-
-// Hamming scores of this thread's micro-tile (the layout and the
-// synchronisation contract of score_tile). Rows >= N score -inf.
-__device__ __forceinline__ void hamming_tile(const int* __restrict__ Q,
-                                             const int* __restrict__ X,
-                                             const float* __restrict__ bias,
-                                             int B, int N, int W, int q0,
-                                             int r0, WordStage& st,
-                                             float (&s)[MICRO][MICRO]) {
-  const int tx = threadIdx.x % (TILE_R / MICRO);
-  const int ty = threadIdx.x / (TILE_R / MICRO);
-  int cnt[MICRO][MICRO];
-#pragma unroll
-  for (int i = 0; i < MICRO; ++i)
-#pragma unroll
-    for (int j = 0; j < MICRO; ++j) cnt[i][j] = 0;
-
-  for (int w0 = 0; w0 < W; w0 += TILE_D) {
-    const int wn = min(TILE_D, W - w0);  // no popcounts of padding words
-    __syncthreads();  // the previous step's readers are done
-    stage_words(st.q, Q, q0, B, W, w0, wn);
-    stage_words(st.x, X, r0, N, W, w0, wn);
-    __syncthreads();
-#pragma unroll 4
-    for (int w = 0; w < wn; ++w) {
-      const int4 a = *reinterpret_cast<const int4*>(&st.q[w][ty * MICRO]);
-      const int4 b = *reinterpret_cast<const int4*>(&st.x[w][tx * MICRO]);
-      const int av[MICRO] = {a.x, a.y, a.z, a.w};
-      const int bv[MICRO] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < MICRO; ++i)
-#pragma unroll
-        for (int j = 0; j < MICRO; ++j) cnt[i][j] += __popc(av[i] ^ bv[j]);
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < MICRO; ++j) {
-    const int ri = r0 + tx * MICRO + j;
-    const float bi = ri < N ? bias[ri] : -CUDART_INF_F;
-#pragma unroll
-    for (int i = 0; i < MICRO; ++i) {
-      s[i][j] = __fsub_rn(bi, (float)cnt[i][j]);
-    }
-  }
-}
-
-struct HammingScorer {
-  using Stage = WordStage;
-  const int* Q;
-  const int* X;
-  const float* bias;
-  int B, N, W;
-
-  __device__ __forceinline__ void operator()(
-      int q0, int r0, Stage& st, float (&s)[MICRO][MICRO]) const {
-    hamming_tile(Q, X, bias, B, N, W, q0, r0, st, s);
-  }
-};
 
 }  // namespace rht

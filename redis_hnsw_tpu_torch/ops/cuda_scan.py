@@ -33,8 +33,11 @@ partial sum is an integer below 2^24.
   :func:`plan` cuts the rows into splits that fill whole waves of the
   card's resident blocks; a second kernel merges the splits' sorted
   lists (:func:`plain_merge_lists` is its plain version).
-  :func:`flat_topk_hamming` launches kernel A′ (64 x 64 tiles, sorted
-  lists in shared memory), which takes k <= ``HAMMING_MAX_K``.
+  :func:`flat_topk_hamming` launches kernel A′ on the same selection
+  (heaps in device memory, the same merge, every k; splits planned from
+  A′'s own resident blocks), scoring on the tensor cores: an int8
+  ``mma.sync`` product of the queries' bits as +-1 bytes and the rows'
+  as 0/1 bytes gives ``popcount(q) - popcount(q XOR x)`` exactly.
 * On a CPU tensor they run :func:`plain_flat_topk` /
   :func:`plain_flat_topk_hamming`: ``CHUNK_N``-row chunks through
   ``torch.mm`` and :func:`chunked_topk` -- the kernels' references in the
@@ -42,9 +45,10 @@ partial sum is an integer below 2^24.
 
 Bound on the H100: the scoring is 2*B*N*D fp32 operations (true fp32, no
 tensor cores) against (B + N)*D*4 bytes, so it is compute-bound at the
-serving shapes; A′ by its B*N*W popcounts. The kernels' design is in
-csrc/scan_topk.cu. Their times beside those bounds are in PERF.md,
-measured by chip_smoke.py.
+serving shapes; A′ by 2*B*N*32W int8 tensor-core operations (its B*N*W
+popcounts run at a small fraction of that rate on the CUDA cores). The
+kernels' design is in csrc/scan_topk.cu. Their times beside those bounds
+are in PERF.md, measured by chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -58,12 +62,7 @@ from . import distance as D
 
 NEG_INF = float("-inf")
 
-# Largest selection width of kernel A′'s shared-memory lists. Kernel A
-# has none (its lists live in device memory); a hamming scan above it
-# takes ops/scan.py's chunked route.
-HAMMING_MAX_K = 256
-
-TILE = 128  # queries, and rows, per block tile of kernel A
+TILE = 128  # queries, and rows, per block tile of kernels A and A′
 
 # Rows scored per chunk by the plain version: bounds its [B, CHUNK_N]
 # score tile. The plain count (ops/cuda_count.py) chunks identically, so
@@ -114,8 +113,7 @@ def chunked_topk(scores_of, B, N, k, dev):
     hi)`` scores one ``CHUNK_N``-row chunk; a stable descending sort per
     chunk (row order breaks ties) and a merge with the running best --
     earlier chunks first, so equal scores keep the lower id. The plain
-    versions select with it, and so does ops/scan.py's route for hamming
-    widths above kernel A′'s."""
+    versions select with it."""
     top_s = torch.full((B, 0), NEG_INF, dtype=torch.float32, device=dev)
     top_i = torch.full((B, 0), -1, dtype=torch.int32, device=dev)
     for lo in range(0, N, CHUNK_N):
@@ -171,9 +169,8 @@ def plain_merge_lists(part_s, part_i, k: int):
 
 
 def splits_for(device, n_q: int, n_rows: int) -> int:
-    """Row splits per 64-query tile of kernels A′ and B: enough blocks
-    for ~4 per SM, at most 32 (one merge lane each) and at most one per
-    64-row tile."""
+    """Row splits per 64-query tile of kernel B: enough blocks for ~4
+    per SM, at most 32 and at most one per 64-row tile."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     q_tiles = -(-n_q // 64)
     want = -(-4 * sms // q_tiles)
@@ -191,6 +188,11 @@ def _lib():
     lib.scan_topk_slots.argtypes = []
     lib.scan_topk_slab_len.restype = _I
     lib.scan_topk_slab_len.argtypes = [_I]
+    lib.scan_topk_hamming_launch.restype = _I
+    lib.scan_topk_hamming_launch.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I,
+                                             _P, _P, _P, _P]
+    lib.scan_topk_hamming_slots.restype = _I
+    lib.scan_topk_hamming_slots.argtypes = []
     return lib
 
 
@@ -205,17 +207,44 @@ def block_slots(device_index: int) -> int:
     return slots
 
 
-def plan(device, B: int, N: int) -> tuple[int, int]:
-    """(splits, 128-row tiles per split) of kernel A over B queries and N
-    rows: kernel D's wave planner (ops/cuda_select.py plan_splits) over
-    kernel A's own resident blocks."""
+@functools.lru_cache(maxsize=None)
+def hamming_block_slots(device_index: int) -> int:
+    """Blocks of kernel A′'s split kernel that card ``device_index``
+    holds at once."""
+    with torch.cuda.device(device_index):
+        slots = _lib().scan_topk_hamming_slots()
+    if slots <= 0:
+        raise RuntimeError("scan_topk_hamming: cannot read the card's "
+                           "occupancy")
+    return slots
+
+
+# A block's fixed work in kernel A′, in 128-row tiles: each split starts
+# from an empty heap (its first tiles admit every row), merges and sorts
+# its lists, and adds a list to the final merge. At B = 2048 over
+# 1,000,064 rows on an H100, tools/hamming_core_study.cu timed one wave
+# of 16 splits 12-18% faster (k = 10 and 40) than the two waves of 33
+# that tile counts alone pick; 96 makes the planner take the 16.
+HAMMING_SPLIT_TILES = 96
+
+
+def plan(device, B: int, N: int, *, hamming: bool = False
+         ) -> tuple[int, int]:
+    """(splits, 128-row tiles per split) of kernel A (or, with
+    ``hamming``, A′) over B queries and N rows: kernel D's wave planner
+    (ops/cuda_select.py plan_splits) over the kernel's own resident
+    blocks, with A′'s fixed work a block (``HAMMING_SPLIT_TILES``)."""
     from .cuda_select import plan_splits
 
     tiles = max(1, -(-N // TILE))
     index = torch.device(device).index
     if index is None:
         index = torch.cuda.current_device()
-    splits = plan_splits(block_slots(index), -(-B // TILE), tiles)
+    if hamming:
+        splits = plan_splits(hamming_block_slots(index), -(-B // TILE),
+                             tiles, HAMMING_SPLIT_TILES)
+    else:
+        splits = plan_splits(block_slots(index), -(-B // TILE), tiles)
     return splits, -(-tiles // splits)
 
 
@@ -284,17 +313,6 @@ def hamming_bias(valid):
     )
 
 
-def check_words(queries, words, bias, k):
-    """Validate kernel A′'s operands: int32 words (packed uint32 bits), a
-    float32 bias and k <= ``HAMMING_MAX_K``."""
-    if k > HAMMING_MAX_K:
-        raise ValueError(
-            f"hamming scan top-k supports k <= {HAMMING_MAX_K} (kernel "
-            f"A′'s selection width), got k={k}"
-        )
-    _check_table(queries, words, bias, k, torch.int32)
-
-
 def pm1_table(words):
     """[N, W] int32 packed bits -> [N, 32W] f32 in {-1, +1} (the JAX
     package's ``pm1_table``, bit j of word w in column 32w + j). ``>>`` on
@@ -324,25 +342,17 @@ def plain_flat_topk_hamming(queries, words, bias, *, k: int):
     )
 
 
-def _hamming_kernel():
-    from ..utils.build import load_kernel
-
-    fn = load_kernel("scan_topk").scan_topk_hamming_launch
-    fn.restype = _I
-    fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
-    return fn
-
-
 def flat_topk_hamming(queries, words, bias, *, k: int):
     """Exact hamming top-k of every query over every row of ``words``.
 
     ``queries`` [B, W] and ``words`` [N, W] int32 packed bits, ``bias``
     [N] f32 (:func:`hamming_bias`). Returns (ids [B, k] int32, sims
-    [B, k] f32 = -distance) in (-sim, id) order with -1/-inf padding.
-    ``k`` <= ``HAMMING_MAX_K``. A CUDA tensor launches kernel A′; a CPU
-    tensor takes the plain version.
+    [B, k] f32 = -distance) in (-sim, id) order with -1/-inf padding, at
+    any ``k``. ``bias`` must be 0 or -inf: the kernel admits rows by
+    their integer counts. A CUDA tensor launches kernel A′; a CPU tensor
+    takes the plain version.
     """
-    check_words(queries, words, bias, k)
+    _check_table(queries, words, bias, k, torch.int32)
     if queries.device.type == "cpu":
         return plain_flat_topk_hamming(queries, words, bias, k=k)
     if queries.device.type != "cuda":
@@ -355,15 +365,14 @@ def flat_topk_hamming(queries, words, bias, *, k: int):
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
     if B == 0:
         return out_i, out_s
-    launch = _hamming_kernel()
-    splits = splits_for(dev, B, N)
-    part_s = torch.empty((splits, B, k), dtype=torch.float32, device=dev)
-    part_i = torch.empty((splits, B, k), dtype=torch.int32, device=dev)
+    lib = _lib()
+    splits, _ = plan(dev, B, N, hamming=True)
+    slabs = torch.empty((splits, B, lib.scan_topk_slab_len(k), 2),
+                        dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = launch(
+        err = lib.scan_topk_hamming_launch(
             queries.data_ptr(), words.data_ptr(), bias.data_ptr(), B, N, W,
-            k, splits, part_s.data_ptr(), part_i.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(),
+            k, splits, slabs.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

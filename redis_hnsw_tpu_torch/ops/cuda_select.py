@@ -82,14 +82,16 @@ def plain_select_bins(vecs, sq_masked, q, qq):
 
 
 @functools.lru_cache(maxsize=1024)
-def plan_splits(slots: int, q_tiles: int, nbins: int) -> int:
+def plan_splits(slots: int, q_tiles: int, nbins: int,
+                split_cost: int = 0) -> int:
     """Splits per query tile for ``q_tiles`` tiles over ``nbins`` bins on
     a card holding ``slots`` resident blocks: the fewest that minimise
-    waves x bins per split (blocks of equal work finish together, so a
-    wave lasts as long as its largest block), trying up to four waves."""
+    waves x (bins per split + ``split_cost``) (blocks of equal work finish
+    together, so a wave lasts as long as its largest block), trying up to
+    four waves. ``split_cost`` is a block's fixed work, in bins."""
     best, best_cost = 1, None
     for s in range(1, max(1, min(nbins, 4 * slots // q_tiles, 65535)) + 1):
-        cost = -(-q_tiles * s // slots) * -(-nbins // s)
+        cost = -(-q_tiles * s // slots) * (-(-nbins // s) + split_cost)
         if best_cost is None or cost < best_cost:
             best, best_cost = s, cost
     return best

@@ -46,11 +46,10 @@ Two tiers, chosen per table by :func:`cert_enabled`:
 **Hamming** tables are packed bit rows, int32 words, served on the exact
 tier alone at every size: kernel A′ (:func:`scan_topk_exact_hamming`)
 selects by integer scores, exact in f32, so its top k needs no rescore
-and no certificate. Above kernel A′'s width (k > 256) the JAX package's
-XLA scan, in torch ops, selects instead (:func:`wide_topk_hamming`).
-(The JAX package's certified hamming tier buys its approximate select
-back to exactness; on the H100 a second pass only halves the
-throughput, PERF.md.) Replies carry ``-distance`` with a zero
+and no certificate; like kernel A, it serves every k. (The JAX
+package's certified hamming tier buys its approximate select back to
+exactness; on the H100 a second pass only halves the throughput,
+PERF.md.) Replies carry ``-distance`` with a zero
 distance as -0.0, as the JAX package's word-packed reply decodes it.
 
 The JAX package's TPU-link machinery (fetch windows, pipelined drains,
@@ -68,14 +67,10 @@ import torch
 from . import distance as D
 from .cuda_count import count_gt_eq
 from .cuda_scan import (
-    HAMMING_MAX_K,
-    chunked_topk,
     euclid_sq_masked,
     flat_topk,
     flat_topk_hamming,
     hamming_bias,
-    hamming_scores,
-    pm1_table,
 )
 from .cuda_select import BIN_L, select_bins
 
@@ -148,17 +143,10 @@ def scan_topk(vecs, sqn, live, queries, *, k: int, k_sel: int | None = None,
     ``live`` [N] bool masks real, undeleted rows. The kernel selects
     ``k_sel`` (default ``k``) rows and the best ``k`` are kept. Returns
     (ids, sims) sorted descending by (sim, -id) -- the kernels' own order
-    -- with -1/-inf in empty slots.
-
-    Kernel A serves every k. A hamming ``k_sel`` above kernel A′'s width
-    (``HAMMING_MAX_K``) takes :func:`wide_topk_hamming` instead, on every
-    device: a route chosen by k, not a fallback.
+    -- with -1/-inf in empty slots. Both kernels serve every k.
     """
     k_sel = k if k_sel is None else max(int(k_sel), k)
-    if metric == "hamming" and k_sel > HAMMING_MAX_K:
-        ids, sims = wide_topk_hamming(vecs, hamming_bias(live), queries,
-                                      k=k_sel)
-    elif metric == "hamming":
+    if metric == "hamming":
         ids, sims = flat_topk_hamming(
             queries, vecs, hamming_bias(live), k=k_sel
         )
@@ -168,21 +156,6 @@ def scan_topk(vecs, sqn, live, queries, *, k: int, k_sel: int | None = None,
             k=k_sel,
         )
     return ids[:, :k], sims[:, :k]
-
-
-def wide_topk_hamming(words, bias, queries, *, k: int):
-    """Hamming top-k above kernel A′'s width: the JAX package's exact XLA
-    scan (redis_hnsw_tpu/ops/scan.py ``scan_topk`` with
-    ``_select_merge``) in torch ops -- ``CHUNK_N``-row chunks of the
-    matmul-form scores of its ``_chunk_scores``, each chunk's stable top
-    k merged into a running best, so ties go to the lower id. The JAX
-    package computes this outside Pallas; it is not kernel A′'s plain
-    version, though both select through :func:`chunked_topk`."""
-    q_pm1 = pm1_table(queries)
-    return chunked_topk(
-        lambda lo, hi: hamming_scores(q_pm1, words[lo:hi], bias[lo:hi]),
-        queries.shape[0], words.shape[0], k, queries.device,
-    )
 
 
 def hamming_reply_sims(sims):

@@ -301,9 +301,12 @@ def word_operands(rng, B, N, W, dead, device):
 )
 def test_hamming_kernels_bitwise(card, B, N, W, k, dead):
     """Kernel A′ against its plain version, bitwise, at ragged shapes (W
-    beyond one 32-word stage)."""
+    beyond one 8-word stage)."""
     rng = np.random.default_rng(B * N + W)
-    qt, xt, bias = word_operands(rng, B, N, W, dead, card)
+    assert_hamming_bitwise(*word_operands(rng, B, N, W, dead, card), k)
+
+
+def assert_hamming_bitwise(qt, xt, bias, k, planted=None):
     before = cuda_scan.flat_topk_hamming.launches
     ids, sims = cuda_scan.flat_topk_hamming(qt, xt, bias, k=k)
     pi, ps = cuda_scan.plain_flat_topk_hamming(qt, xt, bias, k=k)
@@ -311,6 +314,78 @@ def test_hamming_kernels_bitwise(card, B, N, W, k, dead):
     assert cuda_scan.flat_topk_hamming.launches == before + 1
     assert torch.equal(ids, pi)
     assert torch.equal(sims.view(torch.int32), ps.view(torch.int32))
+    if planted is not None:
+        want = [planted - 1, planted, planted + 1][:k]
+        assert ids[0, :3].tolist() == want
+
+
+def plant_word_ties(qt, xt, bias, edge):
+    """Query 0's copy at rows edge - 1 .. edge + 1 (live: distance 0, its
+    top 3 in id order), and row edge - 2's copy at rows edge + 2 .. edge +
+    5, a tie class at every distance across the edge. word_operands'
+    copies of query 0 move to distance 1 first."""
+    n = xt.shape[0]
+    xt[n // 2, 0] ^= 1
+    xt[n // 3, 0] ^= 1
+    xt[edge - 1 : edge + 2] = qt[0]
+    bias[edge - 1 : edge + 2] = 0.0
+    xt[edge + 2 : edge + 6] = xt[edge - 2]
+
+
+def hamming_plan(dev, B, N):
+    return cuda_scan.plan(dev, B, N, hamming=True)
+
+
+@pytest.mark.parametrize("B", [1, 127, 128, 129, 2049])
+@pytest.mark.parametrize(
+    "N", [1, 127, 128, 129, 1000, "split-1", "split+0", "split+1"])
+def test_hamming_tile_and_split_edges(card, B, N):
+    """Kernel A′ against its plain version, bitwise, at the edges of its
+    128 x 128 tile and of its splits (as its own planner cuts them), with
+    dead rows, and tie classes planted across the tile edge and the first
+    split boundary."""
+    edge = 128
+    if isinstance(N, str):
+        N, edge = split_edge(hamming_plan, card, B, int(N[len("split"):]))
+    rng = np.random.default_rng(B * 11 + N)
+    qt, xt, bias = word_operands(rng, B, N, 8, 0.1, card)
+    planted = None
+    if N > edge + 5:
+        plant_word_ties(qt, xt, bias, edge)
+        planted = edge
+    assert_hamming_bitwise(qt, xt, bias, 10, planted)
+
+
+@pytest.mark.parametrize("k", [1, 10, 40, 64, 256, 257, 300, 1000])
+@pytest.mark.parametrize("live_rows", [None, 7])
+def test_hamming_widths(card, k, live_rows):
+    """Every width through the kernel, bitwise: k from 1 to 1000, and
+    fewer live rows than k (the (-1, -inf) tail)."""
+    rng = np.random.default_rng(k + 1)
+    qt, xt, bias = word_operands(rng, 130, 5000, 3, 0.2, card)
+    if live_rows is not None:
+        bias.fill_(float("-inf"))
+        bias[torch.from_numpy(rng.choice(5000, live_rows, replace=False))
+             .to(card)] = 0.0
+    plant_word_ties(qt, xt, bias, 128)
+    assert_hamming_bitwise(qt, xt, bias, k, 128)
+
+
+@pytest.mark.parametrize("W", [1, 3, 8, 25, 32, 33])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_hamming_word_widths(card, W, offset):
+    """Every word width, in both copy forms: W % 4 == 0 on an aligned
+    table takes the 16-byte copies; W % 4 != 0, or a table 4 bytes off a
+    16-byte boundary, the 4-byte ones. W past one 8-word chunk re-expands
+    the queries per chunk."""
+    rng = np.random.default_rng(W * 2 + offset)
+    qt, xt, bias = word_operands(rng, 130, 3000, W, 0.1, card)
+    x_off = torch.empty(xt.numel() + offset, dtype=torch.int32,
+                        device=card)[offset:].view_as(xt)
+    x_off.copy_(xt)
+    assert bool(x_off.data_ptr() % 16) == bool(offset)
+    plant_word_ties(qt, x_off, bias, 128)
+    assert_hamming_bitwise(qt, x_off, bias, 40, 128)
 
 
 @pytest.mark.parametrize(
@@ -410,7 +485,8 @@ def test_hamming_search_on_card_matches_cpu(card, monkeypatch, tier):
     """Hamming replies on the card equal the CPU's byte for byte: the
     scan (with SCAN_CERT auto and 1: a hamming table takes the exact tier
     either way), the graph engine (expand 1 and 16, seeds 0 and 4) and
-    the flat kind with use_pallas, and at k = 300."""
+    the flat kind with use_pallas, and at k = 300 (through kernel A′ on
+    the card)."""
     monkeypatch.setenv("REDIS_HNSW_TPU_NBRVEC_DTYPE", tier)
     rng = np.random.default_rng(11)
     data = rng.integers(0, 2**32, (1500, 8), dtype=np.uint32)
@@ -435,7 +511,7 @@ def test_hamming_search_on_card_matches_cpu(card, monkeypatch, tier):
         reps.append(c.search_batch("h", qs, 10, reply="columnar"))
         reps.append(c.index("f").search_batch(qs, 10, reply="columnar",
                                               use_pallas=True))
-        # above kernel A′'s width: the wide route on both devices
+        # k past 256: kernel A′ on the card, its plain version on the CPU
         reps.append(c.index("f").search_batch(qs, 300, reply="columnar"))
         monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", "1")
         reps.append(c.search_batch("h", qs, 10, reply="columnar"))

@@ -88,7 +88,8 @@ def test_distance_functions_match_jax(rng, w):
 # -- kernel A′ (plain version) ----------------------------------------------------
 
 @pytest.mark.parametrize("B,N,W,k", [(40, 500, 8, 7), (9, 300, 3, 32),
-                                     (5, 64, 1, 1)])
+                                     (5, 64, 1, 1), (6, 400, 3, 257),
+                                     (4, 450, 3, 300)])
 def test_plain_topk_hamming_matches_pallas(rng, B, N, W, k):
     """Exact ids and sims (ties to the lowest id), zero distance and
     dead rows included, as the Pallas kernel computes them."""
@@ -116,8 +117,10 @@ def test_check_words_rejects():
     bias = torch.zeros(5)
     with pytest.raises(TypeError):
         cuda_scan.flat_topk_hamming(q.float(), x, bias, k=1)
-    with pytest.raises(ValueError, match="k <= 256"):
-        cuda_scan.flat_topk_hamming(q, x, bias, k=257)
+    # no width limit: k = 257 is served, padded past the 5 rows
+    ids, sims = cuda_scan.flat_topk_hamming(q, x, bias, k=257)
+    assert ids.shape == sims.shape == (2, 257)
+    assert (ids[:, 5:] == -1).all() and torch.isinf(sims[:, 5:]).all()
     with pytest.raises(ValueError, match="width"):
         cuda_scan.flat_topk_hamming(q[:, :2], x, bias, k=1)
 

@@ -146,7 +146,7 @@ def test_not_ported_branches_raise(monkeypatch):
     [("euclidean", 65, "1"),    # the two-pass tier selects k_sel = 260
      ("euclidean", 257, "0"),   # the exact tier above 256
      ("euclidean", 300, "0"),
-     ("hamming", 300, "0")],    # above kernel A′'s width: the wide route
+     ("hamming", 300, "0")],    # kernel A′'s plain route past k = 256
 )
 def test_wide_k_matches_jax(monkeypatch, metric, k, cert):
     """Every k the JAX package serves is served, on a 400-row flat index:

@@ -111,6 +111,34 @@ def test_scan_plan(monkeypatch, B, N, want):
     assert (splits - 1) * per < tiles <= splits * per
 
 
+@pytest.mark.parametrize(
+    "B,N,want",
+    [(2048, 1_000_064, (16, 489)),  # flat-hamming-sift256: one wave
+     (16, 1_000_064, (261, 30)),    # a small batch: one wave
+     (2048, 16_384, (16, 8)),       # hnsw-hamming-256b's scan
+     (4096, 1_000_064, (8, 977))],  # one wave, not four
+)
+def test_hamming_plan(monkeypatch, B, N, want):
+    """Kernel A′'s row splits: the same wave planner over A′'s own
+    resident blocks (132 SMs x 2 here) with A′'s fixed work a block, so a
+    large batch takes one wave of long splits where tile counts alone
+    would take two (B = 2048: 33 splits) or four (B = 4096), and B = 16
+    still fills a wave; kernel A's slots are not read."""
+    from redis_hnsw_tpu_torch.ops import cuda_select
+
+    monkeypatch.setattr(cuda_scan, "hamming_block_slots", lambda index: 264)
+    monkeypatch.setattr(cuda_scan, "block_slots", None)
+    splits, per = cuda_scan.plan(torch.device("cuda", 0), B, N,
+                                 hamming=True)
+    assert (splits, per) == want
+    tiles = -(-N // 128)
+    assert (splits - 1) * per < tiles <= splits * per
+    blocks = -(-B // 128) * splits
+    assert 0.9 * 264 <= blocks <= 264 or N < 100_000  # one full wave
+    if B >= 2048 and N > 100_000:  # tile counts alone plan more splits
+        assert cuda_select.plan_splits(264, -(-B // 128), tiles) > splits
+
+
 @pytest.mark.parametrize("splits", [1, 33, 100])
 def test_merge_lists_over_many_splits(rng, splits):
     """The merge of kernel A's per-split lists, more than 32 of them (one

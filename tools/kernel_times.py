@@ -14,8 +14,9 @@ directory that .gitignore lists.
 Shapes: kernels A, B and D at B = 2048 queries over 1,000,064 rows of
 D = 128 (A at k = 10 and k_sel = 40, and also at B = 16 over those rows
 and at hnsw-main's 2048 x 16,384, k = 10); A′ at 2048 x 1,000,064 rows of
-8 words, k_sel = 40 and k = 10; C (f32 blocks) at B = 2048, E = 16 over a
-1,000,064 x 32 x 128 block table. Plus the yardstick torch.mm +
+8 words, k_sel = 40 and k = 10, at B = 16 over those rows and at 2048 x
+16,384 (hnsw-hamming-256b's scan), k = 10; C (f32 blocks) at B = 2048,
+E = 16 over a 1,000,064 x 32 x 128 block table. Plus the yardstick torch.mm +
 torch.topk at k = 40 and the card's SM clock while A ran. Times are
 means of CUDA-event windows after a warm-up; data come from fixed seeds.
 
@@ -128,7 +129,13 @@ def main() -> int:
         lambda: cuda_scan.flat_topk_hamming(qw, xw, bias, k=40), 10)
     t["a_hamming10_ms"] = sync_ms(
         lambda: cuda_scan.flat_topk_hamming(qw, xw, bias, k=10), 10)
-    del xw, qw, bias
+    qw16 = qw[:16].contiguous()
+    t["a_hamming_b16_ms"] = sync_ms(
+        lambda: cuda_scan.flat_topk_hamming(qw16, xw, bias, k=10), 20)
+    xws, biass = xw[:16_384], bias[:16_384]
+    t["a_hamming_hnsw_ms"] = sync_ms(
+        lambda: cuda_scan.flat_topk_hamming(qw, xws, biass, k=10), 20)
+    del xw, qw, bias, qw16, xws, biass
     torch.cuda.empty_cache()
 
     E, F = 16, 32
