@@ -7,8 +7,8 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
 ``redis_hnsw_tpu_torch/csrc`` into ``build/``, then:
 
 0. prints the card's name and power limit, the kernels' build time and,
-   for kernels A, A′ and D (the split kernels), ptxas registers, spills,
-   shared memory and resident blocks;
+   for kernels A, A′, B and D (the split kernels), ptxas registers,
+   spills, shared memory and resident blocks;
 1. holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at ragged edges: bitwise on integer-lattice
    data (every score exact in f32) and on random hamming words, to a
@@ -17,7 +17,13 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
    at its 128 x 128 tile's and its splits' edges, with equal rows planted
    across them, at k = 1 ... 1000 and in its 4-byte-copy form, and timed
    with the SM clock sampled, at B = 16 over 1,000,064 rows and at
-   hnsw-main's 2048 x 16,384. Kernel C (block gather-score) is timed over a
+   hnsw-main's 2048 x 16,384. Kernel B (threshold counts) is held
+   bitwise in the same kinds of edge cases, with tie classes planted at
+   t, at D = 1/33/129, in its 4-byte-copy form and at t = -inf, and timed
+   at the same three shapes with the SM clock sampled, beside a
+   three-call yardstick (torch.mm, then the two compare-sums), and its
+   counts at the flat-sift1m shape must equal kernel A's selection on
+   every query. Kernel C (block gather-score) is timed over a
    SIFT1M-size block table (1,000,064 rows x 32 neighbours x 128 dims,
    f16 and f32); kernel A′ (exact hamming top-k) is held bitwise in the
    same kinds of edge cases, with tie classes planted, at k = 1 ... 1000
@@ -46,7 +52,7 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
    shape) served 16,384 queries on the certified-exact tier's two-pass
    form (REDIS_HNSW_TPU_CERT_ONEPASS=0, kernels A and B), checked
    byte-identical to the exact tier on every query and against the
-   oracle on a sample;
+   oracle on a sample, with kernel B's share of the batch time;
 3c. the same index on the certified tier's default, one-pass form
    (kernel D): byte-identical to the exact tier on every query,
    certified share >= 0.95, and kernel D's share of the batch time;
@@ -320,7 +326,11 @@ def phase_kernels(dev):
     with ClockSampler() as clock:
         a_ms = sync_ms(lambda: cuda_scan.flat_topk(qt, xt, sqm, qq,
                                                    k=k_sel), 20)
+    with ClockSampler() as b_clock:
+        b_ms = sync_ms(lambda: cuda_count.count_gt_eq(xt, sqm, qt, qq, t),
+                       20)
     q16, qq16 = qt[:16].contiguous(), qq[:16].contiguous()
+    t16 = t[:16].contiguous()
     times = {
         "a_ms": a_ms,
         "a10_ms": sync_ms(lambda: cuda_scan.flat_topk(qt, xt, sqm, qq,
@@ -334,25 +344,33 @@ def phase_kernels(dev):
             qt, xt, sqm, qq, k=k_sel), 2),
         "lib_ms": sync_ms(lambda: torch.topk(torch.mm(qt, xt.t()), k_sel,
                                              dim=1), 3),
-        "b_ms": sync_ms(lambda: cuda_count.count_gt_eq(xt, sqm, qt, qq, t),
-                        5),
+        "b_ms": b_ms,
+        "b_b16_ms": sync_ms(lambda: cuda_count.count_gt_eq(
+            xt, sqm, q16, qq16, t16), 20),
+        "b_hnsw_ms": sync_ms(lambda: cuda_count.count_gt_eq(
+            xt[:16_384], sqm[:16_384], qt, qq, t), 20),
         "b_plain_ms": sync_ms(lambda: cuda_count.plain_count_gt_eq(
             xt, sqm, qt, qq, t), 2),
+        # B's yardstick, three calls: the product, then the two counts
+        "b_lib_ms": sync_ms(lambda: count_yardstick(qt, xt, t), 3),
     }
-    splits = {shape: cuda_scan.plan(dev, b, n) for shape, (b, n) in
-              (("B=2048", (B, N)), ("B=16", (16, N)),
-               ("2048x16384", (B, 16_384)))}
-    log(f"phase 1: times at B={B} N={N} D={D} (ms; kernel A's (splits, "
-        f"tiles per split) {splits}; while A ran at k={k_sel}: "
-        f"{clock.summary()}): " + json.dumps(times))
+    shapes = (("B=2048", (B, N)), ("B=16", (16, N)),
+              ("2048x16384", (B, 16_384)))
+    splits = {shape: cuda_scan.plan(dev, b, n) for shape, (b, n) in shapes}
+    b_splits = {shape: cuda_count.plan(dev, b, n) for shape, (b, n) in shapes}
+    log(f"phase 1: times at B={B} N={N} D={D} (ms; (splits, tiles per "
+        f"split) of kernel A {splits}, of kernel B {b_splits}; while A ran "
+        f"at k={k_sel}: {clock.summary()}; while B ran: "
+        f"{b_clock.summary()}): " + json.dumps(times))
     shape = {"B": B, "N": N, "D": D}
     flops = 2.0 * B * N * D
     in_bytes = 4.0 * (B * D + N * D + N + B)
     a_bound, a_by = bound_ms(flops, in_bytes + 8.0 * B * k_sel)
     b_bound, b_by = bound_ms(flops, in_bytes + 4.0 * B + 8.0 * B)
-    del qt, xt, sqm, qq, ids, sims, t, q16, qq16
+    del qt, xt, sqm, qq, ids, sims, t, q16, qq16, t16
     torch.cuda.empty_cache()
     err_a = max(err_a, phase_scan_edges(dev))
+    err_b = max(err_b, phase_count_edges(dev))
     return {
         "scan_topk": dict(
             route="cuda", source="redis_hnsw_tpu_torch/csrc/scan_topk.cu",
@@ -366,7 +384,9 @@ def phase_kernels(dev):
             route="cuda", source="redis_hnsw_tpu_torch/csrc/count_gt_eq.cu",
             replaces="redis_hnsw_tpu/ops/pallas_count.py:78",
             max_abs_err=err_b, ms=times["b_ms"], plain_ms=times["b_plain_ms"],
-            bound_ms=b_bound, bound_by=b_by, library_ms=None,
+            bound_ms=b_bound, bound_by=b_by, library_ms=times["b_lib_ms"],
+            library_calls="torch.mm, then (s > t).sum and (s == t).sum",
+            ms_b16=times["b_b16_ms"], ms_hnsw=times["b_hnsw_ms"],
             shape=shape,
         ),
     }
@@ -429,6 +449,117 @@ def phase_scan_edges(dev):
         f"edge cases (tile and split edges, planted equal rows, k = 1 ... "
         f"1000, few live rows, the 4-byte form)")
     return err
+
+
+def count_yardstick(qt, xt, t):
+    """Kernel B's library yardstick: ``torch.mm`` of the queries and rows,
+    then the two compare-sums against ``t`` (three calls; the port never
+    calls them)."""
+    s = torch.mm(qt, xt.t())
+    return (s > t[:, None]).sum(1), (s == t[:, None]).sum(1)
+
+
+def plant_tie_class(case, edge):
+    """Row edge - 2 copied to rows edge - 1 .. edge + 1, all live: a tie
+    class of 4 rows across the edge for every query."""
+    _, xt, sqm, _ = case
+    xt[edge - 1 : edge + 2] = xt[edge - 2]
+    sqm[edge - 2 : edge + 2] = (xt[edge - 2] * xt[edge - 2]).sum()
+
+
+def count_thresholds(rng, case, edge=None):
+    """Per query a real score of a random live row (or, for every other
+    query, of the tie class planted at ``edge``), and -inf on every 7th
+    query."""
+    from redis_hnsw_tpu_torch.ops import distance as Dm
+
+    qt, xt, sqm, qq = case
+    scores = Dm.pairwise_neg_sq_l2(qt, xt, sqm, qq)
+    live = torch.isfinite(sqm).nonzero()[:, 0]
+    if not len(live):  # a one-row table whose row is dead
+        live = torch.zeros(1, dtype=torch.int64, device=qt.device)
+    B = qt.shape[0]
+    pick = live[torch.from_numpy(rng.integers(0, len(live), B)).to(live)]
+    if edge is not None:
+        pick[::2] = edge - 2
+    t = scores[torch.arange(B, device=qt.device), pick]
+    t[3::7] = float("-inf")
+    return t.contiguous()
+
+
+def count_bitwise(case, t, label):
+    """Kernel B's counts equal its plain version's; returns them."""
+    from redis_hnsw_tpu_torch.ops import cuda_count
+
+    qt, xt, sqm, qq = case
+    got = cuda_count.count_gt_eq(xt, sqm, qt, qq, t)
+    want = cuda_count.plain_count_gt_eq(xt, sqm, qt, qq, t)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"{label}: kernel B counts differ from its plain version")
+    return got
+
+
+def phase_count_edges(dev):
+    """Kernel B bitwise against its plain version on lattice data: at the
+    edges of its 128 x 128 tile (B, N at 1/127/128/129, B = 2049) and of
+    its splits (N one row short of, at and past a boundary), with dead
+    rows and a tie class at t planted across the tile edge and the
+    boundary; at D = 1, 33 and 129 and in its 4-byte-copy form (D = 33,
+    and operands 4 bytes off a 16-byte boundary); at t = -inf with dead
+    rows and a ragged last tile (every live row counts as >, every dead
+    row as ==, the padding never); and at B = 16 over 400,003 rows.
+    Returns the max abs count difference (0)."""
+    from redis_hnsw_tpu_torch.ops import cuda_count
+
+    rng = np.random.default_rng(SEED + 11)
+    cases = 0
+    for B in (1, 127, 128, 129, 2049):
+        for N in (1, 127, 128, 129, "split-1", "split+0", "split+1"):
+            edge = 128
+            if isinstance(N, str):
+                N, edge = split_edge(cuda_count.plan, dev, B,
+                                     int(N[len("split"):]))
+            case = make_case(rng, B, N, 128, True, 0.1, dev)
+            planted = N > edge + 1
+            if planted:
+                plant_tie_class(case, edge)
+            t = count_thresholds(rng, case, edge if planted else None)
+            _, c_eq = count_bitwise(case, t, f"B edge B={B} N={N}")
+            fin = torch.isfinite(t[::2])
+            check(not planted or (c_eq[::2][fin] >= 4).all().item(),
+                  f"B edge B={B} N={N}: the planted tie class not counted")
+            cases += 1
+    for D, off in ((1, 0), (33, 0), (129, 0), (33, 1), (128, 1)):
+        qt, xt, sqm, qq = make_case(rng, 130, 3000, D, True, 0.1, dev)
+        q_off = torch.empty(qt.numel() + off, device=dev)[off:].view_as(qt)
+        x_off = torch.empty(xt.numel() + off, device=dev)[off:].view_as(xt)
+        q_off.copy_(qt)
+        x_off.copy_(xt)
+        case = (q_off, x_off, sqm, qq)
+        plant_tie_class(case, 128)
+        count_bitwise(case, count_thresholds(rng, case, 128),
+                      f"B D={D} offset={off}")
+        cases += 1
+    for N in (1000, split_edge(cuda_count.plan, dev, 130, 1)[0]):
+        case = make_case(rng, 130, N, 128, True, 0.3, dev)
+        t = torch.full((130,), float("-inf"), device=dev)
+        c_gt, c_eq = count_bitwise(case, t, f"B t=-inf N={N}")
+        live = int(torch.isfinite(case[2]).sum())
+        check((c_gt == live).all().item() and (c_eq == N - live).all().item(),
+              f"B t=-inf N={N}: counts {c_gt[0]}, {c_eq[0]} of {live} live "
+              f"rows")
+        cases += 1
+    case = make_case(rng, 16, 400_003, 128, True, 0.1, dev)
+    plant_tie_class(case, 200_000)
+    count_bitwise(case, count_thresholds(rng, case, 200_000),
+                  "B B=16 N=400003")
+    cases += 1
+    log(f"phase 1: kernel B bitwise equal to its plain version in {cases} "
+        f"edge cases (tile and split edges, planted tie classes at t, D = "
+        f"1/33/129, the 4-byte form, t = -inf over dead rows and a ragged "
+        f"tile, B = 16 over 400,003 rows)")
+    return 0.0
 
 
 def word_case(rng, B, N, W, dead_frac, dev):
@@ -698,7 +829,7 @@ def plant_select_edges(case):
 
 def split_edge(plan, dev, B, delta):
     """(N, first boundary row): a table size N that ends ``delta`` rows
-    past a split boundary of a launch of kernel A or D (as its module's
+    past a split boundary of a launch of kernel A, B or D (as its module's
     ``plan`` cuts the 128-row tiles), with several splits of several
     tiles each."""
     for nt in range(2, 1 << 16):
@@ -1169,7 +1300,11 @@ def phase_graph_lattice(dev, n=2000, n_q=256, devices=("cuda", "cpu")):
         f"launches {counts}")
 
 
-def phase_flat(client, dev, d_ms):
+def phase_flat(client, dev, b_ms, d_ms):
+    """3: flat-sift1m on the certified tier's two-pass form (kernels A and
+    B), byte-identical to the exact tier; kernel B's share of the batch
+    time is its launches times ``b_ms``, its phase 1 time at this shape
+    (2048 queries over 1,000,064 rows). Then 3c (:func:`phase_onepass`)."""
     from redis_hnsw_tpu_torch.ops import scan as S
 
     n, dim, n_q, k = 1_000_000, 128, 16_384, 10
@@ -1227,9 +1362,12 @@ def phase_flat(client, dev, d_ms):
                  "flat-sift1m")
     del xs64
     peak = torch.cuda.max_memory_allocated()
+    b_share = counts["count_gt_eq"] * b_ms / (cert_s * 1e3)
     log(f"phase 3: flat-sift1m: add_batch {n} rows {add_s:.2f} s; "
         f"search_batch {n_q} queries k={k} certified two-pass: first call "
-        f"{first_s:.3f} s (table upload), then {n_q / cert_s:.0f} qps; "
+        f"{first_s:.3f} s (table upload), then {n_q / cert_s:.0f} qps "
+        f"({cert_s * 1e3:.1f} ms per {n_q} queries, of which kernel B "
+        f"{counts['count_gt_eq']} x {b_ms:.2f} ms = {b_share:.1%}); "
         f"exact tier {n_q / exact_s:.0f} qps; certified share {share:.6f}, "
         f"cert stats {stats}; byte-identical to the exact tier on all "
         f"{n_q} queries; launches {counts}; max_memory_allocated "
@@ -1513,7 +1651,7 @@ def ptxas_figures(text: str, name: str) -> dict:
 def log_core_figures(path, kernel: str, smem_fn: str, slots: int) -> None:
     """One line: a split kernel's registers, spills and shared memory per
     form (<4>: 16-byte copies, <1>: 4-byte copies) and its resident
-    blocks (kernels A, A′ and D)."""
+    blocks (kernels A, A′, B and D)."""
     import ctypes
 
     from redis_hnsw_tpu_torch.utils import build
@@ -1550,11 +1688,14 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log("  " + line.strip())
     dev = torch.device("cuda")
-    from redis_hnsw_tpu_torch.ops import cuda_scan, cuda_select
+    from redis_hnsw_tpu_torch.ops import cuda_count, cuda_scan, cuda_select
 
     card_index = torch.cuda.current_device()
     log_core_figures(paths["scan_topk"], "scan_tile_kernel",
                      "scan_topk_smem_bytes", cuda_scan.block_slots(card_index))
+    log_core_figures(paths["count_gt_eq"], "count_kernel",
+                     "count_gt_eq_smem_bytes",
+                     cuda_count.block_slots(card_index))
     log_core_figures(paths["scan_topk"], "hamming_tile_kernel",
                      "scan_topk_hamming_smem_bytes",
                      cuda_scan.hamming_block_slots(card_index))
@@ -1571,7 +1712,8 @@ def main() -> int:
     phase_graph_lattice(dev)
     path_counts = [phase_hnsw_hamming(client, dev)]
     phase_hamming_lattice(dev)
-    path_counts += [phase_flat(client, dev, kernels["select_bins"]["ms"]),
+    path_counts += [phase_flat(client, dev, kernels["count_gt_eq"]["ms"],
+                               kernels["select_bins"]["ms"]),
                     phase_flat_hamming(client, dev)]
     for counts in path_counts:
         for name, c in counts.items():

@@ -17,7 +17,7 @@
 // sits in the blocks of many parents. So each output is one thread's
 // in-order __fmaf_rn chain over d = 0 .. D-1 from +0 (elements widened to
 // f32 first), then explicitly rounded __fmul_rn / __fsub_rn, as in
-// score.cuh: its value depends only on q[b], the row's elements and its
+// l2_core.cuh: its value depends only on q[b], the row's elements and its
 // sqnorm -- never on (e, f), the block, or which parent held it. The row
 // form of the same function (F = 1, ops/cuda_gather.py fused_row_score)
 // therefore scores the entry point and seeds bit-identically too.

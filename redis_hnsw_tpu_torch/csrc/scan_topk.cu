@@ -19,24 +19,22 @@
 // tier, the two-pass certified selection, the one-pass fallback, flat
 // use_pallas and the graph engine's seed pivots.
 //
-//   Scores. Bit-identical to score.cuh's routine, which kernel B (the
-//   two-pass certificate's count) shares, and to kernel D's core:
+//   Scores. On the fp32 core of l2_core.cuh, which kernel B (the
+//   two-pass certificate's count) and kernel D (the one-pass select)
+//   share, so the three kernels' scores are bit-identical:
 //     dot   = one __fmaf_rn chain over d = 0 .. D-1 in order, from +0
 //     score = __fsub_rn(__fsub_rn(__fmul_rn(2, dot), qq), sq)
-//   No tensor cores, no TF32, no split-K, no reassociation. Dims past D
-//   are staged as zeros, and fma(0, 0, dot) == dot for every dot the
-//   chain can produce (it never holds -0).
+//   No tensor cores, no TF32, no split-K, no reassociation.
 //
 //   Bound on the H100: 2*B*N*D fp32 operations against (B + N)*D*4 bytes,
 //   compute-bound at every serving shape (7.8 ms at B = 2048, N = 1M,
-//   D = 128). So the scoring core is kernel D's (select_bins.cu, a copy
-//   kept here so that D's source stays as it was measured): a block
-//   scores a 128-query x 128-row tile with 128 threads, each holding an
-//   8 x 16 fp32 register tile (queries ty + 16i, i < 8, and rows tx + 8j,
-//   j < 16; tx = tid % 8, ty = tid / 8), 32 FMAs per 16-byte shared load;
-//   operands stream through a 3-stage cp.async ring of 32-dim chunks
-//   that runs on across row tiles (16-byte copies; a 4-byte-copy instance
-//   when D % 4 != 0 or an operand is not 16-byte aligned).
+//   D = 128). The core: a block scores a 128-query x 128-row tile with
+//   128 threads, each holding an 8 x 16 fp32 register tile (queries
+//   ty + 16i, i < 8, and rows tx + 8j, j < 16; tx = tid % 8, ty = tid /
+//   8), 32 FMAs per 16-byte shared load; operands stream through a
+//   3-stage cp.async ring of 32-dim chunks that runs on across row tiles
+//   (16-byte copies; a 4-byte-copy instance when D % 4 != 0 or an operand
+//   is not 16-byte aligned).
 //
 //   Selection. A score leaves the registers only if it may enter the
 //   list. Per (split, query) the list is an 8-ary heap of k entries in
@@ -120,22 +118,14 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "l2_core.cuh"
+
 // -- kernel A -------------------------------------------------------------
 
 namespace rht_scan {
 
-constexpr int TILE_R = 128;   // rows per block tile
-constexpr int TILE_Q = 128;   // queries per block tile
-constexpr int THREADS = 128;
-constexpr int TQ = 16;        // threads along the queries of a tile
-constexpr int TR = 8;         // threads along its rows (lanes of a warp)
-constexpr int MQ = 8;         // register tile: MQ queries x MR rows
-constexpr int MR = 16;
-constexpr int K_CHUNK = 32;   // dims per pipeline stage
-constexpr int LD = K_CHUNK + 4;
-constexpr int STAGES = 3;
-constexpr int STAGE_ROWS = TILE_Q + TILE_R;
-constexpr int STAGE_FLOATS = STAGE_ROWS * LD;
+using namespace rht_l2;
+
 // entries of a (split, query) append buffer: a tile adds at most TILE_R,
 // and the block merges before a tile once any buffer holds BUF_CAP -
 // TILE_R or more, so no tile overflows one (the first merge comes after
@@ -149,12 +139,8 @@ constexpr int RING_FLOATS = STAGES * STAGE_FLOATS + TILE_Q + STAGES * TILE_R;
 constexpr int SMEM_BYTES = RING_FLOATS * (int)sizeof(float) +
                            TILE_Q * (int)(sizeof(float) + sizeof(int)) +
                            WARPS * (int)sizeof(int);
-constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int MERGE_WARPS = 4;
 
-static_assert(TQ * MQ == TILE_Q && TR * MR == TILE_R, "tile");
-static_assert(TQ * TR == THREADS, "one register tile per thread");
-static_assert(THREADS == TILE_Q && THREADS == TILE_R, "one norm per thread");
 static_assert(WARPS == 4, "a tile's votes are one int4");
 
 // Entries of one (split, query) slab: an ARITY-ary heap g[0..k) at slab
@@ -283,89 +269,6 @@ __device__ __forceinline__ int2 drain(int2* g, int k, int n) {
   return root;
 }
 
-// cp.async of VEC floats; src_bytes < 4 * VEC zero-fills the rest.
-template <int VEC>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (VEC == 4) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(src), "r"(src_bytes)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-                 "l"(src), "r"(src_bytes)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
-// Start copying dims [d0, d0 + K_CHUNK) of query rows q0.. (stage rows
-// 0..127) and table rows r0.. (stage rows 128..255) into one stage;
-// zeros past B, N and D. VEC = 4 needs D % 4 == 0 and aligned operands,
-// so a 16-byte copy is wholly inside or wholly outside D.
-template <int VEC>
-__device__ __forceinline__ void load_chunk(float* stage,
-                                           const float* __restrict__ Q,
-                                           const float* __restrict__ X,
-                                           int B, int N, int D, int q0,
-                                           int r0, int d0) {
-  constexpr int PER_ROW = K_CHUNK / VEC;
-  constexpr int ROWS_PER_PASS = THREADS / PER_ROW;
-  const int col = threadIdx.x % PER_ROW;
-  const int d = d0 + col * VEC;
-#pragma unroll
-  for (int p = 0; p < STAGE_ROWS / ROWS_PER_PASS; ++p) {
-    const int r = threadIdx.x / PER_ROW + p * ROWS_PER_PASS;
-    const bool is_q = p < TILE_Q / ROWS_PER_PASS;  // r < TILE_Q
-    const int g = is_q ? q0 + r : r0 + r - TILE_Q;
-    const float* base = is_q ? Q : X;
-    const bool ok = g < (is_q ? B : N) && d < D;
-    cp_async<VEC>(stage + r * LD + col * VEC,
-                  ok ? base + (size_t)g * D + d : base, ok ? 4 * VEC : 0);
-  }
-}
-
-// acc[i][j] += the chunk's products of query ty + 16i and row tx + 8j,
-// one FMA per dim in ascending order.
-__device__ __forceinline__ void fma_chunk(const float* stage, int tx, int ty,
-                                          float (&acc)[MQ][MR]) {
-  const float* qs = stage + ty * LD;
-  const float* xs = stage + (TILE_Q + tx) * LD;
-  // unrolled by 2, not 8: fully unrolled, ptxas hoists loads until the
-  // 16-byte form spills at 255 registers
-#pragma unroll 2
-  for (int k = 0; k < K_CHUNK; k += 4) {
-    float qf[MQ][4];
-#pragma unroll
-    for (int i = 0; i < MQ; ++i) {
-      const float4 v = *reinterpret_cast<const float4*>(qs + i * TQ * LD + k);
-      qf[i][0] = v.x;
-      qf[i][1] = v.y;
-      qf[i][2] = v.z;
-      qf[i][3] = v.w;
-    }
-#pragma unroll
-    for (int j = 0; j < MR; ++j) {
-      const float4 v = *reinterpret_cast<const float4*>(xs + j * TR * LD + k);
-      const float xf[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int i = 0; i < MQ; ++i)
-          acc[i][j] = __fmaf_rn(qf[i][c], xf[c], acc[i][j]);
-    }
-  }
-}
-
 template <int VEC>
 __global__ void __launch_bounds__(THREADS, 2)
     scan_tile_kernel(const float* __restrict__ Q,
@@ -458,8 +361,7 @@ __global__ void __launch_bounds__(THREADS, 2)
       const float th = thr_s[ql];
 #pragma unroll
       for (int j = 0; j < MR; ++j) {
-        const float s =
-            __fsub_rn(__fsub_rn(__fmul_rn(2.f, acc[i][j]), qn), sn[j]);
+        const float s = l2_score(acc[i][j], qn, sn[j]);
         acc[i][j] = 0.f;
         if (s >= th) {
           const int p = atomicAdd(&cnt_s[ql], 1);
@@ -622,11 +524,11 @@ inline int launch_merge(const int2* slabs, int slab_len, int B, int k,
 
 namespace rht_ham {
 
+using rht_l2::cp_async;
+using rht_l2::cp_async_commit;
+using rht_l2::cp_async_wait;
 using rht_scan::BUF_CAP;
 using rht_scan::HEAP_AT;
-using rht_scan::cp_async;
-using rht_scan::cp_async_commit;
-using rht_scan::cp_async_wait;
 using rht_scan::drain;
 using rht_scan::empty_entry;
 using rht_scan::heap_len;

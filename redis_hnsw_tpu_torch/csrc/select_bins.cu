@@ -18,15 +18,9 @@
 // the candidates whose k-th score t exceeds m2 is the exact top-k of the
 // whole table (ops/scan.py _certified_onepass). That argument ranks the
 // candidates by kernel A's own scores, so every score here is, bit for
-// bit, the one score.cuh gives kernel A:
-//
-//   dot   = one __fmaf_rn chain over d = 0 .. D-1 in order, from +0
-//   score = __fsub_rn(__fsub_rn(__fmul_rn(2, dot), qq), sq)
-//
-// This file does not share score.cuh's code: it reproduces that chain in
-// its own core. Dims past D are staged as zeros, and fma(0, 0, dot) == dot
-// for every dot the chain can produce (it never holds -0), so the chunking
-// of d leaves each value unchanged.
+// bit, kernel A's: both score on the fp32 core of l2_core.cuh (one
+// in-order __fmaf_rn chain over d from +0, then l2_score), whose
+// comment gives the chain, the tiling and the ring.
 //
 // Bound on the H100: 2*B*N*D fp32 operations against (B + N)*D*4 bytes
 // read plus B*N/128*8 bytes of bins written -- compute-bound at the
@@ -36,27 +30,14 @@
 // certificate and its byte-identity with the exact tier need the same
 // bits. So the design aims at the fp32 FMA pipes:
 //
-// * One block tile is 128 queries x 128 rows = one bin. 128 threads each
-//   hold an 8 x 16 register tile: queries ty + 16i (i < 8) and rows
-//   tx + 8j (j < 16), tx = tid % 8, ty = tid / 8. Per 4 dims a thread
-//   loads its 8 queries' 4 dims (8 16-byte shared-memory loads), then
-//   streams its 16 rows, 32 FMAs per 16-byte load: 512 FMAs for 24
-//   loads. A warp's row loads touch 8 rows and its query loads 4
-//   queries, so every load is a broadcast of at most 128 bytes. (An
-//   8 x 8 tile with 256 threads ran over 15% slower on the H100: 256
-//   FMAs for 16 loads, and spills at 128 registers a thread;
-//   tools/select_bins_study.cu times the variants.)
-// * Operands stream through a STAGES-deep ring of K_CHUNK-dim chunks of
-//   both tiles in dynamic shared memory, filled by cp.async (16-byte
-//   copies; 4-byte copies when D % 4 != 0 or a pointer is not 16-byte
-//   aligned), with one barrier per chunk. The ring runs on across bins,
-//   so the next bin's first chunks load during this bin's last ones and
-//   its epilogue. Rows are stored as they lie in device memory ([row][d],
-//   stride K_CHUNK + 4 floats: 8 consecutive rows hit 32 distinct banks)
-//   and each thread reads 4 dims of one row per load. The query norms
-//   are copied once per block, and each bin's row norms with its first
-//   chunk into a STAGES-deep ring of their own, so the epilogue reads no
-//   device memory (reading them there cost ~4% on the H100).
+// * One block tile of the core is 128 queries x 128 rows = one bin; a
+//   thread holds an 8 x 16 register tile (queries ty + 16i, rows
+//   tx + 8j), 32 FMAs per 16-byte shared-memory load.
+// * The cp.async ring runs on across bins, so the next bin's first
+//   chunks load during this bin's last ones and its epilogue. The query
+//   norms are copied once per block, and each bin's row norms with its
+//   first chunk into a STAGES-deep ring of their own, so the epilogue
+//   reads no device memory (reading them there cost ~4% on the H100).
 // * The epilogue runs once per bin: finish the 128 scores, fold each
 //   query's 16 rows in ascending row order (a strict > keeps the lowest
 //   index), then three 3-round shuffle reductions over the 8 lanes that
@@ -80,112 +61,17 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "l2_core.cuh"
+
 namespace rht_select {
 
-constexpr int BIN_L = 128;    // rows per bin = rows per block tile
-constexpr int TILE_Q = 128;   // queries per block tile
-constexpr int THREADS = 128;
-constexpr int TQ = 16;        // threads along the queries of a tile
-constexpr int TR = 8;         // threads along its rows (lanes of a warp)
-constexpr int MQ = 8;         // register tile: MQ queries x MR rows
-constexpr int MR = 16;
-constexpr int K_CHUNK = 32;   // dims per pipeline stage
-constexpr int LD = K_CHUNK + 4;
-constexpr int STAGES = 3;
-constexpr int STAGE_ROWS = TILE_Q + BIN_L;
-constexpr int STAGE_FLOATS = STAGE_ROWS * LD;
+using namespace rht_l2;
+
+constexpr int BIN_L = TILE_R;  // rows per bin = rows per block tile
 // the operand ring, the tile's query norms, a ring of row norms, and the
 // tile's running m2
 constexpr int SMEM_FLOATS = STAGES * STAGE_FLOATS + 2 * TILE_Q + STAGES * BIN_L;
 constexpr int SMEM_BYTES = SMEM_FLOATS * (int)sizeof(float);
-constexpr unsigned FULL_MASK = 0xffffffffu;
-
-static_assert(TQ * MQ == TILE_Q && TR * MR == BIN_L, "tile");
-static_assert(TQ * TR == THREADS, "one register tile per thread");
-static_assert(THREADS == TILE_Q && THREADS == BIN_L, "one norm per thread");
-
-// cp.async of VEC floats; src_bytes < 4 * VEC zero-fills the rest.
-template <int VEC>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (VEC == 4) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(src), "r"(src_bytes)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-                 "l"(src), "r"(src_bytes)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
-// Start copying dims [d0, d0 + K_CHUNK) of query rows q0.. (stage rows
-// 0..127) and table rows r0.. (stage rows 128..255) into one stage;
-// zeros past B, N and D. VEC = 4 needs D % 4 == 0 and aligned operands,
-// so a 16-byte copy is wholly inside or wholly outside D.
-template <int VEC>
-__device__ __forceinline__ void load_chunk(float* stage,
-                                           const float* __restrict__ Q,
-                                           const float* __restrict__ X,
-                                           int B, int N, int D, int q0,
-                                           int r0, int d0) {
-  constexpr int PER_ROW = K_CHUNK / VEC;
-  constexpr int ROWS_PER_PASS = THREADS / PER_ROW;
-  const int col = threadIdx.x % PER_ROW;
-  const int d = d0 + col * VEC;
-#pragma unroll
-  for (int p = 0; p < STAGE_ROWS / ROWS_PER_PASS; ++p) {
-    const int r = threadIdx.x / PER_ROW + p * ROWS_PER_PASS;
-    const bool is_q = p < TILE_Q / ROWS_PER_PASS;  // r < TILE_Q
-    const int g = is_q ? q0 + r : r0 + r - TILE_Q;
-    const float* base = is_q ? Q : X;
-    const bool ok = g < (is_q ? B : N) && d < D;
-    cp_async<VEC>(stage + r * LD + col * VEC,
-                  ok ? base + (size_t)g * D + d : base, ok ? 4 * VEC : 0);
-  }
-}
-
-// acc[i][j] += the chunk's products of query ty + 16i and row tx + 8j,
-// one FMA per dim in ascending order.
-__device__ __forceinline__ void fma_chunk(const float* stage, int tx, int ty,
-                                          float (&acc)[MQ][MR]) {
-  const float* qs = stage + ty * LD;
-  const float* xs = stage + (TILE_Q + tx) * LD;
-  // unrolled by 2, not 8: fully unrolled, ptxas hoists loads until the
-  // 16-byte form spills at 255 registers
-#pragma unroll 2
-  for (int k = 0; k < K_CHUNK; k += 4) {
-    float qf[MQ][4];
-#pragma unroll
-    for (int i = 0; i < MQ; ++i) {
-      const float4 v = *reinterpret_cast<const float4*>(qs + i * TQ * LD + k);
-      qf[i][0] = v.x;
-      qf[i][1] = v.y;
-      qf[i][2] = v.z;
-      qf[i][3] = v.w;
-    }
-#pragma unroll
-    for (int j = 0; j < MR; ++j) {
-      const float4 v = *reinterpret_cast<const float4*>(xs + j * TR * LD + k);
-      const float xf[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int i = 0; i < MQ; ++i)
-          acc[i][j] = __fmaf_rn(qf[i][c], xf[c], acc[i][j]);
-    }
-  }
-}
 
 template <int VEC>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -264,8 +150,7 @@ __global__ void __launch_bounds__(THREADS, 2)
       int aj = 0;
 #pragma unroll
       for (int j = 0; j < MR; ++j) {
-        const float s =
-            __fsub_rn(__fsub_rn(__fmul_rn(2.f, acc[i][j]), qn), sn[j]);
+        const float s = l2_score(acc[i][j], qn, sn[j]);
         if (j == 0 || s > a1) {
           a2 = a1;
           a1 = s;

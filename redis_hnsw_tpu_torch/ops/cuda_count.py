@@ -11,27 +11,34 @@ score ``-inf``.
 
 Soundness: the certificate (ops/scan.py) compares these counts with the
 counts over the selected scores, so the recomputed scores must be
-bit-identical to the selection pass's. On CUDA both kernels compute the
-chain of ``csrc/score.cuh`` (a sequential fp32 FMA chain over the dims,
-then explicitly rounded subtractions) -- this kernel through that routine,
-kernel A through its own 128 x 128 core -- so they are by arithmetic; on
-the CPU both plain versions score through
-ops/distance.py ``pairwise_neg_sq_l2`` over the same ``CHUNK_N`` chunks.
-The every-256th-batch audit in ops/scan.py certified_finish still turns
-any residual drift into a counted, repaired signal.
+bit-identical to the selection pass's. On CUDA kernels A and B score on
+the one fp32 core of ``csrc/l2_core.cuh`` (a sequential fp32 FMA chain
+over the dims, then explicitly rounded subtractions), so they are by
+arithmetic; on the CPU both plain versions score through ops/distance.py
+``pairwise_neg_sq_l2`` over the same ``CHUNK_N`` chunks. The
+every-256th-batch audit in ops/scan.py certified_finish still turns any
+residual drift into a counted, repaired signal.
 
 * On a CUDA tensor, :func:`count_gt_eq` launches ``csrc/count_gt_eq.cu``
-  or raises.
+  or raises: kernel A's loop (128 x 128 block tiles, 8 x 16 fp32 register
+  tiles, a cp.async ring) with a count epilogue -- per tile one compare
+  per score (s >= t); only where a score of a warp reaches t, the exact
+  counts, an 8-lane shuffle sum per query and one add into the query's
+  counters in shared memory -- and one integer atomic per (block,
+  query) at the end. :func:`plan` cuts the rows into splits that
+  fill whole waves of the card's resident blocks of this kernel.
 * On a CPU tensor it runs :func:`plain_count_gt_eq` (chunked masked sums),
   the kernel's reference in the tests.
 
 Bound on the H100: 2*B*N*D fp32 operations against (B + N)*D*4 bytes --
-compute-bound, like the selection. Times in PERF.md (chip_smoke.py).
+compute-bound, like the selection (7.8 ms at B = 2048, N = 1,000,064,
+D = 128). Times in PERF.md (chip_smoke.py, tools/kernel_times.py).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -55,14 +62,35 @@ def plain_count_gt_eq(vecs, sq_masked, q, qq, t):
     return c_gt, c_eq
 
 
-def _kernel():
+def _lib():
     from ..utils.build import load_kernel
 
     lib = load_kernel("count_gt_eq")
-    fn = lib.count_gt_eq_launch
-    fn.restype = _I
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
-    return fn
+    lib.count_gt_eq_launch.restype = _I
+    lib.count_gt_eq_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                       _P, _P, _P]
+    lib.count_gt_eq_slots.restype = _I
+    lib.count_gt_eq_slots.argtypes = []
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def block_slots(device_index: int) -> int:
+    """Blocks of the kernel that card ``device_index`` holds at once."""
+    with torch.cuda.device(device_index):
+        slots = _lib().count_gt_eq_slots()
+    if slots <= 0:
+        raise RuntimeError("count_gt_eq: cannot read the card's occupancy")
+    return slots
+
+
+def plan(device, B: int, N: int) -> tuple[int, int]:
+    """(splits, 128-row tiles per split) of a launch over B queries and N
+    rows: kernel D's wave planner (ops/cuda_select.py plan_tiles) over
+    this kernel's own resident blocks."""
+    from .cuda_select import plan_tiles
+
+    return plan_tiles(block_slots, device, B, N)
 
 
 def count_gt_eq(vecs, sq_masked, q, qq, t):
@@ -92,8 +120,8 @@ def count_gt_eq(vecs, sq_masked, q, qq, t):
     c_eq = torch.zeros(B, dtype=torch.int32, device=dev)
     if B == 0 or N == 0:
         return c_gt, c_eq
-    launch = _kernel()
-    splits = cuda_scan.splits_for(dev, B, N)
+    launch = _lib().count_gt_eq_launch
+    splits, _ = plan(dev, B, N)
     with torch.cuda.device(dev):
         err = launch(
             q.data_ptr(), vecs.data_ptr(), qq.data_ptr(),

@@ -24,10 +24,10 @@ formulation (ops/scan.py ``pm1_table``, ``_chunk_scores``): the bits as a
 partial sum is an integer below 2^24.
 
 * On a CUDA tensor, :func:`flat_topk` launches the hand-written CUDA
-  kernel ``csrc/scan_topk.cu`` or raises. It scores with kernel D's core
-  (128 x 128 block tiles, 8 x 16 fp32 register tiles, a cp.async ring)
-  by the FMA chain of ``csrc/score.cuh``, through which the count kernel
-  scores, so the certificate sees bit-identical scores. Each score is
+  kernel ``csrc/scan_topk.cu`` or raises. It scores on the fp32 core of
+  ``csrc/l2_core.cuh`` (128 x 128 block tiles, 8 x 16 fp32 register
+  tiles, a cp.async ring), which the count kernel (B) and kernel D share,
+  so the certificates see bit-identical scores. Each score is
   tested in registers against its query's admission threshold; survivors
   go to a per-(split, query) heap in device memory, so every k is served.
   :func:`plan` cuts the rows into splits that fill whole waves of the
@@ -168,15 +168,6 @@ def plain_merge_lists(part_s, part_i, k: int):
     return top_i, top_s
 
 
-def splits_for(device, n_q: int, n_rows: int) -> int:
-    """Row splits per 64-query tile of kernel B: enough blocks for ~4
-    per SM, at most 32 and at most one per 64-row tile."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    q_tiles = -(-n_q // 64)
-    want = -(-4 * sms // q_tiles)
-    return max(1, min(32, want, -(-n_rows // 64)))
-
-
 def _lib():
     from ..utils.build import load_kernel
 
@@ -232,20 +223,14 @@ def plan(device, B: int, N: int, *, hamming: bool = False
          ) -> tuple[int, int]:
     """(splits, 128-row tiles per split) of kernel A (or, with
     ``hamming``, A′) over B queries and N rows: kernel D's wave planner
-    (ops/cuda_select.py plan_splits) over the kernel's own resident
+    (ops/cuda_select.py plan_tiles) over the kernel's own resident
     blocks, with A′'s fixed work a block (``HAMMING_SPLIT_TILES``)."""
-    from .cuda_select import plan_splits
+    from .cuda_select import plan_tiles
 
-    tiles = max(1, -(-N // TILE))
-    index = torch.device(device).index
-    if index is None:
-        index = torch.cuda.current_device()
     if hamming:
-        splits = plan_splits(hamming_block_slots(index), -(-B // TILE),
-                             tiles, HAMMING_SPLIT_TILES)
-    else:
-        splits = plan_splits(block_slots(index), -(-B // TILE), tiles)
-    return splits, -(-tiles // splits)
+        return plan_tiles(hamming_block_slots, device, B, N,
+                          HAMMING_SPLIT_TILES)
+    return plan_tiles(block_slots, device, B, N)
 
 
 def flat_topk(queries, vecs, sq_masked, qq, *, k: int):

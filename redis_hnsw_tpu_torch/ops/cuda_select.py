@@ -119,14 +119,22 @@ def block_slots(device_index: int) -> int:
     return slots
 
 
-def plan(device, B: int, N: int) -> tuple[int, int]:
-    """(splits, bins per split) of a launch over B queries and N rows."""
-    nbins = -(-N // BIN_L)
+def plan_tiles(slots_of, device, B: int, N: int,
+               split_cost: int = 0) -> tuple[int, int]:
+    """(splits, 128-row tiles per split) of a split kernel (A, A′, B or
+    D) over B queries and N rows: :func:`plan_splits` over the resident
+    blocks ``slots_of(device index)`` of that kernel."""
+    tiles = max(1, -(-N // BIN_L))
     index = torch.device(device).index
     if index is None:
         index = torch.cuda.current_device()
-    splits = plan_splits(block_slots(index), -(-B // TILE_Q), nbins)
-    return splits, -(-nbins // splits)
+    splits = plan_splits(slots_of(index), -(-B // TILE_Q), tiles, split_cost)
+    return splits, -(-tiles // splits)
+
+
+def plan(device, B: int, N: int) -> tuple[int, int]:
+    """(splits, bins per split) of a launch over B queries and N rows."""
+    return plan_tiles(block_slots, device, B, N)
 
 
 def select_bins(vecs, sq_masked, q, qq):

@@ -112,7 +112,7 @@ def pairwise_neg_sq_l2(
 ) -> torch.Tensor:                         # [B, N]
     """Matmul-form negative squared L2 of every query against every row:
     ``(2 * q.x - |q|^2) - |x|^2``, each step rounded on its own (the
-    form the scan kernels compute, csrc/score.cuh). The plain versions
+    form the scan kernels compute, csrc/l2_core.cuh). The plain versions
     of both scan kernels score through this one function, so on the
     CPU the selection and the certificate's count see the same bits."""
     if x_sqnorm is None:

@@ -25,8 +25,8 @@ Two tiers, chosen per table by :func:`cert_enabled`:
   served again through the exact tier (:func:`certified_finish`), so the
   reply is byte-identical to the exact tier's on every query. Soundness
   needs the count to recompute the selection's scores bit for bit: both
-  kernels compute each score by the one FMA chain of ``csrc/score.cuh``
-  (kernel B through that routine, kernel A through its own core). Every
+  kernels compute each score on the one fp32 core of ``csrc/l2_core.cuh``
+  (an in-order FMA chain, then explicitly rounded subtractions). Every
   CERT_AUDIT_EVERY-th certified batch is also re-served exactly and
   byte-compared.
 

@@ -70,7 +70,7 @@ def test_kernels_bitwise_on_lattice(card, B, N, dim, k, dead):
 
 def split_edge(plan, dev, B, delta):
     """(N, first boundary row): a table size N that ends ``delta`` rows
-    past a split boundary of a launch of kernel A or D (as its module's
+    past a split boundary of a launch of kernel A, B or D (as its module's
     ``plan`` cuts the 128-row tiles), with several splits of several
     tiles each."""
     for nt in range(2, 1 << 16):
@@ -161,6 +161,108 @@ def test_count_matches_selection_on_gaussian(card):
     t = sims[:, 9].contiguous()
     c_gt, c_eq = cuda_count.count_gt_eq(xt, sqm, qt, qq, t)
     assert (c_gt == 9).all() and (c_eq == 1).all()
+
+
+def plant_tie_class(xt, sqm, edge):
+    """Row edge - 2 copied to rows edge - 1 .. edge + 1, all live: a tie
+    class of 4 rows across the edge for every query."""
+    xt[edge - 1 : edge + 2] = xt[edge - 2]
+    sqm[edge - 2 : edge + 2] = (xt[edge - 2] * xt[edge - 2]).sum()
+
+
+def count_thresholds(rng, qt, xt, sqm, qq, edge=None):
+    """Per query a real score of a random live row (or, for every other
+    query, of the tie class planted at ``edge``), and -inf on every 7th
+    query."""
+    scores = TD.pairwise_neg_sq_l2(qt, xt, sqm, qq)
+    live = torch.isfinite(sqm).nonzero()[:, 0]
+    if not len(live):  # a one-row table whose row is dead
+        live = torch.zeros(1, dtype=torch.int64, device=qt.device)
+    B = qt.shape[0]
+    pick = live[torch.from_numpy(rng.integers(0, len(live), B)).to(live)]
+    if edge is not None:
+        pick[::2] = edge - 2
+    t = scores[torch.arange(B, device=qt.device), pick]
+    t[3::7] = float("-inf")
+    return t.contiguous()
+
+
+def assert_count_bitwise(qt, xt, sqm, qq, t):
+    before = cuda_count.count_gt_eq.launches
+    got = cuda_count.count_gt_eq(xt, sqm, qt, qq, t)
+    want = cuda_count.plain_count_gt_eq(xt, sqm, qt, qq, t)
+    torch.cuda.synchronize()
+    assert cuda_count.count_gt_eq.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return got
+
+
+@pytest.mark.parametrize("B", [1, 127, 128, 129, 2049])
+@pytest.mark.parametrize(
+    "N", [1, 127, 128, 129, "split-1", "split+0", "split+1"])
+def test_count_tile_and_split_edges(card, B, N):
+    """Kernel B against its plain version, bitwise on lattice data, at the
+    edges of its 128 x 128 tile (B, N at 1/127/128/129, B past 16 tiles)
+    and of its splits (N one row short of, at and past a boundary), with
+    dead rows and a tie class at t planted across the tile edge and
+    across the first split boundary."""
+    edge = 128
+    if isinstance(N, str):
+        N, edge = split_edge(cuda_count.plan, card, B, int(N[len("split"):]))
+    rng = np.random.default_rng(B * 11 + N)
+    qt, xt, sqm, qq = operands(rng, B, N, 128, True, 0.1, card)
+    planted = N > edge + 1
+    if planted:
+        plant_tie_class(xt, sqm, edge)
+    t = count_thresholds(rng, qt, xt, sqm, qq, edge if planted else None)
+    _, c_eq = assert_count_bitwise(qt, xt, sqm, qq, t)
+    if planted:
+        assert (c_eq[::2][torch.isfinite(t[::2])] >= 4).all()
+
+
+@pytest.mark.parametrize("dim,offset", [(1, 0), (33, 0), (129, 0), (33, 1),
+                                        (128, 1)])
+def test_count_widths_and_four_byte_form(card, dim, offset):
+    """Every width D (one dim, a ragged 32-dim chunk, past 4 chunks) and
+    views 4 bytes off a 16-byte boundary: D % 4 != 0 or an unaligned
+    table takes kernel B's 4-byte-copy form, still bitwise equal."""
+    rng = np.random.default_rng(dim * 3 + offset)
+    qt, xt, sqm, qq = operands(rng, 130, 3000, dim, True, 0.1, card)
+    if offset:
+        q_off = torch.empty(qt.numel() + 1, device=card)[1:].view_as(qt)
+        x_off = torch.empty(xt.numel() + 1, device=card)[1:].view_as(xt)
+        q_off.copy_(qt)
+        x_off.copy_(xt)
+        assert q_off.data_ptr() % 16 and x_off.data_ptr() % 16
+        qt, xt = q_off, x_off
+    plant_tie_class(xt, sqm, 128)
+    t = count_thresholds(rng, qt, xt, sqm, qq, 128)
+    assert_count_bitwise(qt, xt, sqm, qq, t)
+
+
+@pytest.mark.parametrize("N", [1000, "split+1"])
+def test_count_at_neg_inf_threshold(card, N):
+    """t = -inf on every query, with dead rows (sq = +inf, score -inf) and
+    a ragged last tile: every live row counts as >, every dead row as ==,
+    and the padding past N never counts, as in the plain version."""
+    if isinstance(N, str):
+        N, _ = split_edge(cuda_count.plan, card, 130, 1)
+    rng = np.random.default_rng(N)
+    qt, xt, sqm, qq = operands(rng, 130, N, 128, True, 0.3, card)
+    t = torch.full((130,), float("-inf"), device=card)
+    c_gt, c_eq = assert_count_bitwise(qt, xt, sqm, qq, t)
+    live = int(torch.isfinite(sqm).sum())
+    assert (c_gt == live).all() and (c_eq == N - live).all()
+
+
+def test_count_small_batch_over_many_rows(card):
+    """B = 16 over 400,003 rows: one query tile cut into many splits."""
+    rng = np.random.default_rng(16)
+    qt, xt, sqm, qq = operands(rng, 16, 400_003, 128, True, 0.1, card)
+    assert cuda_count.plan(card, 16, 400_003)[0] > 100
+    plant_tie_class(xt, sqm, 200_000)
+    t = count_thresholds(rng, qt, xt, sqm, qq, 200_000)
+    assert_count_bitwise(qt, xt, sqm, qq, t)
 
 
 def test_search_on_card_matches_cpu(card, monkeypatch):

@@ -113,6 +113,29 @@ def test_scan_plan(monkeypatch, B, N, want):
 
 @pytest.mark.parametrize(
     "B,N,want",
+    [(2048, 1_000_064, (33, 237)),  # flat-sift1m's two-pass count
+     (16, 1_000_064, (261, 30)),    # a small batch: one wave
+     (2048, 16_384, (16, 8)),
+     (1, 129, (2, 1)),
+     (5, 0, (1, 1))],
+)
+def test_count_plan(monkeypatch, B, N, want):
+    """Kernel B's row splits: the same wave planner over B's own resident
+    blocks (132 SMs x 2 here), so B = 2048 and a single query tile both
+    fill whole waves; kernel A's slots are not read."""
+    from redis_hnsw_tpu_torch.ops import cuda_select
+
+    monkeypatch.setattr(cuda_count, "block_slots", lambda index: 264)
+    monkeypatch.setattr(cuda_scan, "block_slots", None)
+    monkeypatch.setattr(cuda_select, "block_slots", None)
+    splits, per = cuda_count.plan(torch.device("cuda", 0), B, N)
+    assert (splits, per) == want
+    tiles = max(1, -(-N // 128))
+    assert (splits - 1) * per < tiles <= splits * per
+
+
+@pytest.mark.parametrize(
+    "B,N,want",
     [(2048, 1_000_064, (16, 489)),  # flat-hamming-sift256: one wave
      (16, 1_000_064, (261, 30)),    # a small batch: one wave
      (2048, 16_384, (16, 8)),       # hnsw-hamming-256b's scan
@@ -183,6 +206,50 @@ def test_plain_count_matches_pallas(rng, N):
     assert (c_eq.numpy()[fin] >= 1).all()
     if N % 1024 == 0:
         assert np.array_equal(c_eq.numpy(), np.asarray(j_eq))
+
+
+@pytest.mark.parametrize(
+    "N,edge,neg_inf",
+    [(1000, None, False),   # N not a multiple of 128
+     (1153, 128, False),    # a tie class across a 128-row tile edge
+     (2000, 1024, False),   # ... and across the Pallas kernel's panel edge
+     (777, 128, True)],     # t = -inf everywhere, dead rows, ragged tile
+)
+def test_plain_count_edges_match_pallas(rng, N, edge, neg_inf):
+    """Kernel B's plain version == pallas_count.count_gt_eq on lattice
+    data at the kernel's edges: a ragged last tile, a tie class at t
+    planted across a tile (or panel) edge, and t = -inf, where the Pallas
+    kernel's self-padding rows (to its 1024-row panel) also count as ==,
+    so there c_gt is compared and c_eq only against the live and dead
+    rows' own count."""
+    q, x, live, sq, qq = make(rng, 16, N, 32, True, dead=0.3, dup=False)
+    if edge is not None:
+        x[edge - 2 : edge + 2] = x[edge - 2]
+        sq[edge - 2 : edge + 2] = sq[edge - 2]
+        live[edge - 2 : edge + 2] = True
+    qt, xt, sqm, qqt = torch_operands(q, x, live, sq, qq)
+    scores = TD.pairwise_neg_sq_l2(qt, xt, sqm, qqt)
+    if neg_inf:
+        t = torch.full((16,), float("-inf"))
+    elif edge is not None:
+        t = scores[:, edge - 2].contiguous()
+    else:
+        pick = torch.from_numpy(np.flatnonzero(live)[rng.integers(0, 50, 16)])
+        t = scores[torch.arange(16), pick].contiguous()
+    c_gt, c_eq = cuda_count.count_gt_eq(xt, sqm, qt, qqt, t)
+    j_gt, j_eq = jax_count(
+        jnp.asarray(x), jnp.asarray(sqm.numpy()), jnp.asarray(q),
+        jnp.asarray(qq), jnp.asarray(t.numpy()), interpret=True,
+    )
+    assert np.array_equal(c_gt.numpy(), np.asarray(j_gt))
+    if neg_inf:
+        assert (c_gt.numpy() == int(live.sum())).all()
+        assert (c_eq.numpy() == N - int(live.sum())).all()
+        assert (np.asarray(j_eq) == -N % 1024 + N - int(live.sum())).all()
+        return
+    assert np.array_equal(c_eq.numpy(), np.asarray(j_eq))
+    if edge is not None:
+        assert (c_eq.numpy() >= 4).all()
 
 
 def test_plain_select_and_count_agree(rng):

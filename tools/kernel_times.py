@@ -12,8 +12,8 @@ change, parent), e.g. with the parent unpacked by ``git archive`` into a
 directory that .gitignore lists.
 
 Shapes: kernels A, B and D at B = 2048 queries over 1,000,064 rows of
-D = 128 (A at k = 10 and k_sel = 40, and also at B = 16 over those rows
-and at hnsw-main's 2048 x 16,384, k = 10); A′ at 2048 x 1,000,064 rows of
+D = 128 (A at k = 10 and k_sel = 40; A at k = 10 and B also at B = 16
+over those rows and at hnsw-main's 2048 x 16,384); A′ at 2048 x 1,000,064 rows of
 8 words, k_sel = 40 and k = 10, at B = 16 over those rows and at 2048 x
 16,384 (hnsw-hamming-256b's scan), k = 10; C (f32 blocks) at B = 2048,
 E = 16 over a 1,000,064 x 32 x 128 block table. Plus the yardstick torch.mm +
@@ -114,9 +114,14 @@ def main() -> int:
     t["a_hnsw_ms"] = sync_ms(
         lambda: cuda_scan.flat_topk(q, xs, sqs, qq, k=10), 20)
     tt = cuda_scan.flat_topk(q, x, sq, qq, k=40)[1][:, 9].contiguous()
-    t["b_ms"] = sync_ms(lambda: cuda_count.count_gt_eq(x, sq, q, qq, tt), 5)
+    tt16 = tt[:16].contiguous()
+    t["b_ms"] = sync_ms(lambda: cuda_count.count_gt_eq(x, sq, q, qq, tt), 10)
+    t["b_b16_ms"] = sync_ms(
+        lambda: cuda_count.count_gt_eq(x, sq, q16, qq16, tt16), 20)
+    t["b_hnsw_ms"] = sync_ms(
+        lambda: cuda_count.count_gt_eq(xs, sqs, q, qq, tt), 20)
     t["d_ms"] = sync_ms(lambda: cuda_select.select_bins(x, sq, q, qq), 10)
-    del x, q, sq, qq, xs, sqs, q16, qq16
+    del x, q, sq, qq, xs, sqs, q16, qq16, tt, tt16
     torch.cuda.empty_cache()
 
     W = 8
