@@ -7,8 +7,8 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
 ``redis_hnsw_tpu_torch/csrc`` into ``build/``, then:
 
 0. prints the card's name and power limit, the kernels' build time and,
-   for kernels A, A′, B and D (the split kernels), ptxas registers,
-   spills, shared memory and resident blocks;
+   for kernels A, A′, B and D (the split kernels) and C, ptxas registers,
+   spills, shared memory and resident blocks (C's at its main plans);
 1. holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at ragged edges: bitwise on integer-lattice
    data (every score exact in f32) and on random hamming words, to a
@@ -23,9 +23,17 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
    at the same three shapes with the SM clock sampled, beside a
    three-call yardstick (torch.mm, then the two compare-sums), and its
    counts at the flat-sift1m shape must equal kernel A's selection on
-   every query. Kernel C (block gather-score) is timed over a
-   SIFT1M-size block table (1,000,064 rows x 32 neighbours x 128 dims,
-   f16 and f32); kernel A′ (exact hamming top-k) is held bitwise in the
+   every query. Kernel C (block gather-score) is held bitwise at F =
+   1/31/32/33/256, D = 1/24/33/129, B = 1, E = 1/300, with a candidate
+   repeated within a lane and in its general form (operands 4 bytes off
+   a 16-byte boundary), a Gaussian row planted at several (e, f) of
+   several blocks must score the same bits in every copy and form
+   (block, row, general, _entry_sims' narrowed rows), and it is timed
+   with the SM clock sampled over a SIFT1M-size block table (1,000,064
+   rows x 32 neighbours x 128 dims; f32, f16, bf16; B = 2048 and 16) and
+   in its row form over those rows (J = 512 and 16), beside its byte
+   bound and a library yardstick (the block gather, torch.bmm and the
+   sqnorm gather); kernel A′ (exact hamming top-k) is held bitwise in the
    same kinds of edge cases, with tie classes planted, at k = 1 ... 1000
    and W = 1 ... 32 in both copy forms, and timed over 1,000,064 x
    256-bit rows (k_sel = 40 and k = 10, with the SM clock sampled), at
@@ -120,6 +128,22 @@ def sync_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device ms of ``fn()`` over ``reps`` launches captured in one
+    CUDA graph, for kernels shorter than their launch's host cost."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return sync_ms(graph.replay, 5) / reps
 
 
 def card_line() -> str:
@@ -959,9 +983,142 @@ def compare_block(case, lattice, label):
     return err
 
 
+def block_yardstick(q, qn, nbrvec, nbrsqn, cand):
+    """Kernel C's function as plain PyTorch calls -- the block gather,
+    torch.bmm against the queries, the sqnorm gather (the blocked path
+    the JAX kernel was measured against, pallas_gather.py:18-25) -- the
+    library yardstick; the port never calls it."""
+    B, E = cand.shape
+    F, D = nbrvec.shape[1], nbrvec.shape[2]
+    c = cand.long()
+    x = nbrvec[c].reshape(B, E * F, D)
+    if x.dtype != torch.float32:
+        x = x.float()
+    dots = torch.bmm(x, q[:, :, None])[:, :, 0]
+    return (2.0 * dots - qn[:, None]) - nbrsqn[c].reshape(B, E * F)
+
+
+def offset_copy(t):
+    """A copy of ``t`` 4 bytes past a 16-byte boundary."""
+    step = 4 // t.element_size()
+    buf = torch.empty(t.numel() + step, dtype=t.dtype, device=t.device)
+    out = buf[step:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def phase_block_edges(dev):
+    """Kernel C bitwise against its plain version on lattice data in
+    f32/f16/bf16: F at 1/31/32/33/256, D at 1/24/33/129, B = 1, E =
+    1/300, a candidate repeated within a lane, and the general form (a
+    table and a query 4 bytes off a 16-byte boundary); then one Gaussian
+    row planted at several (e, f) of several blocks, which every form
+    (block, row, general, _entry_sims' narrowed rows) must score with
+    the same bits at every copy. Returns the number of cases."""
+    from redis_hnsw_tpu_torch.ops import cuda_gather
+    from redis_hnsw_tpu_torch.ops import distance as Dm
+    from redis_hnsw_tpu_torch.ops import search as Sr
+
+    rng = np.random.default_rng(SEED + 5)
+    shapes = [dict(B=4, E=3, F=f, D=128) for f in (1, 31, 32, 33)]
+    shapes += [dict(B=2, E=2, F=256, D=128)]
+    shapes += [dict(B=5, E=4, F=32, D=d) for d in (1, 24, 33, 129)]
+    shapes += [dict(B=1, E=16, F=32, D=128), dict(B=3, E=1, F=32, D=128),
+               dict(B=2, E=300, F=32, D=64), dict(B=2, E=300, F=1, D=128)]
+    cases = 0
+    forms = cuda_gather.fused_block_score.forms
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        name = str(dtype)[6:]
+        for kw in shapes:
+            case = block_case(rng, dev, N=60, lattice=True, dtype=dtype,
+                              dead_frac=0.2, **kw)
+            compare_block(case, True, f"edge {kw} {name}")
+            cases += 1
+        # a candidate repeated within a lane and across lanes
+        q, qn, nbrvec, nbrsqn, cand = block_case(
+            rng, dev, 64, 16, 32, 128, 50, True, dtype)
+        cand[:, 3:9] = cand[:, 2:3]
+        cand[5:9] = cand[4]
+        compare_block((q, qn, nbrvec, nbrsqn, cand), True,
+                      f"repeated candidates {name}")
+        per = cuda_gather.fused_block_score(q, qn, nbrvec, nbrsqn, cand)
+        per = per.view(64, 16, 32).view(torch.int32)
+        check(all(torch.equal(per[:, e], per[:, 2]) for e in range(3, 9)),
+              f"repeated candidates {name}: copies differ")
+        # the general form: unaligned operands
+        for F in (1, 32):
+            q, qn, nbrvec, nbrsqn, cand = block_case(
+                rng, dev, 9, 7, F, 128, 40, True, dtype)
+            key = f"{'row' if F == 1 else 'block'}/direct"
+            before = forms[key]
+            for args in ((q, qn, offset_copy(nbrvec), nbrsqn, cand),
+                         (offset_copy(q), qn, nbrvec, nbrsqn, cand)):
+                compare_block(args, True, f"unaligned F={F} {name}")
+            check(forms[key] == before + 2,
+                  f"unaligned F={F} {name}: the general form did not run")
+        cases += 5
+
+        # position independence on Gaussian data
+        B, E, F, D, N = 40, 16, 32, 128, 300
+        q, qn, nbrvec, nbrsqn, cand = block_case(rng, dev, B, E, F, D, N,
+                                                 False, dtype)
+        star = torch.from_numpy(rng.standard_normal(D).astype(np.float32))
+        star = star.to(dev)
+        star_sq = Dm.sqnorms(star.to(dtype).float()[None])[0]
+        spots = [(7, 0), (7, 31), (19, 5), (101, 17), (250, 30)]
+        for blk, f in spots:
+            nbrvec[blk, f] = star.to(dtype)
+            nbrsqn[blk, f] = star_sq
+        cand[:, :5] = torch.tensor([b for b, _ in spots], dtype=torch.int32,
+                                   device=dev)
+        per = cuda_gather.fused_block_score(q, qn, nbrvec, nbrsqn,
+                                            cand).view(B, E, F)
+        copies = [per[:, e, f] for e, (_, f) in enumerate(spots)]
+        ids = torch.tensor([b * F + f for b, f in spots], dtype=torch.int32,
+                           device=dev).repeat(B, 1)
+        rows = cuda_gather.fused_row_score(q, qn, nbrvec.view(N * F, D),
+                                           nbrsqn.view(N * F), ids)
+        copies += list(rows.t())
+        gen = cuda_gather.fused_block_score(q, qn, offset_copy(nbrvec),
+                                            nbrsqn, cand).view(B, E, F)
+        copies += [gen[:, 0, 0], gen[:, 4, 30]]
+        vecs = torch.zeros((N, D), device=dev)
+        vecs[[3, 77]] = star
+        vn = torch.zeros(N, device=dev)
+        vn[[3, 77]] = star_sq
+        entry = Sr._entry_sims(
+            q, qn, vecs, vn,
+            torch.tensor([[3, 77]], dtype=torch.int32, device=dev).repeat(
+                B, 1),
+            torch.ones((B, 2), dtype=torch.bool, device=dev), dtype)
+        copies += list(entry.t())
+        torch.cuda.synchronize()
+        check(all(torch.equal(c.view(torch.int32), copies[0].view(torch.int32))
+                  for c in copies),
+              f"position independence {name}: a planted row's copies differ")
+        cases += 1
+    log(f"phase 1: kernel C: {cases} edge cases bitwise equal to its plain "
+        f"version on lattice data (F 1/31/32/33/256, D 1/24/33/129, B 1, E "
+        f"1/300, repeated candidates, the general form on unaligned "
+        f"operands), and a planted Gaussian row scored with the same bits "
+        f"at {len(copies)} copies across blocks, positions and forms, in "
+        f"f32/f16/bf16; launches by form {dict(forms)}")
+    return cases
+
+
+def block_bytes(B, E, F, D, elem):
+    """Bytes kernel C must move: each block row read once, its sqnorm,
+    the output, q, qn and the candidate ids."""
+    return (B * E * F * D * elem + B * E * F * 4 * 2 + B * D * 4 + B * 4
+            + B * E * 4)
+
+
 def phase_block_score(dev, n=1_000_064, main_n=20_000):
-    """Kernel C: ragged and main-shape checks, then times over a
-    SIFT1M-size block table built by the snapshot's own _build_nbrvec."""
+    """Kernel C: ragged and main-shape checks, the edge cases, then times
+    over a SIFT1M-size block table built by the snapshot's own
+    _build_nbrvec (f32, f16, bf16; B = 2048 and 16) and over its rows
+    (the row form, J = 512 and 16), each beside its byte bound, its plain
+    version and its library yardstick."""
     from redis_hnsw_tpu_torch.ops import cuda_gather
     from redis_hnsw_tpu_torch.ops import distance as Dm
     from redis_hnsw_tpu_torch.ops.snapshot import _build_nbrvec
@@ -982,6 +1139,7 @@ def phase_block_score(dev, n=1_000_064, main_n=20_000):
                 del case
     log("phase 1: kernel C agrees with its plain version (bitwise on "
         "lattice data in f32/f16/bf16, 1e-5 relative on Gaussian data)")
+    phase_block_edges(dev)
 
     D, F, B, E = 128, 32, 2048, 16
     g = torch.Generator(device=dev)
@@ -994,39 +1152,73 @@ def phase_block_score(dev, n=1_000_064, main_n=20_000):
     qn = Dm.sqnorms(q)
     cand = torch.randint(0, n, (B, E), generator=g, device=dev,
                          dtype=torch.int32)
-    rows = {}
-    for dtype in (torch.float16, torch.float32):
+    ids = torch.randint(0, n, (B, 512), generator=g, device=dev,
+                        dtype=torch.int32)
+    q16, qn16, c16 = (t[:16].contiguous() for t in (q, qn, cand))
+    rows, clocks = {}, {}
+
+    def time_case(label, case, elem, reps, timer=sync_ms):
+        Bc, Ec = case[4].shape
+        Fc = case[2].shape[1]
+        bound, by = bound_ms(2.0 * Bc * Ec * Fc * D,
+                             block_bytes(Bc, Ec, Fc, D, elem))
+        rows[label] = dict(
+            ms=timer(lambda: cuda_gather.fused_block_score(*case), reps),
+            plain_ms=sync_ms(lambda: cuda_gather.plain_block_score(*case), 3),
+            library_ms=sync_ms(lambda: block_yardstick(*case), 3),
+            bound_ms=bound, bound_by=by)
+
+    for dtype in (torch.float16, torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
         t0 = time.perf_counter()
         nbrvec, nbrsqn = _build_nbrvec(vecs, sq, adj0, dtype=dtype)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         case = (q, qn, nbrvec, nbrsqn, cand)
-        err = max(err, compare_block(case, False, f"sift1m {dtype}"))
-        ms = sync_ms(lambda: cuda_gather.fused_block_score(*case), 20)
-        plain = sync_ms(lambda: cuda_gather.plain_block_score(*case), 3)
-        nbytes = (B * E * F * D * nbrvec.element_size()   # blocks
-                  + B * E * F * 4 * 2                     # nbrsqn, out
-                  + B * D * 4 + B * 4 + B * E * 4)        # q, qn, cand
-        bound, by = bound_ms(2.0 * B * E * F * D, nbytes)
-        rows[str(dtype)[6:]] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
-                                    bound_by=by)
-        log(f"phase 1: kernel C over a {tuple(nbrvec.shape)} "
-            f"{str(dtype)[6:]} table ({nbrvec.numel() * nbrvec.element_size()}"
-            f" bytes, built in {build_s:.2f} s): {ms:.4f} ms per launch at "
-            f"B={B} E={E}, bound {bound:.4f} ms ({by}), plain {plain:.3f} ms")
+        err = max(err, compare_block(case, False, f"sift1m {name}"))
+        # ~0.3-0.6 s of launches, long enough for the clock samples
+        with ClockSampler() as clocks[name]:
+            time_case(name, case, nbrvec.element_size(), 3000)
+        if dtype != torch.bfloat16:
+            time_case(f"{name} B=16", (q16, qn16, nbrvec, nbrsqn, c16),
+                      nbrvec.element_size(), 50, graph_ms)
+        log(f"phase 1: kernel C over a {tuple(nbrvec.shape)} {name} table "
+            f"({nbrvec.numel() * nbrvec.element_size()} bytes, built in "
+            f"{build_s:.2f} s): {json.dumps(rows[name])}; while timed: "
+            f"{clocks[name].summary()}")
         del nbrvec, nbrsqn, case
         torch.cuda.empty_cache()
+    # the row form over the table's rows
+    for dtype in (torch.float32, torch.float16):
+        name = str(dtype)[6:]
+        table = vecs.to(dtype)
+        for J in (512, 16):
+            jid = ids[:, :J].contiguous()
+            case = (q, qn, table.unsqueeze(1), sq.unsqueeze(1), jid)
+            err = max(err, compare_block(case, False, f"rows J={J} {name}"))
+            want = cuda_gather.fused_block_score(*case)
+            got = cuda_gather.fused_row_score(q, qn, table, sq, jid)
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"rows J={J} {name}: fused_row_score differs")
+            if dtype == torch.float32 or J == 512:
+                time_case(f"{name} rows J={J}", case, table.element_size(),
+                          *((200,) if J == 512 else (50, graph_ms)))
+        del table
     del vecs, sq, adj0
     torch.cuda.empty_cache()
-    f32, f16 = rows["float32"], rows["float16"]
+    log("phase 1: kernel C times (ms; bound by bytes; plain = the plain "
+        "version, library = gather + torch.bmm + sqnorm gather; B = 16 and "
+        "J = 16 as CUDA graphs of 50 launches): "
+        + json.dumps(rows))
+    f32 = rows["float32"]
     return dict(
         route="cuda", source="redis_hnsw_tpu_torch/csrc/block_score.cu",
         replaces="redis_hnsw_tpu/ops/pallas_gather.py:98",
         max_abs_err=err, ms=f32["ms"], plain_ms=f32["plain_ms"],
-        bound_ms=f32["bound_ms"], bound_by=f32["bound_by"], library_ms=None,
-        ms_f16=f16["ms"], plain_ms_f16=f16["plain_ms"],
-        bound_ms_f16=f16["bound_ms"],
-        shape=dict(B=B, E=E, F=F, D=D, N=n),
+        bound_ms=f32["bound_ms"], bound_by=f32["bound_by"],
+        library_ms=f32["library_ms"],
+        library_calls="nbrvec[cand], torch.bmm, nbrsqn[cand]",
+        shape=dict(B=B, E=E, F=F, D=D, N=n), shapes=rows,
     )
 
 
@@ -1138,8 +1330,11 @@ def _counters():
 
 
 def reset_counts():
+    from redis_hnsw_tpu_torch.ops import cuda_gather
+
     for fn in _counters().values():
         fn.launches = 0
+    cuda_gather.fused_block_score.forms.clear()
 
 
 def read_counts():
@@ -1236,6 +1431,7 @@ def phase_hnsw(client, dev, n=10_000, n_q=2048):
         finally:
             del os.environ["REDIS_HNSW_TPU_NBRVEC_DTYPE"]
     counts = read_counts()
+    c_forms = dict(cuda_gather.fused_block_score.forms)
     check(counts["scan_topk"] > 0, "hnsw-main: kernel A never launched")
     check(counts["block_score"] > 0, "hnsw-main: kernel C never launched")
     del xs64
@@ -1251,9 +1447,10 @@ def phase_hnsw(client, dev, n=10_000, n_q=2048):
         f"{per_batch:.0f} launches per batch; after 100 deletes "
         f"ef={GRAPH_SWEEP[d_at][0]} iters={GRAPH_SWEEP[d_at][1]} recall@{k}="
         f"{d_recall:.4f}, no deleted name served; tiers (ef, iters), "
-        f"recall, qps: {tiers}; launches {counts}")
+        f"recall, qps: {tiers}; launches {counts}; kernel C's by call and "
+        f"form {c_forms}")
     client.delete_index("hnsw-main")
-    return counts
+    return counts, c_forms
 
 
 def phase_graph_lattice(dev, n=2000, n_q=256, devices=("cuda", "cpu")):
@@ -1666,6 +1863,39 @@ def log_core_figures(path, kernel: str, smem_fn: str, slots: int) -> None:
         f"blocks on the card")
 
 
+def log_block_score_figures(path, card_index) -> None:
+    """Kernel C's ptxas figures per instance, and its plans at the main
+    shapes: warps, ring, shared memory a block and resident blocks."""
+    import ctypes
+
+    from redis_hnsw_tpu_torch.ops import cuda_gather
+    from redis_hnsw_tpu_torch.utils import build
+
+    figs = ptxas_figures(build.build_log(path), "block_score")
+    log("phase 0: block_score_kernel (I<type>Li<form>: 1 block, 2 rows) and "
+        "block_score_direct: " + "; ".join(
+            f"{fn.split('block_score_')[-1][:40]} " + ", ".join(lines)
+            for fn, lines in sorted(figs.items())))
+    lib = ctypes.CDLL(path)
+    sms = torch.cuda.get_device_properties(card_index).multi_processor_count
+    plans = {}
+    for label, (B, E, F, dt, elem) in {
+            "f32 B=2048": (2048, 16, 32, 0, 4),
+            "f16 B=2048": (2048, 16, 32, 1, 2),
+            "f32 B=16": (16, 16, 32, 0, 4),
+            "f32 rows J=512": (2048, 512, 1, 0, 4),
+            "f16 rows J=512": (2048, 512, 1, 1, 2),
+            "f32 rows J=16": (2048, 16, 1, 0, 4)}.items():
+        p = cuda_gather.plan(sms, B, E, F, 128, elem, True)
+        plans[label] = dict(
+            p._asdict(), smem=lib.block_score_smem_bytes(
+                p.form, 128, dt, p.warps, p.ring),
+            resident=lib.block_score_slots(p.form, 128, dt, p.warps, p.ring))
+    log(f"phase 0: block_score plans at D = 128 (form 1 block, 2 rows; "
+        f"smem bytes a block; resident blocks on the card): "
+        f"{json.dumps(plans)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1702,13 +1932,15 @@ def main() -> int:
     log_core_figures(paths["select_bins"], "select_bins_kernel",
                      "select_bins_smem_bytes",
                      cuda_select.block_slots(card_index))
+    log_block_score_figures(paths["block_score"], card_index)
 
     kernels = phase_kernels(dev)
     kernels.update(phase_hamming_kernels(dev))
     kernels["block_score"] = phase_block_score(dev)
     kernels["select_bins"] = phase_select(dev)
     client = h.HNSW()
-    launches = phase_hnsw(client, dev)
+    launches, c_forms = phase_hnsw(client, dev)
+    kernels["block_score"]["launches_by_form"] = c_forms
     phase_graph_lattice(dev)
     path_counts = [phase_hnsw_hamming(client, dev)]
     phase_hamming_lattice(dev)

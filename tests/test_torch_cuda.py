@@ -314,23 +314,47 @@ def block_operands(rng, B, E, F, dim, N, lattice, dtype, device):
     return qt, TD.sqnorms(qt), nbrvec, nbrsqn, cand.to(device)
 
 
+def form_of(B, E, F, dim, dtype, aligned=True):
+    """The kernel form the planner picks on this card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    elem = torch.tensor([], dtype=dtype).element_size()
+    return cuda_gather.FORM_NAMES[
+        cuda_gather.plan(sms, B, E, F, dim, elem, aligned).form]
+
+
 @pytest.mark.parametrize("dtype", BLOCK_DTYPES)
 @pytest.mark.parametrize(
     "B,E,F,dim",
     [(3, 1, 8, 24), (5, 7, 32, 128), (2, 300, 1, 33), (64, 16, 24, 40),
-     (1, 9, 256, 8)],
+     (1, 9, 256, 8), (4, 3, 1, 128), (4, 3, 31, 128), (4, 3, 32, 128),
+     (4, 3, 33, 128), (2, 2, 256, 128), (5, 4, 32, 1), (5, 4, 32, 24),
+     (5, 4, 32, 33), (5, 4, 32, 129), (1, 16, 32, 128), (1, 1, 1, 128),
+     (3, 1, 32, 128), (2, 300, 32, 64), (2, 300, 1, 128), (4, 5, 8, 128),
+     (2048, 16, 32, 128), (2048, 16, 1, 128), (300, 512, 1, 128)],
 )
 def test_block_score_bitwise_on_lattice(card, dtype, B, E, F, dim):
     """Kernel C against its plain version: bitwise on lattice data at
-    ragged shapes (row form F=1, unaligned widths, the largest F)."""
+    ragged shapes -- F at 1/31/32/33/256 (a block of more than 32 rows is
+    several items), D at 1/24/33/129 (rows that are not whole 16-byte
+    steps take the general form), B = 1, E = 1/300, the main shape and
+    the row form's -- each launch counted under its form; the row form
+    through fused_row_score gives the same bits."""
     rng = np.random.default_rng(B * E + F)
     ops = block_operands(rng, B, E, F, dim, 50, True, dtype, card)
+    key = f"{'row' if F == 1 else 'block'}/{form_of(B, E, F, dim, dtype)}"
     before = cuda_gather.fused_block_score.launches
+    before_form = cuda_gather.fused_block_score.forms[key]
     got = cuda_gather.fused_block_score(*ops)
     want = cuda_gather.plain_block_score(*ops)
     torch.cuda.synchronize()
     assert cuda_gather.fused_block_score.launches == before + 1
+    assert cuda_gather.fused_block_score.forms[key] == before_form + 1
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if F == 1:
+        q, qn, nbrvec, nbrsqn, cand = ops
+        rows = cuda_gather.fused_row_score(q, qn, nbrvec[:, 0],
+                                           nbrsqn[:, 0], cand)
+        assert torch.equal(rows.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("dtype", BLOCK_DTYPES)
@@ -347,6 +371,129 @@ def test_block_score_gaussian_and_errors(card, dtype):
                                       cand)
     with pytest.raises(TypeError):
         cuda_gather.fused_block_score(q, qn, nbrvec, nbrsqn, cand.long())
+
+
+@pytest.mark.parametrize("dtype", BLOCK_DTYPES)
+@pytest.mark.parametrize("F", [1, 32])
+def test_block_score_general_form_on_unaligned_operands(card, dtype, F):
+    """A table or a query 4 bytes off a 16-byte boundary takes the
+    general form, with the bulk forms' bits."""
+    rng = np.random.default_rng(F)
+    q, qn, nbrvec, nbrsqn, cand = block_operands(rng, 9, 7, F, 128, 40,
+                                                 True, dtype, card)
+    want = cuda_gather.fused_block_score(q, qn, nbrvec, nbrsqn, cand)
+    step = 4 // nbrvec.element_size()
+    buf = torch.empty(nbrvec.numel() + step, dtype=dtype, device=card)
+    off = buf[step:].view(nbrvec.shape)
+    off.copy_(nbrvec)
+    qbuf = torch.empty(q.numel() + 1, device=card)
+    qoff = qbuf[1:].view(q.shape)
+    qoff.copy_(q)
+    key = f"{'row' if F == 1 else 'block'}/direct"
+    for args in ((q, qn, off, nbrsqn, cand), (qoff, qn, nbrvec, nbrsqn, cand)):
+        assert args[2].data_ptr() % 16 or args[0].data_ptr() % 16
+        before = cuda_gather.fused_block_score.forms[key]
+        got = cuda_gather.fused_block_score(*args)
+        torch.cuda.synchronize()
+        assert cuda_gather.fused_block_score.forms[key] == before + 1
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", BLOCK_DTYPES)
+def test_block_score_repeated_candidates(card, dtype):
+    """A candidate repeated within a lane (and across lanes) scores the
+    same bits at every repeat, equal to the plain version's."""
+    rng = np.random.default_rng(3)
+    q, qn, nbrvec, nbrsqn, cand = block_operands(rng, 64, 16, 32, 128, 50,
+                                                 True, dtype, card)
+    cand[:, 3:9] = cand[:, 2:3]
+    cand[5:9] = cand[4]
+    got = cuda_gather.fused_block_score(q, qn, nbrvec, nbrsqn, cand)
+    want = cuda_gather.plain_block_score(q, qn, nbrvec, nbrsqn, cand)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    per = got.view(64, 16, 32).view(torch.int32)
+    for e in range(3, 9):
+        assert torch.equal(per[:, e], per[:, 2])
+
+
+@pytest.mark.parametrize("dtype", BLOCK_DTYPES)
+def test_block_score_position_independent_on_gaussian(card, dtype):
+    """One Gaussian row planted at several (e, f) positions of several
+    blocks scores bit-identically at every copy, in every form: the block
+    form, the row form over a table holding it at several rows, the
+    general form (an unaligned table), and _entry_sims' narrowed rows."""
+    from redis_hnsw_tpu_torch.ops import search as TS
+
+    rng = np.random.default_rng(11)
+    B, E, F, dim, N = 40, 16, 32, 128, 300
+    q, qn, nbrvec, nbrsqn, cand = block_operands(rng, B, E, F, dim, N,
+                                                 False, dtype, card)
+    star = torch.from_numpy(rng.standard_normal(dim).astype(np.float32))
+    star = star.to(card)
+    narrow = star.to(dtype)
+    star_sq = TD.sqnorms(narrow.float()[None])[0]
+    spots = [(7, 0), (7, 31), (19, 5), (101, 17), (250, 30)]
+    for blk, f in spots:
+        nbrvec[blk, f] = narrow
+        nbrsqn[blk, f] = star_sq
+    cand[:, :5] = torch.tensor([s[0] for s in spots], dtype=torch.int32,
+                               device=card)
+    cand[:, 9] = 7
+    got = cuda_gather.fused_block_score(q, qn, nbrvec, nbrsqn, cand)
+    per = got.view(B, E, F)
+    copies = [per[:, e, f] for e, (_, f) in enumerate(spots)]
+    copies += [per[:, 9, 0], per[:, 9, 31]]
+    # the row form: the table's rows hold the planted row at several ids
+    table = nbrvec.view(N * F, dim)
+    sq = nbrsqn.view(N * F)
+    ids = torch.tensor([blk * F + f for blk, f in spots], dtype=torch.int32,
+                       device=card).repeat(B, 1)
+    rows = cuda_gather.fused_row_score(q, qn, table, sq, ids)
+    copies += [rows[:, j] for j in range(len(spots))]
+    # the general form: the same block table 4 bytes off its boundary
+    step = 4 // nbrvec.element_size()
+    buf = torch.empty(nbrvec.numel() + step, dtype=dtype, device=card)
+    off = buf[step:].view(nbrvec.shape)
+    off.copy_(nbrvec)
+    gen = cuda_gather.fused_block_score(q, qn, off, nbrsqn, cand)
+    copies += [gen.view(B, E, F)[:, 0, 0]]
+    # _entry_sims narrows rows of an f32 table to the block type
+    vecs = torch.zeros((N, dim), device=card)
+    vecs[[3, 77]] = star
+    vn = torch.zeros(N, device=card)
+    vn[[3, 77]] = star_sq
+    entry = TS._entry_sims(
+        q, qn, vecs, vn, torch.tensor([[3, 77]], dtype=torch.int32,
+                                      device=card).repeat(B, 1),
+        torch.ones((B, 2), dtype=torch.bool, device=card), dtype)
+    copies += [entry[:, 0], entry[:, 1]]
+    torch.cuda.synchronize()
+    for c in copies[1:]:
+        assert torch.equal(c.view(torch.int32), copies[0].view(torch.int32))
+
+
+def test_block_score_plan_matches_kernel_smem(card):
+    """The planner's shared memory reckoning equals the kernel's, and
+    every bulk plan fits a block's shared memory."""
+    import ctypes
+
+    from redis_hnsw_tpu_torch.utils.build import load_kernel
+
+    fn = load_kernel("block_score").block_score_smem_bytes
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dt, elem in ((0, 4), (1, 2)):
+        for B, E, F, dim in ((2048, 16, 32, 128), (16, 16, 32, 128),
+                             (2048, 512, 1, 128), (2048, 16, 1, 128),
+                             (3, 9, 256, 8), (7, 5, 64, 200)):
+            p = cuda_gather.plan(sms, B, E, F, dim, elem, True)
+            if p.form == cuda_gather.DIRECT:
+                continue
+            smem = fn(p.form, dim, dt, p.warps, p.ring)
+            assert smem == cuda_gather.smem_bytes(p.form, dim, elem,
+                                                  p.warps, p.ring)
+            assert smem <= cuda_gather.MAX_SMEM
 
 
 @pytest.mark.parametrize("tier", ["f32", "f16"])

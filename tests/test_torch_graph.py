@@ -234,6 +234,43 @@ def test_block_and_row_scorers_bitwise(dtype):
     assert np.array_equal(np.where(rmask, rows.numpy(), -np.inf), got)
 
 
+@pytest.mark.parametrize("form", ["block", "row"])
+@pytest.mark.parametrize("dtype", ["f16", "bf16"])
+def test_narrow_block_and_row_score_match_pallas_interpret(dtype, form):
+    """Kernel C's plain version (block form, F = 32) and its row form
+    (fused_row_score, F = 1) on f16 / bf16 tables at D = 128 against the
+    Pallas kernel in interpret mode and against block_neg_sq_l2, bitwise
+    on lattice data."""
+    jdt = {"f16": jnp.float16, "bf16": jnp.bfloat16}[dtype]
+    tdt = {"f16": torch.float16, "bf16": torch.bfloat16}[dtype]
+    rng = np.random.default_rng(12)
+    B, Dm, N = 16, 128, 40
+    F, E = (32, 2) if form == "block" else (1, 8)
+    q = lattice(rng, B, Dm)
+    nbrvec = rng.integers(-4, 5, (N, F, Dm)).astype(np.float32)
+    nbrsqn = np.einsum("nfd,nfd->nf", nbrvec, nbrvec).astype(np.float32)
+    qn = np.einsum("bd,bd->b", q, q).astype(np.float32)
+    cand = rng.integers(0, N, (B, E)).astype(np.int32)
+    tq, tqn, tsq, tcand = (torch.from_numpy(x) for x in (q, qn, nbrsqn, cand))
+    tnv = torch.from_numpy(nbrvec).to(tdt)
+    if form == "block":
+        got = cuda_gather.plain_block_score(tq, tqn, tnv, tsq, tcand)
+        assert torch.equal(got, cuda_gather.fused_block_score(
+            tq, tqn, tnv, tsq, tcand))
+    else:
+        got = cuda_gather.fused_row_score(tq, tqn, tnv[:, 0], tsq[:, 0],
+                                          tcand)
+    got = got.numpy()
+    jnv = jnp.asarray(nbrvec).astype(jdt)
+    want = np.asarray(pallas_score(jnp.asarray(q), jnp.asarray(qn), jnv,
+                                   jnp.asarray(cand), interpret=True))
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    want = np.asarray(JD.block_neg_sq_l2(
+        jnp.asarray(q), jnp.asarray(qn), jnv, jnp.asarray(nbrsqn),
+        jnp.asarray(cand), jnp.ones((B, E * F), bool)))
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
 def test_int8_scorers(rng):
     """quantize_query and the int8 tables bitwise; the int8 row and block
     scorers to within the FMA contraction XLA applies on the CPU (1e-6

@@ -264,3 +264,44 @@ def test_plain_select_and_count_agree(rng):
         c_gt, c_eq = cuda_count.count_gt_eq(xt, sqm, qt, qqt, t)
         assert torch.equal(c_gt, (sims > t[:, None]).sum(1, dtype=torch.int32))
         assert (c_eq >= (sims == t[:, None]).sum(1, dtype=torch.int32)).all()
+
+
+@pytest.mark.parametrize(
+    "B,E,F,D,elem,aligned,form",
+    [(2048, 16, 32, 128, 4, True, "block"),   # hnsw-main's beam, f32
+     (2048, 16, 32, 128, 2, True, "block"),   # SIFT1M-size tables, f16
+     (16, 16, 32, 128, 4, True, "block"),     # a small batch
+     (2, 2, 256, 128, 2, True, "block"),      # F > 32: several items
+     (2048, 512, 1, 128, 4, True, "rows"),    # the off tier's frontier
+     (2048, 16, 1, 128, 2, True, "rows"),     # a descent step
+     (4, 3, 8, 24, 4, True, "rows"),          # small F
+     (5, 4, 32, 24, 2, True, "block"),        # 48-byte rows
+     (5, 4, 32, 33, 4, True, "direct"),       # 132-byte rows
+     (5, 4, 32, 129, 2, True, "direct"),
+     (9, 7, 32, 128, 4, False, "direct"),     # an operand off its boundary
+     (2048, 16, 32, 4096, 4, True, "direct")],  # a ring too large
+)
+def test_block_score_plan(B, E, F, D, elem, aligned, form):
+    """Kernel C's planner (ops/cuda_gather.py plan) on a 132-SM card: the
+    form each shape takes; a bulk plan gives one block a SM as many warps
+    as its shared memory has stages for (up to 16), each as many stages
+    as then fit, and spreads the items (32 rows each) evenly over warps
+    with work, on at most one block a SM."""
+    from redis_hnsw_tpu_torch.ops import cuda_gather as G
+
+    sms = 132
+    p = G.plan(sms, B, E, F, D, elem, aligned)
+    assert G.FORM_NAMES[p.form] == form
+    rows = B * E * F
+    if p.form == G.DIRECT:
+        assert p.grid == max(1, min(-(-rows // G.DIRECT_THREADS), sms * 8))
+        return
+    st = G.stage_bytes(p.form, D, elem)
+    assert st % 128 == 0 and p.ring >= 1
+    assert G.smem_bytes(p.form, D, elem, p.warps, p.ring) <= G.SMEM_BUDGET
+    items = B * E * -(-F // 32) if p.form == G.BLOCK else -(-rows // 32)
+    busy = -(-items // p.per_warp)          # warps with work
+    assert (busy - 1) * p.per_warp < items <= busy * p.per_warp
+    assert p.grid <= sms and (p.grid - 1) * p.warps < busy <= p.grid * p.warps
+    if busy >= sms * G.MAX_WARPS:           # a full card: every warp it fits
+        assert p.warps == min(G.MAX_WARPS, (G.SMEM_BUDGET - G.HDR) // st)

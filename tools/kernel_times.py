@@ -15,8 +15,14 @@ Shapes: kernels A, B and D at B = 2048 queries over 1,000,064 rows of
 D = 128 (A at k = 10 and k_sel = 40; A at k = 10 and B also at B = 16
 over those rows and at hnsw-main's 2048 x 16,384); A′ at 2048 x 1,000,064 rows of
 8 words, k_sel = 40 and k = 10, at B = 16 over those rows and at 2048 x
-16,384 (hnsw-hamming-256b's scan), k = 10; C (f32 blocks) at B = 2048,
-E = 16 over a 1,000,064 x 32 x 128 block table. Plus the yardstick torch.mm +
+16,384 (hnsw-hamming-256b's scan), k = 10; C at B = 2048, E = 16 over a
+1,000,064 x 32 x 128 block table in f32 (``c_ms``), f16 and bf16, at B =
+16 (f32 and f16), and in its row form over the table's first 1,000,064
+rows at B = 2048 with J = 512 (f32 and f16) and J = 16 rows a lane
+(``c_rows512_ms``, ``c_rows16_ms``), and at J = 512 with every other id
+row 0 (``c_rows512_hot_ms``: the beam clamps masked slots to row 0); C's
+B = 16 and J = 16 shapes are timed as CUDA graphs of 50 launches (a
+launch's host cost exceeds those kernels'). Plus the yardstick torch.mm +
 torch.topk at k = 40 and the card's SM clock while A ran. Times are
 means of CUDA-event windows after a warm-up; data come from fixed seeds.
 
@@ -47,6 +53,23 @@ def sync_ms(fn, reps: int) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device ms of ``fn()`` over ``reps`` launches captured in one
+    CUDA graph: at kernel C's small shapes a launch's host cost exceeds
+    the kernel's, and event timing of a host loop measures the host."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return sync_ms(graph.replay, 5) / reps
 
 
 def smi(query: str) -> str:
@@ -152,6 +175,38 @@ def main() -> int:
                          dtype=torch.int32)
     t["c_ms"] = sync_ms(lambda: cuda_gather.fused_block_score(
         qc, qn, nbrvec, nbrsqn, cand), 20)
+    c16 = cand[:16].contiguous()
+    q16, qn16 = qc[:16].contiguous(), qn[:16].contiguous()
+    t["c_b16_ms"] = graph_ms(lambda: cuda_gather.fused_block_score(
+        q16, qn16, nbrvec, nbrsqn, c16), 50)
+    # the row form over the table's first N rows: J = 512 (the off tier's
+    # frontier) and J = 16 (a descent step)
+    rows, rsq = nbrvec.view(N * F, D)[:N], nbrsqn.view(N * F)[:N]
+    ids = torch.randint(0, N, (B, 512), generator=g, device=dev,
+                        dtype=torch.int32)
+    ids16 = ids[:, :16].contiguous()
+    t["c_rows512_ms"] = sync_ms(lambda: cuda_gather.fused_row_score(
+        qc, qn, rows, rsq, ids), 20)
+    t["c_rows16_ms"] = graph_ms(lambda: cuda_gather.fused_row_score(
+        qc, qn, rows, rsq, ids16), 50)
+    hot = ids.clone()
+    hot[:, 1::2] = 0  # masked slots, clamped to row 0 as the beam does
+    t["c_rows512_hot_ms"] = sync_ms(lambda: cuda_gather.fused_row_score(
+        qc, qn, rows, rsq, hot), 20)
+    for name, dtype in (("f16", torch.float16), ("bf16", torch.bfloat16)):
+        nv = nbrvec.to(dtype)
+        t[f"c_{name}_ms"] = sync_ms(lambda: cuda_gather.fused_block_score(
+            qc, qn, nv, nbrsqn, cand), 20)
+        if name == "f16":
+            t["c_f16_b16_ms"] = graph_ms(
+                lambda: cuda_gather.fused_block_score(q16, qn16, nv, nbrsqn,
+                                                      c16), 50)
+            nrows = nv.view(N * F, D)[:N]
+            t["c_f16_rows512_ms"] = sync_ms(
+                lambda: cuda_gather.fused_row_score(qc, qn, nrows, rsq, ids),
+                20)
+        del nv
+        torch.cuda.empty_cache()
     print(json.dumps({"label": args.label, "root": args.root,
                       "card": smi("name,power.limit"), **t}), flush=True)
     return 0
