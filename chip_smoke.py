@@ -44,18 +44,34 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
    must be kernel A's top-1 and its stable top-10 on every query it
    certifies kernel A's top-10, bit for bit;
 2. ``hnsw-main``: the reference workload -- an HNSW index of 10,000 x 128
-   rows (M=16, efcon=200, native host core) served by ``search_batch``
-   on the exact scan tier (kernel A) and on the graph engine (kernel C;
-   the (ef, iters) sweep of bench.py up to recall@10 >= 0.95), before
-   and after 100 deletes, and on the f16 and row-gather frontier tiers,
-   checked against a float64 brute-force oracle;
+   rows (M=16, efcon=200, native host core) built by
+   ``add_batch(batch_size=2048)`` as bench.py builds it (layer-0
+   candidates from kernel A, upper beams on kernel C's row form; its
+   phase breakdown and snapshot refreshes logged; the same rows by
+   ``add_node`` timed beside it) and served by ``search_batch`` on the
+   exact scan tier (kernel A) and on the graph engine (kernel C; the (ef,
+   iters) sweep of bench.py up to recall@10 >= 0.95), before and after
+   100 deletes, and on the f16 and row-gather frontier tiers, checked
+   against a float64 brute-force oracle;
 2b. ``graph-lattice``: a 2,000-row integer-lattice HNSW index whose
    graph-engine replies on the card must equal the CPU's byte for byte;
+   then the same rows bulk-built on the card and on the CPU (512-row
+   waves, the last partial; ``REDIS_HNSW_TPU_BUILD_L0`` scan and beam)
+   must give the same graph byte for byte;
 2c. ``hnsw-hamming-256b``: bench.py's config5 -- 10,000 x 256 random
-   bits, M=16, efcon=200 -- served by the exact scan (kernel A′), equal
-   to a numpy brute force byte for byte, and by the graph engine over
-   config5's sweep up to tie-aware recall@10 >= 0.95; then a 2,000-row
-   hamming index whose card replies must equal the CPU's byte for byte;
+   bits, M=16, efcon=200, built by ``add_batch(batch_size=2048)`` -- served
+   by the exact scan (kernel A′), equal to a numpy brute force byte for
+   byte, and by the graph engine over config5's sweep up to tie-aware
+   recall@10 >= 0.95; then a 2,000-row hamming index whose card replies
+   must equal the CPU's byte for byte;
+2d. ``hnsw-build-sift1m-shape``: ``add_batch(batch_size=2048)`` of 262,144
+   x 128 seeded Gaussian rows (SIFT1M's width, a quarter of its rows),
+   M=16, efcon=200: inserts/s, the phase breakdown, one full snapshot
+   build and deltas after it, kernel A timed at the build's shape (k =
+   64); then 2048 queries on the exact tier and on the graph engine
+   against a float64 oracle computed on the card. ``python3
+   chip_smoke.py --build-rows 1000000`` runs this phase alone at SIFT1M's
+   size;
 3. ``flat-sift1m``: a flat index of 1,000,000 x 128 rows (the SIFT1M
    shape) served 16,384 queries on the certified-exact tier's two-pass
    form (REDIS_HNSW_TPU_CERT_ONEPASS=0, kernels A and B), checked
@@ -1341,6 +1357,34 @@ def read_counts():
     return {name: fn.launches for name, fn in _counters().items()}
 
 
+def bulk_build(client, name, names, data, batch_size=2048):
+    """``add_batch`` of the rows into index ``name`` with the build's phase
+    timer on (each phase ends in a device sync); returns its seconds, the
+    phase breakdown, the index's snapshot refreshes by kind and the
+    kernels' launches (C's also by form) during the build."""
+    from collections import Counter
+
+    from redis_hnsw_tpu_torch.ops import construct, cuda_gather
+    from redis_hnsw_tpu_torch.utils.profiling import PhaseTimer
+
+    before = read_counts()
+    forms = Counter(cuda_gather.fused_block_score.forms)
+    construct.BUILD_TIMER = timer = PhaseTimer()
+    try:
+        t0 = time.perf_counter()
+        client.add_batch(name, names, data, batch_size=batch_size)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        construct.BUILD_TIMER = None
+    return {
+        "s": secs, "phases": timer.summary(),
+        "refreshes": dict(client.index(name).snapshot_refreshes),
+        "launches": {k: v - before[k] for k, v in read_counts().items()},
+        "forms": dict(cuda_gather.fused_block_score.forms - forms),
+    }
+
+
 def phase_hnsw(client, dev, n=10_000, n_q=2048):
     from redis_hnsw_tpu_torch.ops import cuda_gather
 
@@ -1354,10 +1398,19 @@ def phase_hnsw(client, dev, n=10_000, n_q=2048):
     reset_counts()
     client.create_index("hnsw-main", dim=dim, m=16, ef_construction=200,
                         seed=SEED, backend="native")
+    build = bulk_build(client, "hnsw-main", names, data)
+    check(build["launches"]["scan_topk"] > 0
+          and build["launches"]["block_score"] > 0,
+          f"hnsw-main: a kernel never launched in the bulk build: {build}")
+    check(build["refreshes"]["full"] == 1,
+          f"hnsw-main: the bulk build rebuilt its snapshot: {build}")
+    # the add_node build of the same rows, timed beside it
+    client.create_index("hnsw-main-seq", dim=dim, m=16, ef_construction=200,
+                        seed=SEED, backend="native")
     t0 = time.perf_counter()
     for i in range(n):
-        client.add_node("hnsw-main", names[i], data[i])
-    build_s = time.perf_counter() - t0
+        client.add_node("hnsw-main-seq", names[i], data[i])
+    seq_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     cnames, csims = client.search_batch("hnsw-main", qs, k=k,
                                         reply="columnar")
@@ -1389,6 +1442,10 @@ def phase_hnsw(client, dev, n=10_000, n_q=2048):
     check(per_batch > 0, "hnsw-main: kernel C never launched")
     g_recall2 = oracle.recall(gnames, gsims, "hnsw-main graph timed")
     check(g_recall2 == g_recall, "hnsw-main: graph replies not repeatable")
+    seq_recall = oracle.recall(
+        *client.search_batch("hnsw-main-seq", qs, **gkw),
+        "hnsw-main add_node graph")
+    client.delete_index("hnsw-main-seq")
 
     victims = rng.choice(n, 100, replace=False)
     for v in victims:
@@ -1435,8 +1492,13 @@ def phase_hnsw(client, dev, n=10_000, n_q=2048):
     check(counts["scan_topk"] > 0, "hnsw-main: kernel A never launched")
     check(counts["block_score"] > 0, "hnsw-main: kernel C never launched")
     del xs64
-    log(f"phase 2: hnsw-main: built {n} rows by add_node in {build_s:.2f} s "
-        f"({n / build_s:.0f} inserts/s); scan search_batch {n_q} queries "
+    log(f"phase 2: hnsw-main: built {n} rows by add_batch(batch_size=2048) "
+        f"in {build['s']:.3f} s ({n / build['s']:.1f} inserts/s; phases "
+        f"{json.dumps(build['phases'])}; snapshot refreshes "
+        f"{build['refreshes']}; build launches {build['launches']}, kernel "
+        f"C's by form {build['forms']}); the same rows by add_node in "
+        f"{seq_s:.3f} s ({n / seq_s:.1f} inserts/s), that graph's recall@{k} "
+        f"at the chosen point {seq_recall:.4f}; scan search_batch {n_q} queries "
         f"k={k}: first call {first_s * 1e3:.1f} ms (snapshot + kernel load), "
         f"columnar {n_q / col_s:.0f} qps, objects {n_q / obj_s:.0f} qps; "
         f"replies match the float64 oracle before and after 100 deletes")
@@ -1451,6 +1513,19 @@ def phase_hnsw(client, dev, n=10_000, n_q=2048):
         f"form {c_forms}")
     client.delete_index("hnsw-main")
     return counts, c_forms
+
+
+def graph_state(idx):
+    """What a build decides, comparable across devices: max_layer,
+    enterpoint, levels, every row's neighbour list at every layer in
+    order, and the snapshot's adjacency tables' bytes."""
+    hw = idx._names.high_water
+    snap = idx.device_snapshot()
+    return (idx.max_layer, idx.enterpoint, idx._levels[:hw].tobytes(),
+            [[idx._nbrs(r, lc) for lc in range(int(idx._levels[r]) + 1)]
+             for r in range(hw)],
+            [t.cpu().numpy().tobytes()
+             for t in (snap.adj0, snap.adj_up, snap.upper_of)])
 
 
 def phase_graph_lattice(dev, n=2000, n_q=256, devices=("cuda", "cpu")):
@@ -1495,6 +1570,200 @@ def phase_graph_lattice(dev, n=2000, n_q=256, devices=("cuda", "cpu")):
         f"queries: card replies equal the CPU's byte for byte in {checked} "
         f"configurations (f32/f16 blocks, expand 1/16, seeds 0/4); "
         f"launches {counts}")
+    # bulk builds of the same rows, 512-row waves (the last one partial):
+    # the card's graph equals the CPU's byte for byte
+    names = [f"l{i}" for i in range(n)]
+    bulk = {}
+    for l0 in ("scan", "beam"):
+        os.environ["REDIS_HNSW_TPU_BUILD_L0"] = l0
+        try:
+            reset_counts()
+            states = []
+            for c in clients:
+                c.create_index("latb", dim=dim, m=8, ef_construction=64,
+                               seed=SEED)
+                c.add_batch("latb", names, data, batch_size=512)
+                states.append(graph_state(c.index("latb")))
+                c.delete_index("latb")
+            bulk[l0] = read_counts()
+        finally:
+            del os.environ["REDIS_HNSW_TPU_BUILD_L0"]
+        check(states[0] == states[1],
+              f"graph-lattice: the card's bulk build ({l0}) differs from "
+              f"the CPU's")
+        check(bulk[l0]["block_score"] > 0
+              and (l0 == "beam" or bulk[l0]["scan_topk"] > 0),
+              f"graph-lattice: a kernel never launched in the {l0} bulk "
+              f"build: {bulk[l0]}")
+    log(f"phase 2b: graph-lattice bulk builds (add_batch, 512-row waves, the "
+        f"last partial; BUILD_L0 scan and beam): the card's graph equals the "
+        f"CPU's byte for byte (levels, enterpoint, max_layer, every row's "
+        f"neighbour list at every layer in order, the snapshot's adjacency "
+        f"tables); launches {bulk}")
+    return {name: bulk["scan"][name] + bulk["beam"][name] for name in bulk["scan"]}
+
+
+class ChunkedOracle:
+    """float64 ground truth of a query block over a large table, computed
+    on the card in query chunks: each query's k nearest rows and its
+    k-th distance."""
+
+    def __init__(self, xs64, qs, k, chunk=256):
+        self.xs64, self.k = xs64, k
+        self.q64 = torch.from_numpy(qs).to(xs64.device, torch.float64)
+        xn = (xs64 * xs64).sum(1)
+        truth, kth = [], []
+        for lo in range(0, len(qs), chunk):
+            q = self.q64[lo : lo + chunk]
+            d = (q * q).sum(1)[:, None] + xn[None, :] - 2.0 * q @ xs64.t()
+            v, i = torch.topk(d, k, dim=1, largest=False)
+            truth.append(i.cpu())
+            kth.append(v[:, -1].cpu())
+        self.truth = torch.cat(truth).numpy()
+        self.kth = torch.cat(kth).numpy()
+
+    def recall(self, row_of, names, sims, label):
+        """(recall@k, whether every reply is exact, queries answered with
+        fewer than k names) of a columnar reply. A reply's names are
+        distinct live rows, nearest first, with sims within 1e-5 of the
+        float64 distances; empty slots (None / -inf, a beam that found
+        fewer than k rows) may only trail, and count as misses."""
+        rows = np.array([[row_of.get(x, -1) for x in r]
+                         for r in names.tolist()])
+        valid = rows >= 0
+        check(np.array_equal(valid, np.isfinite(sims))
+              and (valid[:, :-1] >= valid[:, 1:]).all(),
+              f"{label}: empty slots are not a reply's tail")
+        for r, ok in zip(rows, valid):
+            check(len(set(r[ok].tolist())) == ok.sum(),
+                  f"{label}: a reply repeats a name")
+        rt = torch.from_numpy(np.maximum(rows, 0)).to(self.xs64.device)
+        d = ((self.q64[:, None, :] - self.xs64[rt]) ** 2).sum(-1).cpu()
+        d = d.numpy()
+        check(np.allclose(-d[valid], sims[valid], rtol=1e-5, atol=1e-5),
+              f"{label}: sims off the float64 oracle")
+        check((np.diff(np.where(valid, sims, -np.inf), axis=1) <= 0)[
+            valid[:, 1:]].all(), f"{label}: replies not nearest first")
+        hits = sum(len(set(r[ok].tolist()) & set(t.tolist()))
+                   for r, ok, t in zip(rows, valid, self.truth))
+        tol = 1e-5 * np.maximum(1.0, np.abs(self.kth))
+        exact = bool((d <= (self.kth + tol)[:, None])[valid].all())
+        return hits / rows.size, exact, int((~valid.all(1)).sum())
+
+
+# graph-engine points of phase 2d: ef_search, iters (expand = 16). The
+# first two are always served; the rest, each with ~ef/16 + 8 steps, only
+# until one reaches GRAPH_RECALL.
+BUILD_SERVE_POINTS = ((128, 20), (256, 20), (512, 40), (1024, 72),
+                      (2048, 136))
+
+
+def phase_build(client, dev, n=262_144, n_q=2048, gate=True):
+    """2d: hnsw-build-sift1m-shape -- add_batch(batch_size=2048) of n x 128
+    seeded Gaussian rows (SIFT1M's width; n = a quarter of its rows by
+    default), M=16, efcon=200, native host core: inserts/s, the phase
+    breakdown, one full snapshot build and deltas after it, kernel A
+    timed at the build's shape (2048 lanes over the final table, k = 64,
+    scan-l0's fetch width) beside its bound, its plain version and
+    torch.mm + torch.topk; then n_q queries served by the exact tier and
+    the graph engine, against a float64 oracle. ``gate``: the graph engine
+    must reach GRAPH_RECALL at a point of BUILD_SERVE_POINTS (at other
+    sizes than the default the sweep's recalls are only logged: on iid
+    Gaussian rows they fall as the table grows). Returns (the launches of
+    the build and the serving, kernel A's row at the build shape)."""
+    from redis_hnsw_tpu_torch.ops import cuda_scan
+    from redis_hnsw_tpu_torch.ops import distance as Dm
+
+    name, dim, k = "hnsw-build-sift1m-shape", 128, 10
+    rng = np.random.default_rng(SEED + 9)
+    data = rng.standard_normal((n, dim), dtype=np.float32)
+    qs = rng.standard_normal((n_q, dim), dtype=np.float32)
+    names = [f"b{i}" for i in range(n)]
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    client.create_index(name, dim=dim, m=16, ef_construction=200, seed=SEED,
+                        backend="native")
+    build = bulk_build(client, name, names, data)
+    peak = torch.cuda.max_memory_allocated()
+    idx = client.index(name)
+    check(idx.node_count == n, f"{name}: {idx.node_count} rows, not {n}")
+    check(build["refreshes"]["full"] == 1,
+          f"{name}: the snapshot was rebuilt mid-build: {build['refreshes']}")
+    check(build["launches"]["scan_topk"] > 0
+          and build["launches"]["block_score"] > 0,
+          f"{name}: a kernel never launched in the build: {build}")
+    snap = idx.device_snapshot()
+    # rows left with no layer-0 link: every link of theirs was pruned by
+    # their neighbours' degree caps (the reference's bidirectional shrink)
+    isolated = int((snap.adj0[:n] < 0).all(1).sum())
+    log(f"phase 2d: {name}: add_batch(batch_size=2048) of {n} x {dim} rows "
+        f"in {build['s']:.3f} s ({n / build['s']:.1f} inserts/s); phases "
+        f"{json.dumps(build['phases'])}; snapshot refreshes "
+        f"{build['refreshes']}; build launches {build['launches']}, kernel "
+        f"C's by form {build['forms']}; max_memory_allocated {peak} bytes; "
+        f"max_layer {idx.max_layer}, rows with no layer-0 link {isolated}, "
+        f"frontier tier {snap.nbrvec.dtype if snap.nbrvec is not None else None}")
+
+    # kernel A at the build's shape: scan-l0's call on the final table
+    live = torch.zeros(snap.n_pad, dtype=torch.bool, device=dev)
+    live[:n] = True
+    qt = torch.from_numpy(data[-n_q:]).to(dev)
+    case = (qt, snap.vecs, cuda_scan.euclid_sq_masked(snap.sqnorms, live),
+            Dm.sqnorms(qt))
+    fetch_c = 64
+    err = compare_topk(case, fetch_c, False, f"{name} kernel A k={fetch_c}")
+    B, N = qt.shape[0], snap.n_pad
+    a_bound, a_by = bound_ms(2.0 * B * N * dim, 4.0 * (B * dim + N * dim + N
+                                                       + B) + 8.0 * B * fetch_c)
+    a_row = dict(
+        ms=sync_ms(lambda: cuda_scan.flat_topk(*case, k=fetch_c), 10),
+        plain_ms=sync_ms(lambda: cuda_scan.plain_flat_topk(*case, k=fetch_c),
+                         2),
+        library_ms=sync_ms(lambda: torch.topk(torch.mm(qt, snap.vecs.t()),
+                                              fetch_c, dim=1), 3),
+        bound_ms=a_bound, bound_by=a_by, max_abs_err=err,
+        shape=dict(B=B, N=N, D=dim, k=fetch_c))
+    log(f"phase 2d: kernel A at the build's shape {a_row['shape']}: "
+        f"{json.dumps(a_row)}")
+    del case, qt, live
+
+    # serve: the exact tier, then the graph engine
+    xs64 = torch.from_numpy(data).to(dev, torch.float64)
+    t0 = time.perf_counter()
+    oracle = ChunkedOracle(xs64, qs, k)
+    oracle_s = time.perf_counter() - t0
+    row_of = {nm: i for i, nm in enumerate(names)}
+    reset_counts()
+    scan_s, (snames, ssims) = timed(lambda: client.search_batch(
+        name, qs, k=k, engine="scan", reply="columnar"), 1)
+    s_recall, exact, short = oracle.recall(row_of, snames, ssims,
+                                           f"{name} scan")
+    check(exact and short == 0 and s_recall >= GRAPH_RECALL,
+          f"{name}: the exact tier missed a nearer row ({s_recall}, "
+          f"{short} short replies)")
+    points = []
+    for i, (ef, iters) in enumerate(BUILD_SERVE_POINTS):
+        if i >= 2 and points[-1]["recall"] >= GRAPH_RECALL:
+            break
+        g_s, (gnames, gsims) = timed(lambda: client.search_batch(
+            name, qs, k=k, engine="graph", ef_search=ef, iters=iters,
+            expand=16, reply="columnar"), 1)
+        r, _, short = oracle.recall(row_of, gnames, gsims,
+                                    f"{name} graph ef={ef} iters={iters}")
+        points.append(dict(ef=ef, iters=iters, recall=r, qps=n_q / g_s,
+                           short_replies=short))
+    serve = read_counts()
+    check(not gate or points[-1]["recall"] >= GRAPH_RECALL,
+          f"{name}: the graph engine reaches recall@{k} < {GRAPH_RECALL} at "
+          f"every point: {points}")
+    del xs64
+    client.delete_index(name)
+    log(f"phase 2d: {name}: {n_q} queries k={k}: exact tier recall@{k} "
+        f"{s_recall:.4f}, {n_q / scan_s:.1f} qps, every reply within the "
+        f"float64 oracle's k-th distance ({oracle_s:.1f} s); graph engine "
+        f"(expand=16): {json.dumps(points)}; serving launches {serve}")
+    return ({key: build["launches"][key] + serve[key] for key in serve},
+            a_row)
 
 
 def phase_flat(client, dev, b_ms, d_ms):
@@ -1674,10 +1943,11 @@ def phase_hnsw_hamming(client, dev, n=10_000, n_q=2048):
     reset_counts()
     client.create_index(name, dim=32 * W, m=16, ef_construction=200,
                         seed=SEED, metric="hamming", backend="native")
-    t0 = time.perf_counter()
-    for i in range(n):
-        client.add_node(name, names[i], data[i])
-    build_s = time.perf_counter() - t0
+    # config5 builds by add_batch (bench.py:496): the beam path, with the
+    # wave's cross sims computed on the card
+    build = bulk_build(client, name, names, data)
+    check(build["refreshes"]["full"] == 1,
+          f"{name}: the bulk build rebuilt its snapshot: {build}")
     t0 = time.perf_counter()
     snames, ssims = client.search_batch(name, qs, k=k, reply="columnar")
     first_s = time.perf_counter() - t0
@@ -1719,8 +1989,11 @@ def phase_hnsw_hamming(client, dev, n=10_000, n_q=2048):
     counts = read_counts()
     check(counts["scan_topk_hamming"] > 0,
           f"{name}: kernel A′ never launched: {counts}")
-    log(f"phase 2c: {name}: built {n} rows by add_node in {build_s:.2f} s "
-        f"({n / build_s:.0f} inserts/s); scan search_batch {n_q} queries "
+    log(f"phase 2c: {name}: built {n} rows by add_batch(batch_size=2048) in "
+        f"{build['s']:.3f} s ({n / build['s']:.1f} inserts/s; phases "
+        f"{json.dumps(build['phases'])}; snapshot refreshes "
+        f"{build['refreshes']}; build launches {build['launches']}); scan "
+        f"search_batch {n_q} queries "
         f"k={k}: first call {first_s * 1e3:.1f} ms, then {n_q / scan_s:.0f} "
         f"qps columnar, byte-identical to a numpy brute force ({oracle_s:.1f}"
         f" s); graph engine (expand=16) sweep {seen}: chosen ef={ef} "
@@ -1897,6 +2170,15 @@ def log_block_score_figures(path, card_index) -> None:
 
 
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--build-rows", type=int, default=0,
+        help="run only phase 2d's bulk build and serving, at this many rows "
+        "(e.g. 1000000, SIFT1M's size), and print its lines; the graph "
+        "engine's recall is logged, not gated")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1918,6 +2200,13 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log("  " + line.strip())
     dev = torch.device("cuda")
+    if args.build_rows:
+        counts, a_row = phase_build(h.HNSW(), dev, n=args.build_rows,
+                                    gate=False)
+        log(card)
+        log(json.dumps({"build_rows": args.build_rows, "launches": counts,
+                        "scan_topk_build_shape": a_row}))
+        return 0
     from redis_hnsw_tpu_torch.ops import cuda_count, cuda_scan, cuda_select
 
     card_index = torch.cuda.current_device()
@@ -1941,10 +2230,12 @@ def main() -> int:
     client = h.HNSW()
     launches, c_forms = phase_hnsw(client, dev)
     kernels["block_score"]["launches_by_form"] = c_forms
-    phase_graph_lattice(dev)
-    path_counts = [phase_hnsw_hamming(client, dev)]
+    path_counts = [phase_graph_lattice(dev), phase_hnsw_hamming(client, dev)]
     phase_hamming_lattice(dev)
-    path_counts += [phase_flat(client, dev, kernels["count_gt_eq"]["ms"],
+    build_counts, kernels["scan_topk"]["build_shape"] = phase_build(client,
+                                                                    dev)
+    path_counts += [build_counts,
+                    phase_flat(client, dev, kernels["count_gt_eq"]["ms"],
                                kernels["select_bins"]["ms"]),
                     phase_flat_hamming(client, dev)]
     for counts in path_counts:

@@ -2,10 +2,11 @@
 
 The port of ``redis_hnsw_tpu`` (JAX on a TPU) to an NVIDIA H100: the same
 command surface of zhao-lang/redis_hnsw (index create/inspect/drop, node
-add/get/delete with online graph repair, k-NN search) plus batched search,
-served by hand-written CUDA kernels (``csrc/``). Indexes live on the card
-unless the client is created with ``device="cpu"``. ROADMAP.md lists what
-is not ported yet; those entry points raise ``NotImplementedError``.
+add/get/delete with online graph repair, k-NN search) plus bulk
+construction and batched search, served by hand-written CUDA kernels
+(``csrc/``). Indexes live on the card unless the client is created with
+``device="cpu"``. ROADMAP.md lists what is not ported yet; those entry
+points raise ``NotImplementedError``.
 """
 
 from .api import HNSW

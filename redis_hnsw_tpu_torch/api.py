@@ -16,8 +16,9 @@ Command mapping:
     HNSW.SEARCH    -> search              (src/lib.rs:462-496)
 
 Defaults mirror the reference: m=5, ef_construction=200, k=5
-(src/lib.rs:48, :53, :120). Batched extensions: add_batch (flat indexes),
-delete_batch, search_batch.
+(src/lib.rs:48, :53, :120). Batched extensions: add_batch (bulk wave
+construction on HNSW indexes, ops/construct.py; one table append on flat
+ones), delete_batch, search_batch.
 
 A client serves from one device: the card by default (``HNSW()``), the
 CPU only when asked (``HNSW(device="cpu")``). Not ported yet, and raising
@@ -177,6 +178,8 @@ class HNSW:
     # -- batched extensions -------------------------------------------------------
 
     def add_batch(self, index: str, names, data, batch_size: int = 1024):
+        """Bulk insert: device-scored waves of ``batch_size`` rows on an
+        HNSW index (ops/construct.py), one append on a flat index."""
         idx, lk = self._entry(index)
         with lk:
             if isinstance(idx, FlatIndex):

@@ -120,6 +120,9 @@ class HNSWIndex:
         self._epoch = 0        # bumped on every mutation
         self._snapshot = None  # lazily-built device snapshot (ops/snapshot)
         self._snapshot_epoch = -1
+        # Snapshot refreshes by kind: "full" rebuilds and in-place
+        # "delta"s (ops/snapshot.py build_snapshot counts them).
+        self.snapshot_refreshes = {"full": 0, "delta": 0}
         # Users presize via IndexConfig.capacity: device tables pad to it
         # up front so engine shapes stay stable for the expected size
         # (bulk builds and the streaming harness also raise this hint).
@@ -751,7 +754,10 @@ class HNSWIndex:
 
     # -- device snapshot plumbing -------------------------------------------
 
-    def _bump(self) -> None:
+    def _bump(self, ops: int = 1) -> None:
+        """A new mutation epoch; ``ops`` counts the mutations it holds (a
+        bulk wave is one epoch of W inserts), which autosave will read
+        once checkpoints are ported (ROADMAP queue 1 item 8)."""
         self._epoch += 1
 
     def drain_dirty(self) -> np.ndarray:
@@ -794,12 +800,10 @@ class HNSWIndex:
     # -- batched entry points -------------------------------------------------
 
     def add_batch(self, names, data, batch_size: int = 1024) -> None:
-        """Bulk wave construction: not ported yet."""
-        raise NotImplementedError(
-            "add_batch on an HNSW index (bulk wave construction) is not "
-            "ported yet (ROADMAP queue 1 item 7); use add_node, or "
-            "kind='flat'"
-        )
+        """Bulk wave construction (device-scored). See ops/construct.py."""
+        from ..ops.construct import add_batch as _add_batch
+
+        _add_batch(self, names, data, batch_size=batch_size)
 
     def search_batch(
         self, queries, k: int, ef_search: int | None = None,

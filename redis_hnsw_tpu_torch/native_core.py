@@ -170,6 +170,33 @@ class NativeGraph:
         )
         return ids[:n], sims[:n]
 
+    def apply_wave(self, rows, levels, up_ids, up_sims, l0_ids, l0_sims,
+                   cross, l_max_snap) -> None:
+        """Bulk-wave surgery (ops/construct.py ``complete_wave``): link W
+        inserts in wave order from their candidate lists. ``up_ids`` /
+        ``up_sims`` [n_up, W, C] hold layers 1..n_up, ``l0_*`` [W, C]
+        layer 0, ``cross`` [W, W] the intra-wave sims."""
+        rows = np.ascontiguousarray(rows, np.int32)
+        levels = np.ascontiguousarray(levels, np.int32)
+        W = rows.size
+        up_ids = np.ascontiguousarray(up_ids, np.int32)
+        l0_ids = np.ascontiguousarray(l0_ids, np.int32)
+        cross = np.ascontiguousarray(cross, np.float32)
+        C = l0_ids.shape[1]
+        if (levels.size != W or l0_ids.shape[0] != W
+                or up_ids.shape[1:] != (W, C) or cross.shape != (W, W)):
+            raise ValueError("apply_wave: candidate arrays do not match "
+                             f"the wave of {W} rows")
+        # C names ef and n_up (native/hnsw_core.cpp apply_wave): ef is the
+        # fetch width C of every candidate list, n_up the upper layers
+        self._lib.hnsw_apply_wave(
+            self._h, rows, levels, W,
+            up_ids, np.ascontiguousarray(up_sims, np.float32),
+            up_ids.shape[0],
+            l0_ids, np.ascontiguousarray(l0_sims, np.float32), C,
+            cross, int(l_max_snap),
+        )
+
     def max_degree(self, lc: int, n: int) -> int:
         return self._lib.hnsw_max_degree(self._h, lc, n)
 

@@ -56,6 +56,13 @@ _INF = float("inf")
 # the index, so larger query sets are served in chunks of this many.
 MAX_LANES = 2048
 
+
+def max_lanes_for(n_pad: int) -> int:
+    """Lane cap of one call over an ``n_pad``-row snapshot: per-step tiles
+    scale with the lanes, not the rows, so it is MAX_LANES at every size."""
+    return MAX_LANES
+
+
 # Auto-engine crossover, as in the JAX package: at or below this many
 # (padded) rows "auto" serves the exact scan, above it the graph beam.
 SCAN_MAX_ROWS = {"euclidean": 1 << 21, "hamming": 1 << 21}

@@ -322,7 +322,9 @@ def build_snapshot(index, prev: Snapshot | None = None) -> Snapshot:
         and (None if prev.nbrvec is None else prev.nbrvec.dtype) == nv_dtype
         and (prev.qrows is not None) == use_q
     ):
+        index.snapshot_refreshes["delta"] += 1
         return _delta_snapshot(index, prev)
+    index.snapshot_refreshes["full"] += 1
 
     # full rebuild covers everything: discard pending delta state
     index.drain_dirty()

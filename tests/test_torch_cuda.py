@@ -532,6 +532,39 @@ def test_graph_on_card_matches_cpu(card, monkeypatch, tier):
         assert np.array_equal(a[1].view(np.int32), b[1].view(np.int32))
 
 
+@pytest.mark.parametrize("l0", ["scan", "beam"])
+def test_bulk_build_on_card_matches_cpu(card, monkeypatch, l0):
+    """add_batch on the card (layer-0 candidates from kernel A under
+    scan-l0, from the beam on kernel C's block form under beam; upper
+    beams on C's row form) builds the CPU's graph, byte for byte, on a
+    lattice index; 1199 rows after the first make 256-row waves and a
+    partial one."""
+    monkeypatch.setenv("REDIS_HNSW_TPU_BUILD_L0", l0)
+    rng = np.random.default_rng(12)
+    data = rng.integers(-4, 5, (1200, 32)).astype(np.float32)
+    names = [f"n{i}" for i in range(1200)]
+    built = {}
+    for dev in ("cuda", "cpu"):
+        a0 = cuda_scan.flat_topk.launches
+        c0 = cuda_gather.fused_block_score.launches
+        idx = T.HNSWIndex("b", T.IndexConfig(dim=32, m=8, ef_construction=64,
+                                             seed=3), device=dev)
+        idx.add_batch(names, data, batch_size=256)
+        built[dev] = idx
+        if dev == "cuda":
+            assert cuda_gather.fused_block_score.launches > c0
+            assert (cuda_scan.flat_topk.launches > a0) == (l0 == "scan")
+    a, b = built["cuda"], built["cpu"]
+    assert a.max_layer == b.max_layer and a.enterpoint == b.enterpoint
+    assert np.array_equal(a._levels[:1200], b._levels[:1200])
+    for row in range(1200):
+        for lc in range(int(a._levels[row]) + 1):
+            assert a._nbrs(row, lc) == b._nbrs(row, lc), (row, lc)
+    sa, sb = a.device_snapshot(), b.device_snapshot()
+    for field in ("adj0", "adj_up", "upper_of", "vecs", "sqnorms"):
+        assert torch.equal(getattr(sa, field).cpu(), getattr(sb, field))
+
+
 def word_operands(rng, B, N, W, dead, device):
     q = rng.integers(0, 2**32, (B, W), dtype=np.uint32)
     x = rng.integers(0, 2**32, (N, W), dtype=np.uint32)

@@ -91,7 +91,6 @@ def test_not_ported_branches_raise(monkeypatch):
         with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
             fn()
 
-    raises(7, lambda: c.add_batch("g", ["x"], q[:1]))
     raises(8, lambda: c.save_index("g", "/nonexistent"))
     raises(8, lambda: c.restore_index("/nonexistent"))
     raises(8, lambda: c.index("g").enable_autosave("/nonexistent"))
