@@ -84,7 +84,26 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
    (the shape of ann-benchmarks' sift-256-hamming, seeded random bits)
    served 16,384 queries on the exact hamming tier (kernel A′), which a
    hamming table takes at every size, byte-identical to use_pallas=True
-   on every query and to a numpy brute force on a sample.
+   on every query and to a numpy brute force on a sample;
+4. the wire and durability, in a temporary directory: 4a ``stream-deep96``,
+   BASELINE.json config 4 as benchmarks/streaming1m.py drives it (96-d
+   rows about 4096 centres, sigma 0.8, M=16, efcon=200; ``run_mixed`` in
+   waves of 2048 with 2048-query batches on the auto engine) in two
+   stages of 65,536 rows with a staged resume between them
+   (``save_index(compress=False)``, restored on the card, tables
+   byte-equal, 2048 replies identical on the exact tier and the graph
+   engine), every validate self-hit passing and the auto route's recall
+   1.0; then one overlap-mode stage of 16,384 rows holding its
+   owed-queries parity; 4b the RESP server (``HNSWServer(port=0)`` over
+   this client) answering the reference's cmd.sh flow, every ENGINE,
+   SEEDS, RECALL_TARGET, SAVE + RESTORE, a hamming index, a flat one and
+   the error replies with what the in-process client answers, and 512
+   single-query round trips timed; 4c flat-sift1m saved and restored on
+   the card, byte-identical on the one-pass tier and the exact tier; 4d
+   the scan-approx tier and ``recall_target`` equal to the exact tier on
+   flat-sift1m and hnsw-main, REDIS_HNSW_TPU_REPLY=ids-force giving the
+   same ids and sims within 2 ulp, and the ids guard's calibration; 4e
+   ``tune`` on hnsw-main and a ``device_trace`` that names kernel A.
 
 Every failed check raises, so the script exits non-zero. The last lines
 are the card line, one JSON object of per-kernel numbers, and
@@ -1511,8 +1530,7 @@ def phase_hnsw(client, dev, n=10_000, n_q=2048):
         f"{d_recall:.4f}, no deleted name served; tiers (ef, iters), "
         f"recall, qps: {tiers}; launches {counts}; kernel C's by call and "
         f"form {c_forms}")
-    client.delete_index("hnsw-main")
-    return counts, c_forms
+    return counts, c_forms  # hnsw-main stays for phase 4
 
 
 def graph_state(idx):
@@ -1841,7 +1859,7 @@ def phase_flat(client, dev, b_ms, d_ms):
     onepass = phase_onepass(idx, qs, k, (enames, esims),
                             {"certified": n_q / cert_s,
                              "exact": n_q / exact_s}, d_ms)
-    client.delete_index("flat-sift1m")
+    # flat-sift1m stays for phase 4
     return {name: c + onepass[name] for name, c in counts.items()}
 
 
@@ -2103,6 +2121,566 @@ def phase_flat_hamming(client, dev):
     return counts
 
 
+# -- phase 4: the wire and durability (4a-4e) ------------------------------
+
+# benchmarks/streaming1m.py's config 4 (Deep10M's width): 96-d rows about
+# 4096 Gaussian centres, sigma 0.8; rows from seed 0, queries from seed 1
+# (its dataset() and query_pool(), copied: importing that file has side
+# effects).
+STREAM_DIM, STREAM_CENTERS, STREAM_SIGMA = 96, 4096, 0.8
+STREAM_KNOBS = dict(k=10, insert_wave=2048, query_batch=2048, ef_search=128,
+                    expand=16, iters=20, validate_every=16, engine="auto")
+
+
+def stream_rows(n: int) -> np.ndarray:
+    rng = np.random.default_rng(0)
+    centers = rng.standard_normal((STREAM_CENTERS, STREAM_DIM)).astype(
+        np.float32)
+    assign = rng.integers(0, STREAM_CENTERS, n)
+    out = centers[assign]
+    out += STREAM_SIGMA * rng.standard_normal((n, STREAM_DIM)).astype(
+        np.float32)
+    return out
+
+
+def stream_queries(n_q: int) -> np.ndarray:
+    rng = np.random.default_rng(1)
+    centers = np.random.default_rng(0).standard_normal(
+        (STREAM_CENTERS, STREAM_DIM)).astype(np.float32)
+    assign = rng.integers(0, STREAM_CENTERS, n_q)
+    return centers[assign] + STREAM_SIGMA * rng.standard_normal(
+        (n_q, STREAM_DIM)).astype(np.float32)
+
+
+def same_state(a, b, label):
+    """Byte-equal names, vectors, levels and adjacency of two indexes."""
+    from redis_hnsw_tpu_torch.convert import state_from_index
+
+    sa, sb = state_from_index(a), state_from_index(b)
+    check(sa["meta"]["node_count"] == sb["meta"]["node_count"]
+          and sa["meta"]["max_layer"] == sb["meta"]["max_layer"]
+          and sa["meta"]["enterpoint"] == sb["meta"]["enterpoint"],
+          f"{label}: meta differs")
+    for key in sa:
+        if key != "meta":
+            check(sa[key].dtype == sb[key].dtype
+                  and sa[key].shape == sb[key].shape
+                  and sa[key].tobytes() == sb[key].tobytes(),
+                  f"{label}: {key} differs")
+
+
+def same_reply(a, b, label):
+    check(np.array_equal(a[0], b[0])
+          and np.array_equal(a[1].view(np.int32), b[1].view(np.int32)),
+          f"{label}: replies differ")
+
+
+def stats_line(stats) -> str:
+    s = stats.summary()
+    keys = ("inserts", "queries", "elapsed_s", "inserts_per_s",
+            "inserts_per_s_steady", "qps", "insert_p50_ms", "insert_p95_ms",
+            "query_p50_ms", "query_p95_ms", "insert_total_s",
+            "query_total_s", "validate_total_s", "other_total_s")
+    return json.dumps({key: s[key] for key in keys if key in s})
+
+
+def phase_stream(client, tmp, stage=65_536, overlap_rows=16_384):
+    """4a: config 4's stream in two stages of ``stage`` rows with a staged
+    resume between them (save uncompressed, load on the card, go on), as
+    benchmarks/streaming1m.py runs it; then one overlap-mode stage on a
+    fresh index. Returns the restored stream index and its queries."""
+    from redis_hnsw_tpu_torch.utils.checkpoint import save_index
+    from redis_hnsw_tpu_torch.utils.streaming import run_mixed
+
+    n_total = 2 * stage
+    data = stream_rows(n_total)
+    queries = stream_queries(4096)
+    names = [f"n{i}" for i in range(n_total)]
+    idx = client.create_index("stream-stage1", dim=STREAM_DIM, m=16,
+                              ef_construction=200, seed=SEED)
+    s1 = run_mixed(idx, names[:stage], data[:stage], queries,
+                   capacity_hint=n_total, **STREAM_KNOBS)
+    path = os.path.join(tmp, "stream.npz")
+    t0 = time.perf_counter()
+    save_index(idx, path, compress=False)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # load_index(path, device=the client's card), registered for the wire
+    back = client.restore_index(path, name="stream-deep96")
+    load_s = time.perf_counter() - t0
+    check(back.device == client.device, "stream: restored elsewhere")
+    same_state(idx, back, "stream restore")
+    probe = queries[:2048]
+    gkw = dict(ef_search=128, expand=16, iters=20, reply="columnar")
+    for engine in ("scan", "graph"):
+        same_reply(idx.search_batch(probe, 10, engine=engine, **gkw),
+                   back.search_batch(probe, 10, engine=engine, **gkw),
+                   f"stream restore {engine}")
+    client.delete_index("stream-stage1")
+    del idx
+    s2 = run_mixed(back, names[stage:], data[stage:], queries,
+                   capacity_hint=n_total, **STREAM_KNOBS)
+    check(back.node_count == n_total, "stream: rows missing")
+    truth = back.search_batch(probe, 10, engine="scan", reply="columnar")
+    auto = back.search_batch(probe, 10, engine="auto", reply="columnar")
+    auto_recall = float(np.mean([len(set(a) & set(t)) / 10
+                                 for a, t in zip(auto[0], truth[0])]))
+    check(auto_recall == 1.0, f"stream: auto recall@10 {auto_recall}")
+    graph = back.search_batch(probe, 10, engine="graph", **gkw)
+    g_recall = float(np.mean([len(set(a) & set(t)) / 10
+                              for a, t in zip(graph[0], truth[0])]))
+
+    ov = client.create_index("stream-overlap", dim=STREAM_DIM, m=16,
+                             ef_construction=200, seed=SEED)
+    s3 = run_mixed(ov, names[:overlap_rows], data[:overlap_rows], queries,
+                   capacity_hint=overlap_rows, overlap=True, slices=1,
+                   **STREAM_KNOBS)
+    want_q = (overlap_rows // 2048) * 2048
+    check(s3.inserts == overlap_rows and s3.queries == want_q,
+          f"stream overlap: {s3.inserts} inserts, {s3.queries} queries "
+          f"(owed-queries parity wants {want_q})")
+    client.delete_index("stream-overlap")
+    size = os.path.getsize(path)
+    log(f"phase 4a: stream-deep96 (config 4: {STREAM_DIM}-d, "
+        f"{STREAM_CENTERS} centres, sigma {STREAM_SIGMA}; M=16, efcon=200; "
+        f"waves of 2048, query batches of 2048, auto engine, ef/expand/"
+        f"iters 128/16/20; every validate self-hit passed): stage 1 to "
+        f"{stage} rows {stats_line(s1)}; staged resume: save "
+        f"{save_s:.3f} s ({size} bytes, uncompressed), load on the card "
+        f"{load_s:.3f} s, restored tables byte-equal and 2048 queries "
+        f"identical on the exact tier and the graph engine; stage 2 to "
+        f"{n_total} rows {stats_line(s2)}; auto recall@10 vs the exact scan "
+        f"{auto_recall}, graph engine recall@10 at (128, 16, 20) "
+        f"{g_recall:.4f}; overlap stage ({overlap_rows} rows, slices=1, "
+        f"owed-queries parity held) {stats_line(s3)}")
+    return back, queries
+
+
+class WireError(str):
+    pass
+
+
+class Resp:
+    """A raw RESP2 client: sends a command, decodes the reply (bulk
+    strings as str, errors as WireError)."""
+
+    def __init__(self, port: int) -> None:
+        import socket
+
+        self.sock = socket.create_connection(("127.0.0.1", port))
+        self.f = self.sock.makefile("rb")
+
+    def cmd(self, *parts):
+        out = [f"*{len(parts)}\r\n".encode()]
+        for p in parts:
+            b = str(p).encode()
+            out.append(b"$%d\r\n%s\r\n" % (len(b), b))
+        self.sock.sendall(b"".join(out))
+        return self._read()
+
+    def _read(self):
+        line = self.f.readline().rstrip(b"\r\n")
+        t, body = line[:1], line[1:].decode()
+        if t == b"+":
+            return body
+        if t == b"-":
+            return WireError(body)
+        if t == b":":
+            return int(body)
+        if t == b"$":
+            n = int(body)
+            return None if n < 0 else self.f.read(n + 2)[:n].decode()
+        if t == b"*":
+            return [self._read() for _ in range(int(body))]
+        raise CheckFailed(f"wire: bad reply line {line!r}")
+
+    def close(self) -> None:
+        self.f.close()
+        self.sock.close()
+
+
+def wire_search(res):
+    """An HNSW.SEARCH reply as the wire decodes it (server.py)."""
+    return [len(res)] + [["similarity", repr(float(r.sim)), "name", r.name]
+                         for r in res]
+
+
+def wire_info(info):
+    def fld(key, cast):
+        return None if info[key] is None else cast(info[key])
+
+    return ["name", info["name"], "metric", info["metric"],
+            "data_dim", int(info["data_dim"]), "m", fld("m", int),
+            "ef_construction", fld("ef_construction", int),
+            "level_mult", fld("level_mult", lambda v: repr(float(v))),
+            "node_count", int(info["node_count"]),
+            "max_layer", fld("max_layer", int),
+            "enterpoint", (info["enterpoint"] or ""
+                           if info.get("m") is not None else None)]
+
+
+def wire_node(node):
+    data = np.asarray(node["data"])
+    vals = ([int(x) for x in data] if data.dtype.kind in "iu"
+            else [repr(float(x)) for x in data])
+    return ["data", vals, "neighbors", [list(l) for l in node["neighbors"]]]
+
+
+def client_error(fn) -> str:
+    """The message the wire must carry for the client call ``fn``."""
+    from redis_hnsw_tpu_torch.errors import HNSWError
+
+    try:
+        fn()
+    except HNSWError as e:
+        return str(e)
+    except Exception as e:  # noqa: BLE001 -- server.py's "ERR ..." reply
+        return f"ERR {e}"
+    raise CheckFailed("wire: the client call did not fail")
+
+
+def wire_qargs(q):
+    if q.dtype == np.uint32:
+        return [len(q), *[int(x) for x in q]]
+    return [len(q), *[repr(float(x)) for x in q]]
+
+
+def phase_wire(client, tmp, stream, queries):
+    """4b: the reference's cmd.sh flow and the JAX server's extensions
+    over a raw socket to HNSWServer(port=0) on ``client``; every decoded
+    reply equals the in-process client's answer to the same call."""
+    from redis_hnsw_tpu_torch.server import HNSWServer
+
+    srv = HNSWServer(port=0, client=client)
+    srv.serve_background()
+    c = Resp(srv.server_address[1])
+    n_checked = 0
+
+    def expect(got, want, label):
+        nonlocal n_checked
+        check(got == want, f"wire {label}: {got!r} != {want!r}")
+        n_checked += 1
+
+    try:
+        expect(c.cmd("PING"), "PONG", "PING")
+        dim = 16
+        expect(c.cmd("HNSW.NEW", "test1", "DIM", dim, "M", 5), "OK", "NEW")
+        for i in range(1, 31):
+            expect(c.cmd("HNSW.NODE.ADD", "test1", f"node{i}", "DATA", dim,
+                         *[repr(float(i))] * dim), "OK", "NODE.ADD")
+        expect(c.cmd("HNSW.GET", "test1"),
+               wire_info(client.get_index("test1")), "GET")
+        expect(c.cmd("HNSW.NODE.GET", "test1", "node1"),
+               wire_node(client.get_node("test1", "node1")), "NODE.GET")
+        q = np.full(dim, 2.25, np.float32)
+        expect(c.cmd("HNSW.SEARCH", "test1", "K", 3, "QUERY",
+                     *wire_qargs(q)),
+               wire_search(client.search("test1", q, k=3)), "SEARCH")
+        searches = [("ENGINE", "scan"), ("ENGINE", "graph"),
+                    ("ENGINE", "scan-approx"), ("ENGINE", "auto"),
+                    ("ENGINE", "graph", "SEEDS", 4),
+                    ("RECALL_TARGET", "0.99")]
+
+        def batch_kw(extra):
+            kw = dict(zip([e.lower() for e in extra[::2]], extra[1::2]))
+            return dict(engine=kw.get("engine", "auto"),
+                        seeds=int(kw.get("seeds", 0)),
+                        recall_target=(float(kw["recall_target"])
+                                       if "recall_target" in kw else None))
+
+        def search_all(name, q, k):
+            for extra in searches:
+                expect(c.cmd("HNSW.SEARCH", name, "K", k, "QUERY",
+                             *wire_qargs(q), *extra),
+                       wire_search(client.search_batch(
+                           name, q[None], k=k, **batch_kw(extra))[0]),
+                       f"SEARCH {name} {extra}")
+
+        search_all("test1", q, 3)
+        path = os.path.join(tmp, "wire.npz")
+        expect(c.cmd("HNSW.SAVE", "test1", "PATH", path), "OK", "SAVE")
+        expect(c.cmd("HNSW.RESTORE", "test1-copy", "PATH", path), "OK",
+               "RESTORE")
+        info = client.get_index("test1")
+        expect(c.cmd("HNSW.GET", "test1-copy"),
+               wire_info({**info, "name": "test1-copy"}), "GET copy")
+        expect(c.cmd("HNSW.SEARCH", "test1-copy", "K", 3, "QUERY",
+                     *wire_qargs(q), "ENGINE", "graph"),
+               wire_search(client.search_batch("test1", q[None], k=3,
+                                               engine="graph")[0]),
+               "SEARCH copy")
+        expect(c.cmd("HNSW.NODE.DEL", "test1", "node2"), 1, "NODE.DEL")
+        expect(c.cmd("HNSW.SEARCH", "test1", "K", 3, "QUERY",
+                     *wire_qargs(q)),
+               wire_search(client.search("test1", q, k=3)),
+               "SEARCH after NODE.DEL")
+        for name in ("test1", "test1-copy"):
+            expect(c.cmd("HNSW.DEL", name), 1, "DEL")
+
+        # the restored stream index: the host path and every engine
+        qs = queries[:4]
+        for i in range(2):
+            expect(c.cmd("HNSW.SEARCH", stream, "K", 10, "QUERY",
+                         *wire_qargs(qs[i])),
+                   wire_search(client.search(stream, qs[i], k=10)),
+                   "SEARCH stream")
+            search_all(stream, qs[i], 10)
+        expect(c.cmd("HNSW.NODE.GET", stream, "n7"),
+               wire_node(client.get_node(stream, "n7")), "NODE.GET stream")
+
+        # a hamming index (kernel A′ on ENGINE scan) and a flat one
+        rng = np.random.default_rng(SEED + 11)
+        words = rng.integers(0, 2**32, (300, 8), dtype=np.uint32)
+        expect(c.cmd("HNSW.NEW", "ham", "DIM", 256, "M", 16, "METRIC",
+                     "hamming"), "OK", "NEW hamming")
+        for i in range(300):
+            expect(c.cmd("HNSW.NODE.ADD", "ham", f"h{i}", "DATA",
+                         *wire_qargs(words[i])), "OK", "NODE.ADD hamming")
+        hq = words[5] ^ np.uint32(0x11)
+        expect(c.cmd("HNSW.SEARCH", "ham", "K", 5, "QUERY", *wire_qargs(hq)),
+               wire_search(client.search("ham", hq, k=5)), "SEARCH hamming")
+        search_all("ham", hq, 5)
+        expect(c.cmd("HNSW.NODE.GET", "ham", "h5"),
+               wire_node(client.get_node("ham", "h5")), "NODE.GET hamming")
+        expect(c.cmd("HNSW.NEW", "fl", "DIM", STREAM_DIM, "KIND", "flat"),
+               "OK", "NEW flat")
+        for i in range(200):
+            expect(c.cmd("HNSW.NODE.ADD", "fl", f"f{i}", "DATA",
+                         *wire_qargs(queries[100 + i])), "OK",
+                   "NODE.ADD flat")
+        expect(c.cmd("HNSW.GET", "fl"), wire_info(client.get_index("fl")),
+               "GET flat")
+        for extra in ((), ("ENGINE", "scan-approx"), ("ENGINE", "scan")):
+            want = (client.search("fl", qs[0], k=5) if not extra else
+                    client.search_batch("fl", qs[:1], k=5,
+                                        **batch_kw(extra))[0])
+            expect(c.cmd("HNSW.SEARCH", "fl", "K", 5, "QUERY",
+                         *wire_qargs(qs[0]), *extra),
+                   wire_search(want), f"SEARCH flat {extra}")
+
+        # error replies carry the client's own messages
+        errors = [
+            (("HNSW.GET", "ghost"), lambda: client.get_index("ghost")),
+            (("HNSW.NEW", "ham", "DIM", 8),
+             lambda: client.create_index("ham", dim=8)),
+            (("HNSW.NODE.ADD", "fl", "x", "DATA", 4, 1, 2, 3, 4),
+             lambda: client.add_node("fl", "x", np.ones(4, np.float32))),
+            (("HNSW.NEW", "sh", "DIM", 8, "KIND", "sharded"),
+             lambda: client.create_index("sh", dim=8, kind="sharded")),
+            (("HNSW.SEARCH", "ham", "QUERY", *wire_qargs(hq), "ENGINE",
+              "graph", "RECALL_TARGET", "0.9"),
+             lambda: client.search_batch("ham", hq[None], engine="graph",
+                                         recall_target=0.9)),
+        ]
+        for parts, fn in errors:
+            got = c.cmd(*parts)
+            check(isinstance(got, WireError), f"wire {parts[0]}: not an error")
+            expect(str(got), client_error(fn), f"error {parts[0]}")
+        expect(c.cmd("HNSW.FROB"), "ERR unknown command 'hnsw.frob'",
+               "unknown command")
+        expect(c.cmd("HNSW.DEL", "ham"), 1, "DEL hamming")
+        expect(c.cmd("HNSW.DEL", "fl"), 1, "DEL flat")
+
+        # round trips of single-query searches on the stream index
+        lat = {}
+        for label, extra in (("plain", ()), ("scan", ("ENGINE", "scan"))):
+            ms = []
+            for i in range(512):
+                args = ("HNSW.SEARCH", stream, "K", 10, "QUERY",
+                        *wire_qargs(queries[i]), *extra)
+                t0 = time.perf_counter()
+                reply = c.cmd(*args)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                check(reply[0] == 10, f"wire latency {label}: {reply[0]}")
+            lat[label] = (float(np.percentile(ms, 50)),
+                          float(np.percentile(ms, 99)))
+        expect(c.cmd("QUIT"), "OK", "QUIT")
+    finally:
+        c.close()
+        srv.shutdown()
+        srv.server_close()
+    log(f"phase 4b: the wire: {n_checked} replies over RESP equal the "
+        f"in-process client's (cmd.sh flow, ENGINE scan|graph|scan-approx|"
+        f"auto, SEEDS, RECALL_TARGET, SAVE + RESTORE, hamming, KIND flat, "
+        f"errors incl. KIND sharded); 512 single-query HNSW.SEARCH round "
+        f"trips on {stream} ({STREAM_DIM}-d): host parity path p50 "
+        f"{lat['plain'][0]:.3f} ms p99 {lat['plain'][1]:.3f} ms; ENGINE scan "
+        f"p50 {lat['scan'][0]:.3f} ms p99 {lat['scan'][1]:.3f} ms")
+    return lat
+
+
+def phase_flat_checkpoint(client, tmp, k=10, n_q=16_384):
+    """4c: flat-sift1m (phase 3's 1,000,000 x 128d index) saved
+    uncompressed and restored on the card: 16,384 queries give
+    byte-identical replies on the one-pass certified default (kernel D)
+    and on the exact tier. Returns the exact tier's reply and queries."""
+    from redis_hnsw_tpu_torch.utils.checkpoint import load_index, save_index
+
+    idx = client.index("flat-sift1m")
+    qs = np.random.default_rng(SEED + 12).standard_normal(
+        (n_q, 128), dtype=np.float32)
+    path = os.path.join(tmp, "flat-sift1m.npz")
+    t0 = time.perf_counter()
+    save_index(idx, path, compress=False)
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    t0 = time.perf_counter()
+    back = load_index(path, device=client.device)
+    load_s = time.perf_counter() - t0
+    os.remove(path)
+    check(back.device == client.device
+          and back.node_count == idx.node_count,
+          "flat checkpoint: restored index")
+    d0 = read_counts()["select_bins"]
+    t0 = time.perf_counter()
+    want = idx.search_batch(qs, k, reply="columnar")
+    got = back.search_batch(qs, k, reply="columnar")
+    first_s = time.perf_counter() - t0
+    check(read_counts()["select_bins"] > d0,
+          "flat checkpoint: kernel D never launched")
+    same_reply(want, got, "flat checkpoint one-pass")
+    os.environ["REDIS_HNSW_TPU_SCAN_CERT"] = "0"
+    try:
+        exact = idx.search_batch(qs, k, reply="columnar")
+        same_reply(exact, back.search_batch(qs, k, reply="columnar"),
+                   "flat checkpoint exact tier")
+    finally:
+        del os.environ["REDIS_HNSW_TPU_SCAN_CERT"]
+    same_reply(want, exact, "flat checkpoint one-pass vs exact")
+    del back
+    log(f"phase 4c: flat-sift1m checkpoint: save_index(compress=False) "
+        f"{save_s:.3f} s, {size} bytes; load_index on the card "
+        f"{load_s:.3f} s (the table uploads on the first search: both "
+        f"indexes' first {n_q}-query batches {first_s:.3f} s); {n_q} "
+        f"queries byte-identical on the one-pass certified tier (kernel D) "
+        f"and on the exact tier")
+    return {"save_s": save_s, "load_s": load_s, "bytes": size}, qs, exact
+
+
+def ulp_gap(a, b) -> int:
+    ai = a.view(np.int32).astype(np.int64)
+    bi = b.view(np.int32).astype(np.int64)
+    fin = np.isfinite(a) & np.isfinite(b)
+    check(np.array_equal(np.isfinite(a), np.isfinite(b)),
+          "ulp gap: empty slots differ")
+    return int(np.abs(ai - bi)[fin].max(initial=0))
+
+
+def phase_approx_ids(client, dev, flat_qs, flat_exact, k=10, n_q=2048):
+    """4d: scan-approx and recall_target=0.99 equal the exact tier on
+    flat-sift1m and hnsw-main; REDIS_HNSW_TPU_REPLY=ids-force gives the
+    same ids with sims within 2 ulp (the host sums in the card's order:
+    0 expected); ids mode's qps beside the full reply's; the "ids"
+    guard's verdict and slopes on this host."""
+    from redis_hnsw_tpu_torch.ops import scan as S
+
+    out = {}
+    flat = client.index("flat-sift1m")
+    for kw in (dict(approx=True), dict(recall_target=0.99)):
+        same_reply(flat_exact, flat.search_batch(flat_qs, k, reply="columnar",
+                                                 **kw), f"flat-sift1m {kw}")
+    idx = client.index("hnsw-main")
+    qs = np.random.default_rng(SEED + 13).standard_normal(
+        (n_q, 128), dtype=np.float32)
+    exact = idx.search_batch(qs, k, engine="scan", reply="columnar")
+    for kw in (dict(engine="scan-approx"), dict(recall_target=0.99),
+               dict(recall_target=0.5)):
+        same_reply(exact, idx.search_batch(qs, k, reply="columnar", **kw),
+                   f"hnsw-main {kw}")
+    gkw = dict(engine="graph", ef_search=256, expand=16, iters=24,
+               reply="columnar")
+    graph = idx.search_batch(qs, k, **gkw)
+    os.environ["REDIS_HNSW_TPU_REPLY"] = "ids-force"
+    try:
+        for label, kw, want in (("scan", dict(engine="scan",
+                                              reply="columnar"), exact),
+                                ("graph", gkw, graph)):
+            got = idx.search_batch(qs, k, **kw)
+            check(np.array_equal(got[0], want[0]),
+                  f"ids-force {label}: ids differ")
+            gap = ulp_gap(got[1], want[1])
+            check(gap <= 2, f"ids-force {label}: sims {gap} ulp apart")
+            out[f"{label}_ulp"] = gap
+        # a flat reply carries its sims under any setting, as in JAX
+        same_reply(flat_exact, flat.search_batch(flat_qs, k,
+                                                 reply="columnar"),
+                   "flat-sift1m ids-force")
+        ids_s, _ = timed(lambda: idx.search_batch(qs, k, engine="scan",
+                                                  reply="columnar"), 5)
+    finally:
+        del os.environ["REDIS_HNSW_TPU_REPLY"]
+    full_s, _ = timed(lambda: idx.search_batch(qs, k, engine="scan",
+                                               reply="columnar"), 5)
+    card = (torch.device("cuda", torch.cuda.current_device())
+            if dev.type == "cuda" else dev)
+    spb, spe = S._ids_guard_calibrate(card)
+    os.environ["REDIS_HNSW_TPU_REPLY"] = "ids"
+    try:
+        verdict = S.reply_ids_engaged(128, card)
+    finally:
+        del os.environ["REDIS_HNSW_TPU_REPLY"]
+    out.update(ids_qps=n_q / ids_s, full_qps=n_q / full_s, verdict=verdict,
+               d2h_s_per_byte=spb, host_s_per_elem=spe)
+    log(f"phase 4d: scan-approx and recall_target 0.99 / 0.5 equal the "
+        f"exact tier byte for byte on flat-sift1m ({len(flat_qs)} queries) "
+        f"and hnsw-main ({n_q}); REDIS_HNSW_TPU_REPLY=ids-force: same ids, "
+        f"sims "
+        f"{out['scan_ulp']} ulp (scan) and {out['graph_ulp']} ulp (graph) "
+        f"from the full reply's; hnsw-main scan {out['ids_qps']:.0f} qps "
+        f"ids-force vs {out['full_qps']:.0f} qps full; the ids guard at "
+        f"dim 128 on this host: {'engaged' if verdict else 'off'} (marginal "
+        f"D2H {spb:.4g} s/byte, host rescore {spe:.4g} s/element)")
+    return out
+
+
+def phase_tools(client, dev, tmp, n_q=1024):
+    """4e: tune() on hnsw-main (its truth from kernel A) and a
+    device_trace of one search_batch that must name kernel A."""
+    import redis_hnsw_tpu_torch as h
+    from redis_hnsw_tpu_torch.utils.profiling import device_trace
+
+    idx = client.index("hnsw-main")
+    qs = np.random.default_rng(SEED + 14).standard_normal(
+        (n_q, 128), dtype=np.float32)
+    t0 = time.perf_counter()
+    knobs = h.tune(idx, qs, k=10, target_recall=0.95, expand=16)
+    tune_s = time.perf_counter() - t0
+    check(knobs["recall"] > 0, f"tune: {knobs}")
+    with device_trace(os.path.join(tmp, "trace"), device=dev) as prof:
+        client.search_batch("hnsw-main", qs, k=10, engine="scan",
+                            reply="columnar")
+    with open(prof.trace_path) as f:
+        text = f.read()
+    check("scan_tile_kernel" in text,
+          "device_trace: the trace does not name scan_tile_kernel")
+    log(f"phase 4e: tune(hnsw-main, {n_q} queries, target 0.95, expand 16) "
+        f"in {tune_s:.3f} s chose {json.dumps(knobs)}; device_trace wrote "
+        f"{len(text)} bytes naming scan_tile_kernel")
+    return knobs
+
+
+def phase_wire_durability(client, dev, stage=65_536, overlap_rows=16_384):
+    """4: the wire and durability, in a temporary directory: the stream
+    (4a), the RESP server (4b), the 1M flat checkpoint (4c), the approx
+    tier and ids replies (4d), tune and device_trace (4e). Returns the
+    kernels' launches."""
+    import tempfile
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        stream, queries = phase_stream(client, tmp, stage=stage,
+                                       overlap_rows=overlap_rows)
+        phase_wire(client, tmp, stream.name, queries)
+        _, flat_qs, flat_exact = phase_flat_checkpoint(client, tmp)
+        phase_approx_ids(client, dev, flat_qs, flat_exact)
+        phase_tools(client, dev, tmp)
+    counts = read_counts()
+    client.delete_index(stream.name)
+    log(f"phase 4: {time.perf_counter() - t0:.1f} s; launches {counts}")
+    return counts
+
+
 def ptxas_figures(text: str, name: str) -> dict:
     """{entry function: its ptxas -v lines} for the entry functions whose
     mangled name holds ``name``."""
@@ -2237,7 +2815,10 @@ def main() -> int:
     path_counts += [build_counts,
                     phase_flat(client, dev, kernels["count_gt_eq"]["ms"],
                                kernels["select_bins"]["ms"]),
-                    phase_flat_hamming(client, dev)]
+                    phase_flat_hamming(client, dev),
+                    phase_wire_durability(client, dev)]
+    client.delete_index("flat-sift1m")
+    client.delete_index("hnsw-main")
     for counts in path_counts:
         for name, c in counts.items():
             launches[name] += c

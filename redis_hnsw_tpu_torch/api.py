@@ -21,13 +21,23 @@ construction on HNSW indexes, ops/construct.py; one table append on flat
 ones), delete_batch, search_batch.
 
 A client serves from one device: the card by default (``HNSW()``), the
-CPU only when asked (``HNSW(device="cpu")``). Not ported yet, and raising
-``NotImplementedError``: ``kind="sharded"`` (ROADMAP queue 1 item 12) and
-``save_index`` / ``restore_index`` (item 8).
+CPU only when asked (``HNSW(device="cpu")``). ``save_index`` /
+``restore_index`` write and read the JAX package's checkpoint files
+(utils/checkpoint.py), so an index crosses between the packages through
+them. Not ported yet, and raising ``NotImplementedError``:
+``kind="sharded"`` and sharded checkpoint directories (ROADMAP queue 1
+item 12).
+
+``default_client`` is the module-level client of the JAX package (the
+reference's process-global INDICES registry, src/lib.rs:32-35). It is
+made on first access, on the card: an import never touches a device, and
+without a card the access raises HNSWError rather than serve from the
+CPU.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 
 from .config import IndexConfig, resolve_device
@@ -162,18 +172,39 @@ class HNSW:
                 return idx.search_knn(query, k)
             return idx.search_knn(query, k, ef_search=ef_search)
 
-    # -- persistence ------------------------------------------------------------
+    # -- persistence (checkpoint/restore; reference: RDB callbacks) -------
 
     def save_index(self, index: str, path: str) -> None:
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP queue 1 item 8)"
-        )
+        """Checkpoint an index to one npz file (reference: RDB save
+        callbacks, src/types.rs:157-284), in the JAX package's format
+        v1 (utils/checkpoint.py)."""
+        from .utils.checkpoint import save_index as _save
+
+        idx, lk = self._entry(index)
+        with lk:
+            _save(idx, path)
 
     def restore_index(self, path: str, name: str | None = None):
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP queue 1 item 8); "
-            "convert.index_from_state carries an index's arrays across"
-        )
+        """Restore an index from a checkpoint of either package onto
+        this client's device and register it (reference: RDB load +
+        make_index rehydration, src/lib.rs:229-315), under ``name`` if
+        given. A directory is a sharded checkpoint, which raises."""
+        from .utils.checkpoint import load_index as _load
+
+        if os.path.isdir(path):
+            raise NotImplementedError(
+                "sharded checkpoints (a directory with manifest.json) are "
+                "not ported yet (ROADMAP queue 1 item 12)"
+            )
+        idx = _load(path, device=self.device)
+        if name is not None:
+            idx.name = name
+        with self._lock:
+            if idx.name in self._indices:
+                raise IndexExists(idx.name)
+            self._indices[idx.name] = idx
+            self._index_locks[idx.name] = threading.RLock()
+        return idx
 
     # -- batched extensions -------------------------------------------------------
 
@@ -209,29 +240,46 @@ class HNSW:
         reply: str = "objects",
         seeds: int = 0,
         recall_target: float | None = None,
+        host_qs=None,
     ) -> list[list[SearchResult]]:
         """Batched device search (ops/search.py). ``engine`` routes
         between the exact scan and the graph traversal ("auto" serves
         the scan up to SCAN_MAX_ROWS padded rows and the graph beam
         above it; ``ef_search``, ``expand``, ``iters`` and ``seeds`` tune
-        the beam). ``recall_target`` turns "auto" into a guarantee. Flat
-        indexes reply with objects, as in the JAX package."""
+        the beam; "scan-approx" is the approx tier). ``recall_target``
+        turns "auto" into a guarantee. ``host_qs`` mirrors device-resident
+        queries on the host for REDIS_HNSW_TPU_REPLY=ids. Flat indexes
+        reply with objects, as in the JAX package."""
         idx, lk = self._entry(index)
         with lk:
             if isinstance(idx, FlatIndex):
                 # Flat indexes have no graph: "auto"/"scan" are the
-                # exact scan; "graph" is a user error, not a silent
-                # fallback.
+                # exact scan, "scan-approx" the approx tier; "graph" is
+                # a user error, not a silent fallback.
                 if engine not in ("auto", "scan", "scan-approx"):
                     raise ValueError(
                         f"engine {engine!r} unavailable on flat indexes"
                     )
                 return idx.search_batch(
                     queries, k, approx=engine == "scan-approx",
-                    recall_target=recall_target,
+                    recall_target=recall_target, host_qs=host_qs,
                 )
             return idx.search_batch(
                 queries, k, ef_search=ef_search, expand=expand,
                 iters=iters, engine=engine, reply=reply, seeds=seeds,
-                recall_target=recall_target,
+                recall_target=recall_target, host_qs=host_qs,
             )
+
+
+_DEFAULT_LOCK = threading.Lock()
+_DEFAULT: list[HNSW] = []
+
+
+def __getattr__(name: str):
+    """``default_client``: one HNSW() on the card, made on first access."""
+    if name != "default_client":
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    with _DEFAULT_LOCK:
+        if not _DEFAULT:
+            _DEFAULT.append(HNSW())
+        return _DEFAULT[0]

@@ -1,16 +1,19 @@
-"""Carry an index of the JAX package across into this package.
+"""Carry an index's state across packages: the checkpoint layout.
 
-``index_from_state`` takes an index's state as numpy arrays under the keys
-of the JAX package's checkpoint format v1 (``redis_hnsw_tpu/utils/
-checkpoint.py`` save_index / save_flat_index): ``meta`` (the parsed JSON
-dict), ``names``, ``vectors`` and, for ``kind="hnsw"``, ``levels``,
-``adj_counts`` and ``adj_flat``; for ``kind="flat"``, ``valid``. It builds
-the index the way the JAX package's ``load_index`` does, so the host
-tables (vectors, levels, adjacency, name table) are byte-equal to the
-source index's and every later snapshot and reply matches. This is how
-this engine takes over the data of a deployed JAX index (the arrays of
-its checkpoint file, with ``meta`` decoded from JSON); reading and
-writing checkpoint files is ROADMAP queue 1 item 8.
+An index's state is a dict of numpy arrays under the keys of the JAX
+package's checkpoint format v1 (``redis_hnsw_tpu/utils/checkpoint.py``
+save_index / save_flat_index): ``meta`` (the parsed JSON dict),
+``names`` (dtype ``"U"``, ``""`` on free rows), ``vectors`` and, for
+``kind="hnsw"``, ``levels``, ``adj_counts`` and ``adj_flat``; for
+``kind="flat"``, ``valid``.
+
+``state_from_index`` reads that state off an index of this package;
+``index_from_state`` builds an index from it the way the JAX package's
+``load_index`` does, so the host tables (vectors, levels, adjacency,
+name table) are byte-equal to the source index's and every later
+snapshot and reply matches. ``utils/checkpoint.py`` writes and reads the
+state as the JAX package's npz files, so a checkpoint of either package
+restores in the other.
 """
 
 from __future__ import annotations
@@ -21,6 +24,88 @@ from .config import IndexConfig
 from .errors import HNSWError
 
 FORMAT_VERSION = 1
+
+
+def _config_meta(index) -> dict:
+    """The seven IndexConfig keys a checkpoint records (``backend`` is a
+    property of the process, not of the index, and is not written)."""
+    cfg = index.config
+    return {
+        "dim": cfg.dim,
+        "m": cfg.m,
+        "ef_construction": cfg.ef_construction,
+        "metric": cfg.metric,
+        "capacity": cfg.capacity,
+        "fixed_capacity": cfg.fixed_capacity,
+        "seed": cfg.seed,
+    }
+
+
+def _names_array(index, h: int) -> np.ndarray:
+    """Row -> name over the first ``h`` rows, ``""`` on free rows."""
+    return np.array(
+        [
+            index._names._name_of[r]
+            if index._names._name_of[r] is not None else ""
+            for r in range(h)
+        ],
+        dtype="U",
+    )
+
+
+def state_from_index(index) -> dict:
+    """The state of an HNSWIndex or FlatIndex (the inverse of
+    :func:`index_from_state`): host tables only, no device tensor is
+    read. The arrays are views of the index's tables where they can
+    be, so write them out before the index mutates again."""
+    from .models.flat import FlatIndex
+
+    h = index._names.high_water
+    if isinstance(index, FlatIndex):
+        return {
+            "meta": {
+                "format_version": FORMAT_VERSION,
+                "kind": "flat",
+                "name": index.name,
+                "config": _config_meta(index),
+                "node_count": index.node_count,
+            },
+            "names": _names_array(index, h),
+            "vectors": index._vectors[:h],
+            "valid": index._valid[:h],
+        }
+    n_layers = index.max_layer + 1
+    if index._native is not None:
+        counts, flat = index._native.export_all(h, n_layers)
+    else:
+        counts = np.zeros((h, n_layers), np.int32)
+        flat_l: list[int] = []
+        for row in range(h):
+            lists = index._neighbors[row]
+            if lists is None:
+                continue
+            for lc, layer in enumerate(lists):
+                counts[row, lc] = len(layer)
+                flat_l.extend(layer)
+        flat = np.asarray(flat_l, np.int32)
+    return {
+        "meta": {
+            "format_version": FORMAT_VERSION,
+            "kind": "hnsw",
+            "name": index.name,
+            "config": _config_meta(index),
+            "node_count": index.node_count,
+            "max_layer": index.max_layer,
+            "enterpoint": int(index.enterpoint),
+            # a restored index keeps hint-exact snapshot shapes
+            "capacity_hint": int(index._capacity_hint),
+        },
+        "names": _names_array(index, h),
+        "vectors": index._vectors[:h],
+        "levels": index._levels[:h],
+        "adj_counts": counts,
+        "adj_flat": np.asarray(flat, np.int32),
+    }
 
 
 def index_from_state(state: dict, device=None):

@@ -5,7 +5,8 @@ Not present in the reference (which only has the HNSW graph): it is the
 exact-kNN oracle and an index kind of its own -- at up to millions of rows
 a full scan on the card is exact and holds no graph. It serves through the
 same scan engine as the HNSW index (ops/scan.py serve_block): the exact
-tier, or for euclidean the certified-exact tier at >= 2^19 rows. Shares
+tier, or for euclidean the certified-exact tier at >= 2^19 rows, and the
+scan-approx tier when asked. Shares
 the name table and similarity conventions of the HNSW index.
 """
 
@@ -198,23 +199,26 @@ class FlatIndex:
     def search_batch(
         self, queries, k: int, use_pallas: bool = False,
         approx: bool = False, recall_target: float | None = None,
-        reply: str = "objects",
+        host_qs=None, reply: str = "objects",
     ) -> list[list[SearchResult]]:
         """Batched exact k-NN. ``use_pallas=True`` runs the exact tier
         (kernel A, or A′ for hamming) over the whole query block at once,
         the port of the JAX package's fused Pallas scan path;
         the default serves through the scan engine in 2048-query chunks,
-        on the certified tier at >= 2^19 euclidean rows. ``approx`` and a
-        ``recall_target`` at or below the approx tier's floor ask for
-        the scan-approx tier, which is not ported yet and raises.
-        ``reply="columnar"`` returns the (names, sims) array pair."""
+        on the certified tier at >= 2^19 euclidean rows. ``approx``, and
+        a ``recall_target`` at or below the approx tier's floor, ask for
+        the scan-approx tier (ops/scan.py serve_block). ``host_qs`` is
+        taken for the JAX package's signature; its only reader there is
+        the int8-resident tier (ROADMAP queue 1 item 9), and a flat reply
+        carries its sims whatever REDIS_HNSW_TPU_REPLY says, as in the
+        JAX package. ``reply="columnar"`` returns the (names, sims) array
+        pair."""
         from ..ops import scan as SC
         from ..ops.search import (
             MAX_LANES,
             assemble,
             coerce_queries,
             empty_reply,
-            not_ported_approx,
             resolve_engine,
         )
 
@@ -224,9 +228,6 @@ class FlatIndex:
             approx = approx or (
                 resolve_engine("auto", recall_target) == "scan-approx"
             )
-        if approx:
-            raise not_ported_approx()
-        SC.check_reply_mode()
         qs = coerce_queries(
             queries, self._vectors.dtype, self._vectors.shape[1],
             self.config.metric,
@@ -263,6 +264,7 @@ class FlatIndex:
                     vecs, sqn, valid,
                     SC.pad_queries(part, SC.pad_pow2(n_part), vecs.device),
                     k=k_eff, n_q=n_part, metric=metric, rerun_sink=sink,
+                    approx=approx,
                 ))
             sink.flush()  # patches the parts' rows in place
             ids = np.concatenate([p[0] for p in parts])

@@ -140,6 +140,9 @@ class HNSWIndex:
         self._upper_free: list[int] = []
         self._freed_slots_pending: list[int] = []
         self._upper_next = 0
+        # Periodic write-through durability (see enable_autosave).
+        self._autosave: tuple[str, int, bool] | None = None
+        self._autosave_pending = 0
 
     # -- storage helpers ----------------------------------------------------
 
@@ -746,19 +749,40 @@ class HNSWIndex:
 
     def enable_autosave(self, path: str, every_ops: int = 8192,
                         compress: bool = False) -> None:
-        """Bounded-loss write-through persistence: not ported yet."""
-        raise NotImplementedError(
-            "autosave needs checkpoints, which are not ported yet "
-            "(ROADMAP queue 1 item 8)"
-        )
+        """Bounded-loss write-through persistence.
+
+        The reference persists every dirtied node on every mutation
+        (src/lib.rs:446-460, update_fn at src/hnsw/core.rs:580-584), so a
+        crash loses nothing. Here one atomic full checkpoint
+        (utils/checkpoint.py, tmp + rename) lands after every
+        ``every_ops`` mutations -- a bulk wave counts its W inserts --
+        so the loss bound is a knob; ``every_ops=1`` recovers the
+        reference's durability for sequential workloads.
+        """
+        self._autosave = (str(path), max(1, int(every_ops)), bool(compress))
+        self._autosave_pending = 0
+
+    def disable_autosave(self) -> None:
+        self._autosave = None
+
+    def _maybe_autosave(self, ops: int) -> None:
+        if self._autosave is None:
+            return
+        self._autosave_pending += ops
+        path, every, compress = self._autosave
+        if self._autosave_pending >= every:
+            from ..utils.checkpoint import save_index
+
+            save_index(self, path, compress=compress)
+            self._autosave_pending = 0
 
     # -- device snapshot plumbing -------------------------------------------
 
     def _bump(self, ops: int = 1) -> None:
         """A new mutation epoch; ``ops`` counts the mutations it holds (a
-        bulk wave is one epoch of W inserts), which autosave will read
-        once checkpoints are ported (ROADMAP queue 1 item 8)."""
+        bulk wave is one epoch of W inserts) toward autosave's cadence."""
         self._epoch += 1
+        self._maybe_autosave(ops)
 
     def drain_dirty(self) -> np.ndarray:
         """Rows whose adjacency changed since the last snapshot (clears)."""
@@ -809,23 +833,28 @@ class HNSWIndex:
         self, queries, k: int, ef_search: int | None = None,
         expand: int = 1, iters: int | None = None, engine: str = "auto",
         reply: str = "objects", seeds: int = 0,
-        recall_target: float | None = None, staleness: int = 0,
+        recall_target: float | None = None, host_qs=None,
+        staleness: int = 0,
     ) -> list[list[SearchResult]]:
         """Batched device search. See ops/search.py.
 
         ``engine`` routes between the exact scan and the graph
         traversal: "auto" serves the scan up to ops/search.py
-        SCAN_MAX_ROWS padded rows and the graph beam above it.
-        ``ef_search`` (default ef_construction), ``expand``, ``iters``
-        and ``seeds`` tune the graph traversal; the scan ignores them.
-        ``recall_target`` makes the "auto" route a guarantee
-        (ops/search.py resolve_engine). ``staleness`` > 0 serves from
-        the bounded-stale device view (see ``device_snapshot``).
+        SCAN_MAX_ROWS padded rows and the graph beam above it;
+        "scan-approx" is the approx tier. ``ef_search`` (default
+        ef_construction), ``expand``, ``iters`` and ``seeds`` tune the
+        graph traversal; the scan ignores them. ``recall_target`` makes
+        the "auto" route a guarantee (ops/search.py resolve_engine).
+        ``host_qs`` mirrors device-resident ``queries`` on the host, so
+        REDIS_HNSW_TPU_REPLY=ids can rescore sims there (ops/scan.py
+        reply_ids_engaged); ignored otherwise. ``staleness`` > 0 serves
+        from the bounded-stale device view (see ``device_snapshot``).
         """
         from ..ops.search import search_batch as _search_batch
 
         return _search_batch(
             self, queries, k, ef_search=ef_search, expand=expand,
             iters=iters, engine=engine, reply=reply, seeds=seeds,
-            recall_target=recall_target, staleness=staleness,
+            recall_target=recall_target, host_qs=host_qs,
+            staleness=staleness,
         )

@@ -52,6 +52,11 @@ exactness; on the H100 a second pass only halves the throughput,
 PERF.md.) Replies carry ``-distance`` with a zero
 distance as -0.0, as the JAX package's word-packed reply decodes it.
 
+The **scan-approx** tier (``approx=True``) is served on the exact tier
+(:func:`serve_block`), and REDIS_HNSW_TPU_REPLY=ids copies only a
+euclidean reply's ids off the card and rescores its sims on the host
+(:func:`reply_ids_engaged`).
+
 The JAX package's TPU-link machinery (fetch windows, pipelined drains,
 packed int32 replies) reduces to a plain chunk loop here: the replies
 are the same.
@@ -103,18 +108,6 @@ def scan_dtype(metric: str = "euclidean") -> str:
             "ported yet (ROADMAP queue 1 item 9)"
         )
     return v
-
-
-def check_reply_mode() -> None:
-    """REDIS_HNSW_TPU_REPLY: only the full reply is ported."""
-    v = os.environ.get("REDIS_HNSW_TPU_REPLY", "full")
-    if v not in ("full", "ids", "ids-force"):
-        raise ValueError(f"REDIS_HNSW_TPU_REPLY={v!r}")
-    if v != "full":
-        raise NotImplementedError(
-            f"REDIS_HNSW_TPU_REPLY={v} (ids-only replies) is not ported "
-            "yet (ROADMAP queue 1 item 11)"
-        )
 
 
 def onepass_enabled() -> bool:
@@ -414,6 +407,149 @@ class CertRerunSink:
         self._tables = None
 
 
+# -- ids-only replies (host exact rescore) ------------------------------------
+#
+# REDIS_HNSW_TPU_REPLY=ids copies ONLY the [B, k] id block off the card
+# and recomputes the k sims on the host in exact direct form, from the
+# f32 rows the host already holds (index._vectors), when the caller has
+# the queries on the host for free (numpy input, or a ``host_qs``
+# mirror). The host sums in the card's order, so the reply equals the
+# full reply bit for bit; it is re-sorted by (-sim, id) all the same.
+# Hamming replies are integer distances and never take this path.
+#
+# The mode pays only where the reply's bytes, not the host rescore,
+# dominate, so "ids" is guarded: it engages iff the sims bytes it saves
+# are estimated to cost more than the host rescore,
+#
+#   saved   = (n_q * k * 4 bytes of sims) * d2h_sec_per_byte
+#   rescore = (n_q * k * dim elements)    * host_sec_per_elem
+#
+# n_q * k cancels: engage iff 4 * d2h_sec_per_byte > dim *
+# host_sec_per_elem. Both slopes are calibrated once per process and
+# device: d2h_sec_per_byte is the MARGINAL copy cost (the slope between
+# a 64 KB and a 4 MB copy, so the fixed per-copy latency cancels). A CPU
+# index copies nothing, so its slope is ~0 and the guard turns ``ids``
+# off there. REDIS_HNSW_TPU_REPLY=ids-force skips the guard (tests pin
+# the path with it).
+
+_IDS_GUARD: dict = {}  # ("cal", device): slopes; (device, dim): verdict
+
+
+def reply_ids_only() -> bool:
+    """Does REDIS_HNSW_TPU_REPLY ask for ids-only replies ("ids" or
+    "ids-force"; "full" is the default)? Raises on any other value."""
+    v = os.environ.get("REDIS_HNSW_TPU_REPLY", "full")
+    if v not in ("full", "ids", "ids-force"):
+        raise ValueError(f"REDIS_HNSW_TPU_REPLY={v!r}")
+    return v != "full"
+
+
+def _ids_guard_calibrate(device) -> tuple[float, float]:
+    """(d2h_sec_per_byte, host_sec_per_elem) on ``device``, measured once
+    per process: the best of three copies to the host of a fresh 64 KB
+    and a fresh 4 MB int32 tensor (the card synchronized before each
+    clock starts), and one host rescore of a [1024, 10, 128] block."""
+    import time
+
+    key = ("cal", str(device))
+    if key in _IDS_GUARD:
+        return _IDS_GUARD[key]
+    device = torch.device(device)
+    base_s = torch.zeros((2048, 8), dtype=torch.int32, device=device)
+    base_b = torch.zeros((2048, 512), dtype=torch.int32, device=device)
+
+    def best_d2h(base) -> float:
+        best = float("inf")
+        for i in range(1, 4):
+            a = base + i  # a fresh tensor each rep
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            a.cpu()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    (base_s + 0).cpu()  # warm the copy path
+    (base_b + 0).cpu()
+    nbytes = (base_b.numel() - base_s.numel()) * 4
+    spb = max((best_d2h(base_b) - best_d2h(base_s)) / nbytes, 0.0)
+    v = np.random.default_rng(0).standard_normal(
+        (1024, 10, 128)
+    ).astype(np.float32)
+    q = np.zeros((1024, 128), np.float32)
+    t0 = time.perf_counter()
+    neg_sq_rows(v, q)
+    spe = (time.perf_counter() - t0) / v.size
+    _IDS_GUARD[key] = (spb, spe)
+    return spb, spe
+
+
+def reply_ids_engaged(dim: int, device) -> bool:
+    """Should a reply over ``device`` use the ids-only copy and the host
+    rescore? False unless REDIS_HNSW_TPU_REPLY opts in; "ids" is
+    guarded by the calibrated estimate above, "ids-force" is
+    unconditional."""
+    v = os.environ.get("REDIS_HNSW_TPU_REPLY", "full")
+    if v not in ("full", "ids", "ids-force"):
+        raise ValueError(f"REDIS_HNSW_TPU_REPLY={v!r}")
+    if v == "full":
+        return False
+    if v == "ids-force":
+        return True
+    key = (str(device), int(dim))
+    verdict = _IDS_GUARD.get(key)
+    if verdict is None:
+        spb, spe = _ids_guard_calibrate(device)
+        verdict = 4.0 * spb > dim * spe
+        _IDS_GUARD[key] = verdict
+        if not verdict:
+            import logging
+
+            logging.getLogger("redis_hnsw_tpu_torch").warning(
+                "REDIS_HNSW_TPU_REPLY=ids auto-disabled at dim=%d on %s: "
+                "est. host rescore %.1f ns/result-row > est. bytes saved "
+                "%.1f ns/result-row (marginal D2H %.3g s/byte, host "
+                "rescore %.3g s/elem). Use REDIS_HNSW_TPU_REPLY=ids-force "
+                "to override.",
+                dim, device, dim * spe * 1e9, 4.0 * spb * 1e9, spb, spe,
+            )
+    return verdict
+
+
+def neg_sq_rows(v, q):
+    """-||q - v||^2 of host rows ``v`` [B, k, D] against ``q`` [B, D]
+    f32, on the host CPU, summed in ops/distance.py ``_sum_last``'s fixed
+    order: elementwise adds only, so the host gives the same bits as the
+    card's direct-form rescore (``exact_neg_sq_l2``) and an ids-only
+    reply equals the full reply. (The JAX package sums with a library
+    reduction here; the two differ in the last ulps, as every
+    direct-form sim of the two packages may, ROADMAP.md section 3.)"""
+    d = torch.from_numpy(np.ascontiguousarray(v))
+    d = d - torch.from_numpy(np.ascontiguousarray(q))[:, None, :]
+    return (-D._sum_last(d * d)).numpy()
+
+
+def host_exact_sims(vecs_host, qs_host, ids):
+    """Exact direct-form sims of ``ids`` [B, k] rows vs ``qs_host``
+    [B, D], computed on the host from the f32 row table. Invalid ids
+    (< 0) get -inf."""
+    q = np.atleast_2d(np.asarray(qs_host, np.float32))
+    v = vecs_host[np.clip(ids, 0, len(vecs_host) - 1)]
+    sims = neg_sq_rows(v, q)
+    return np.where(ids >= 0, sims, NEG_INF).astype(np.float32)
+
+
+def sort_reply(ids, sims):
+    """Re-impose the (-sim, id) reply order on the host: the host
+    rescore's sums can differ from the card's by ~1 ulp, enough to leave
+    a near-tied reply out of order. -inf (invalid) slots stay last."""
+    order = np.lexsort((ids, -sims), axis=-1)
+    return (
+        np.take_along_axis(ids, order, -1),
+        np.take_along_axis(sims, order, -1),
+    )
+
+
 # -- host-side engine wrapper -------------------------------------------------
 
 def _scan_state(index, max_staleness: int = 0):
@@ -459,35 +595,68 @@ def pad_queries(qs, n_pad: int, device):
 
 
 def serve_block(vecs, sqn, live, qd, *, k: int, n_q: int, metric: str,
-                rerun_sink=None):
+                rerun_sink=None, approx: bool = False, ids_only=False):
     """Serve the (padded) query block ``qd`` on the tier its table takes:
     a hamming table the exact tier (kernel A′); a euclidean table the
-    certified tier where ``cert_enabled`` admits it, else the exact tier.
-    Returns the ``(ids, sims)`` numpy reply of the first ``n_q`` queries;
-    ``rerun_sink`` defers the certified tier's fallback reruns."""
+    certified tier where ``cert_enabled`` admits it and ``approx`` is
+    off, else the exact tier. Returns the ``(ids, sims)`` numpy reply of
+    the first ``n_q`` queries; ``rerun_sink`` defers the certified
+    tier's fallback reruns.
+
+    ``approx`` is the scan-approx tier. The JAX package selects it with
+    ``jax.lax.approx_max_k`` at k_sel = 4k, which is exact off the TPU;
+    here it is kernel A's exact select at k, so its replies are the
+    exact tier's (recall 1.0, above APPROX_TIER_FLOOR) and equal the
+    JAX package's CPU replies. Selecting 4k would only cost time.
+
+    ``ids_only`` copies only the ids off the card and returns ``(ids,
+    None)``; the caller rescores the sims on the host (the ids-reply
+    mode). On the certified tier the fallback runs at once and patches
+    the sims too, so that tier still copies them."""
     if metric == "hamming":
         ids, sims = scan_topk_exact_hamming(vecs, live, qd, k=k)
-    elif cert_enabled(int(vecs.shape[0]), int(vecs.shape[1])):
+    elif not approx and cert_enabled(int(vecs.shape[0]), int(vecs.shape[1])):
         result = scan_certified_l2(vecs, sqn, live, qd, k=k)
-        return certified_finish(
-            vecs, sqn, live, qd, result, k=k, n_q=n_q, rerun_sink=rerun_sink
+        ids, sims = certified_finish(
+            vecs, sqn, live, qd, result, k=k, n_q=n_q,
+            rerun_sink=None if ids_only else rerun_sink,
         )
+        return (ids, None) if ids_only else (ids, sims)
     else:
         ids, sims = scan_topk_exact_l2(vecs, sqn, live, qd, k=k)
+    if ids_only:
+        return ids[:n_q].cpu().numpy(), None
     return ids[:n_q].cpu().numpy(), sims[:n_q].cpu().numpy()
 
 
-def scan_dispatch(index, qs, k: int, cert_sink=None, staleness: int = 0):
+def scan_dispatch(index, qs, k: int, approx: bool = False, host_qs=None,
+                  cert_sink=None, staleness: int = 0):
     """Serve one query batch through the scan; returns the (ids, sims)
-    numpy reply. ``cert_sink`` (a :class:`CertRerunSink` the caller
-    later flushes) coalesces the certified tier's fallback reruns
+    numpy reply. ``approx`` serves the scan-approx tier (see
+    :func:`serve_block`). ``cert_sink`` (a :class:`CertRerunSink` the
+    caller later flushes) coalesces the certified tier's fallback reruns
     across a chunk loop. ``staleness`` > 0 serves from the bounded-stale
-    snapshot view (models/hnsw.py device_snapshot)."""
-    check_reply_mode()
+    snapshot view (models/hnsw.py device_snapshot).
+
+    With REDIS_HNSW_TPU_REPLY=ids and the queries on the host (numpy
+    ``qs``, or a ``host_qs`` mirror of a device ``qs``), a euclidean
+    reply copies only its ids off the card and its sims are recomputed
+    on the host (see :func:`reply_ids_engaged`)."""
     vecs, sqn, live = _scan_state(index, max_staleness=staleness)
+    metric = index.config.metric
+    if host_qs is None and not isinstance(qs, torch.Tensor):
+        host_qs = qs
+    ids_mode = (
+        metric == "euclidean" and host_qs is not None
+        and reply_ids_engaged(int(qs.shape[1]), vecs.device)
+    )
     n_q = qs.shape[0]
     qd = pad_queries(qs, pad_pow2(n_q), vecs.device)
-    return serve_block(
+    ids, sims = serve_block(
         vecs, sqn, live, qd, k=min(int(k), int(vecs.shape[0])), n_q=n_q,
-        metric=index.config.metric, rerun_sink=cert_sink,
+        metric=metric, rerun_sink=cert_sink, approx=approx,
+        ids_only=ids_mode,
     )
+    if ids_mode:
+        return sort_reply(ids, host_exact_sims(index._vectors, host_qs, ids))
+    return ids, sims

@@ -34,8 +34,11 @@ torch ops on both devices (ops/distance.py ``block_hamming``,
 integer sims, exact everywhere, whose final k are reported as they are.
 Seeded search picks its pivots with kernel A′.
 
-Not ported yet, and raising: the scan-approx tier (ROADMAP queue 1 item
-10), the ids-only reply (item 11).
+``engine="scan-approx"`` is the approx tier, served on kernel A's exact
+select (ops/scan.py serve_block). REDIS_HNSW_TPU_REPLY=ids makes a
+euclidean reply copy only its ids off the card and rescore the sims on
+the host, on both engines, as the JAX package does (ops/scan.py
+reply_ids_engaged).
 """
 
 from __future__ import annotations
@@ -68,7 +71,10 @@ def max_lanes_for(n_pad: int) -> int:
 SCAN_MAX_ROWS = {"euclidean": 1 << 21, "hamming": 1 << 21}
 
 # Recall floor of the JAX package's scan-approx tier, which the
-# recall_target routing rule reads (resolve_engine).
+# recall_target routing rule reads (resolve_engine). It is a TPU
+# measurement (0.9992 at 1M rows, 0.9996 at 1.9M, in the JAX package's
+# artifacts/scan_tiers.json); the port serves the tier on kernel A's
+# exact select, at recall 1.0.
 APPROX_TIER_FLOOR = 0.999
 
 
@@ -81,7 +87,8 @@ def resolve_engine(engine: str, recall_target: float | None) -> str:
     ``engine="auto"`` a target above the tier floor pins the EXACT scan
     and a target at or below it picks the tier. An explicit engine
     choice is always honored; asking the graph engine for a
-    recall_target is an error.
+    recall_target is an error -- its recall depends on the data, so
+    tune (ef_search, expand, iters) with utils/autotune.py's tune().
     """
     if engine not in ("auto", "graph", "scan", "scan-approx"):
         raise ValueError(f"unknown search engine {engine!r}")
@@ -94,18 +101,12 @@ def resolve_engine(engine: str, recall_target: float | None) -> str:
         )
     if engine == "graph":
         raise ValueError(
-            "recall_target routes the scan engines; the graph engine "
-            "is tuned with ef_search, expand and iters"
+            "recall_target routes the scan engines; graph-engine "
+            "knobs are tuned with redis_hnsw_tpu_torch.tune()"
         )
     if engine == "auto":
         return "scan" if rt > APPROX_TIER_FLOOR else "scan-approx"
     return engine
-
-
-def not_ported_approx():
-    return NotImplementedError(
-        "the scan-approx tier is not ported yet (ROADMAP queue 1 item 10)"
-    )
 
 
 # ---------------------------------------------------------------------------
@@ -465,13 +466,15 @@ def _seed_ids_for(pool, qd, seeds: int):
 
 def _run_search(
     snap, qs, ef: int, k: int, expand: int, iters=None,
-    seeds: int = 0, pool=None,
+    seeds: int = 0, pool=None, ids_only: bool = False,
 ):
     """One beam call over the query block ``qs`` (numpy, or a tensor on
     the device), padded to a power of two >= 8 lanes; returns the
-    trimmed (ids, sims) numpy reply. The JAX package splits this into
-    an asynchronous dispatch and a fetch for its TPU link; torch queues
-    the work itself and the copy to the host is the fetch."""
+    trimmed (ids, sims) numpy reply, or ``(ids, None)`` with
+    ``ids_only`` (the ids-reply mode copies only the ids off the card).
+    The JAX package splits this into an asynchronous dispatch and a
+    fetch for its TPU link; torch queues the work itself and the copy
+    to the host is the fetch."""
     from .scan import pad_pow2, pad_queries
 
     n_q = qs.shape[0]
@@ -485,6 +488,8 @@ def _run_search(
         expand=expand, iters=iters, nbrvec=snap.nbrvec, nbrsqn=snap.nbrsqn,
         qrows=snap.qrows, seed_ids=seed_ids,
     )
+    if ids_only:
+        return ids[:n_q].cpu().numpy(), None
     return ids[:n_q].cpu().numpy(), sims[:n_q].cpu().numpy()
 
 
@@ -560,7 +565,8 @@ def search_batch(
     index, queries, k: int, ef_search: int | None = None,
     expand: int = 1, iters: int | None = None, engine: str = "auto",
     reply: str = "objects", seeds: int = 0,
-    recall_target: float | None = None, staleness: int = 0,
+    recall_target: float | None = None, host_qs=None,
+    staleness: int = 0,
 ):
     """Host entry: batched k-NN over an index. Returns per-query result
     lists of models.hnsw.SearchResult, nearest first -- or, with
@@ -570,20 +576,20 @@ def search_batch(
     ``engine``: ``"scan"`` -- the exact scan (ops/scan.py); ``"graph"``
     -- the batched HNSW beam (approximate; ``ef_search`` (default
     ef_construction), ``expand``, ``iters`` and ``seeds`` tune it, the
-    scan ignores them); ``"auto"`` (default) -- the scan up to
-    SCAN_MAX_ROWS padded rows, the graph beam above it.
-    ``"scan-approx"`` is not ported yet and raises.
-    ``recall_target`` turns the route into a guarantee (resolve_engine).
-    ``staleness`` > 0 serves from the bounded-stale snapshot view (at
-    most that many mutation epochs behind; models/hnsw.py
-    device_snapshot).
+    scan ignores them); ``"scan-approx"`` -- the approx tier (kernel
+    A's exact select here, ops/scan.py serve_block); ``"auto"``
+    (default) -- the scan up to SCAN_MAX_ROWS padded rows, the graph
+    beam above it. ``recall_target`` turns the route into a guarantee
+    (resolve_engine). ``host_qs`` mirrors device-resident ``queries``
+    on the host for REDIS_HNSW_TPU_REPLY=ids (numpy queries are their
+    own mirror). ``staleness`` > 0 serves from the bounded-stale
+    snapshot view (at most that many mutation epochs behind;
+    models/hnsw.py device_snapshot).
     """
     from .scan import CertRerunSink, pad_queries, scan_dispatch
 
     cfg = index.config
     engine = resolve_engine(engine, recall_target)
-    if engine == "scan-approx":
-        raise not_ported_approx()
     qs = coerce_queries(
         queries, index._vectors.dtype, index._vectors.shape[1], cfg.metric
     )
@@ -593,12 +599,13 @@ def search_batch(
     if index.enterpoint < 0 or index.node_count == 0:
         return empty_reply(n_q, k, reply)
     snap = index.device_snapshot(max_staleness=staleness)
-    use_scan = engine == "scan" or (
+    use_scan = engine in ("scan", "scan-approx") or (
         engine == "auto" and snap.n_pad <= SCAN_MAX_ROWS.get(cfg.metric, 0)
     )
+    hq = host_qs if isinstance(qs, torch.Tensor) else qs
     if not use_scan:
         ids, sims = _graph_batch(index, snap, qs, k, ef_search, expand,
-                                 iters, seeds)
+                                 iters, seeds, hq)
     elif n_q > MAX_LANES:
         sink = CertRerunSink()
         # one host->device copy for the whole block; the chunks below
@@ -606,8 +613,10 @@ def search_batch(
         qd = pad_queries(qs, n_q, index.device)
         parts = [
             scan_dispatch(
-                index, qd[lo : lo + MAX_LANES], k, cert_sink=sink,
-                staleness=staleness,
+                index, qd[lo : lo + MAX_LANES], k,
+                approx=engine == "scan-approx",
+                host_qs=None if hq is None else hq[lo : lo + MAX_LANES],
+                cert_sink=sink, staleness=staleness,
             )
             for lo in range(0, n_q, MAX_LANES)
         ]
@@ -615,30 +624,50 @@ def search_batch(
         ids = np.concatenate([p[0] for p in parts])
         sims = np.concatenate([p[1] for p in parts])
     else:
-        ids, sims = scan_dispatch(index, qs, k, staleness=staleness)
+        ids, sims = scan_dispatch(
+            index, qs, k, approx=engine == "scan-approx", host_qs=hq,
+            staleness=staleness,
+        )
     return assemble(index._names.names_array(), ids, sims, reply)
 
 
-def _graph_batch(index, snap, qs, k, ef_search, expand, iters, seeds):
+def _graph_batch(index, snap, qs, k, ef_search, expand, iters, seeds,
+                 hq=None):
     """The graph engine's (ids, sims) numpy reply for the whole block,
-    served MAX_LANES lanes per call."""
-    from .scan import check_reply_mode, pad_queries
+    served MAX_LANES lanes per call. With REDIS_HNSW_TPU_REPLY=ids and
+    the queries on the host (``hq``), a euclidean reply copies only its
+    ids off the card and its sims are rescored on the host."""
+    from .scan import (
+        host_exact_sims,
+        pad_queries,
+        reply_ids_engaged,
+        sort_reply,
+    )
 
-    check_reply_mode()
     ef = index.config.ef_construction if ef_search is None else int(ef_search)
     ef = max(ef, 1)
     pool = _pivot_pool(index, snap) if seeds > 0 else None
+    ids_only = (
+        index.config.metric == "euclidean" and hq is not None
+        and reply_ids_engaged(index.config.dim, snap.vecs.device)
+    )
     n_q = qs.shape[0]
     if n_q <= MAX_LANES:
-        return _run_search(snap, qs, ef, k, expand, iters, seeds=seeds,
-                           pool=pool)
-    # one host->device copy for the whole block; the chunks below are
-    # then device-side slices
-    qd = pad_queries(qs, n_q, index.device)
-    parts = [
-        _run_search(snap, qd[lo : lo + MAX_LANES], ef, k, expand, iters,
-                    seeds=seeds, pool=pool)
-        for lo in range(0, n_q, MAX_LANES)
-    ]
-    return (np.concatenate([p[0] for p in parts]),
-            np.concatenate([p[1] for p in parts]))
+        ids, sims = _run_search(snap, qs, ef, k, expand, iters, seeds=seeds,
+                                pool=pool, ids_only=ids_only)
+    else:
+        # one host->device copy for the whole block; the chunks below
+        # are then device-side slices
+        qd = pad_queries(qs, n_q, index.device)
+        parts = [
+            _run_search(snap, qd[lo : lo + MAX_LANES], ef, k, expand, iters,
+                        seeds=seeds, pool=pool, ids_only=ids_only)
+            for lo in range(0, n_q, MAX_LANES)
+        ]
+        ids = np.concatenate([p[0] for p in parts])
+        sims = None if ids_only else np.concatenate([p[1] for p in parts])
+    if ids_only:
+        # the host rescore's sums can differ from the card's by an ulp;
+        # the reply is re-sorted so it stays monotonic
+        return sort_reply(ids, host_exact_sims(index._vectors, hq, ids))
+    return ids, sims

@@ -1,18 +1,23 @@
-"""Wall-clock phase timing.
+"""Wall-clock phase timing and device traces.
 
-Port of ``PhaseTimer`` from ``redis_hnsw_tpu/utils/profiling.py``. Work on
-the card is queued, so each phase ends with ``torch.cuda.synchronize()``
-once CUDA is in use: a phase's time then covers the device work it
-queued, not only its enqueue. (The JAX module's ``device_trace`` is not
-ported yet, ROADMAP queue 1 item 11.)
+Port of ``redis_hnsw_tpu/utils/profiling.py``. Work on the card is
+queued, so each ``PhaseTimer`` phase ends with
+``torch.cuda.synchronize()`` once CUDA is in use: a phase's time then
+covers the device work it queued, not only its enqueue.
+``device_trace`` records an op- and kernel-level trace with
+``torch.profiler`` (the JAX module's ``jax.profiler.trace``), written as
+a Chrome trace that Perfetto or chrome://tracing open.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 
 import torch
+
+from ..config import resolve_device
 
 
 class PhaseTimer:
@@ -45,3 +50,28 @@ class PhaseTimer:
                 self.totals.items(), key=lambda kv: -kv[1]
             )
         }
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str, device=None):
+    """``torch.profiler`` trace around a block, written into ``log_dir``
+    as ``trace-<pid>-<ns>.json`` (a Chrome trace). ``device`` is the
+    device the traced work runs on (None = the card, which must be
+    there): on a CUDA device the trace records the card's kernels
+    (ProfilerActivity.CUDA) beside the host's ops, on the CPU the host's
+    ops alone. Yields the profiler; its ``trace_path`` names the file
+    once the block ends."""
+    dev = resolve_device(device)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(
+        log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"
+    )
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    prof.export_chrome_trace(path)
+    prof.trace_path = path

@@ -42,3 +42,40 @@ def test_bulk_build_graph_identical(monkeypatch, backend, l0, split, batch):
     assert_same_graph(a, b)
 
 
+
+
+MUTATED_BUILDS = [
+    # backend, REDIS_HNSW_TPU_BUILD_L0
+    ("native", "scan"),
+    ("native", "beam"),
+    ("py", "scan"),
+    ("py", "beam"),
+]
+
+
+@pytest.mark.parametrize("backend,l0", MUTATED_BUILDS)
+def test_bulk_build_after_mutations_graph_identical(monkeypatch, backend,
+                                                    l0):
+    """A bulk build onto an index that ``add_node`` grew, deletes thinned
+    (the enterpoint among them) and a search left a cached snapshot
+    and scan state of, equals the JAX package's build -- the path a
+    restored index's staged build and the stream's waves take."""
+    monkeypatch.setenv("REDIS_HNSW_TPU_BUILD_L0", l0)
+    data = lattice(np.random.default_rng(5), 260, 16)
+    names = [f"n{i}" for i in range(260)]
+    a, b = index_pair(16, native=backend == "native")
+    for x in (a, b):
+        for i in range(80):
+            x.add_node(names[i], data[i])
+        x.delete_node(x._names.name(x.enterpoint))
+        for i in range(1, 80, 9):
+            if names[i] in x:
+                x.delete_node(names[i])
+        x.search_batch(data[:16], 5, engine="scan")
+        x.search_batch(data[:16], 5, engine="graph", ef_search=24)
+        x.add_batch(names[80:200], data[80:200], batch_size=32)
+        x.delete_batch([names[i] for i in range(80, 200, 11)])
+        x.search_batch(data[:16], 5)
+        x.add_batch(names[200:], data[200:], batch_size=48)
+    assert_same_graph(a, b)
+    assert b.node_count == a.node_count

@@ -1,8 +1,8 @@
 """The torch port stands alone: it imports neither jax nor the JAX
-package, serves from the card unless asked for the CPU, and raises
-NotImplementedError (naming its ROADMAP item) on every branch of the JAX
-package it does not port yet -- and serves the branches it has, at every
-k the JAX package serves."""
+package, serves from the card unless asked for the CPU (its default
+client too), and raises NotImplementedError (naming its ROADMAP item) on
+every branch of the JAX package it does not port yet -- and serves the
+branches it has, at every k the JAX package serves."""
 
 import ast
 import os
@@ -72,9 +72,21 @@ def test_default_device_is_the_card(monkeypatch):
         with pytest.raises(T.HNSWError, match="no CUDA device"):
             make()
     assert T.HNSW(device="cpu").device.type == "cpu"
+    # the module-level default client is made on the card, lazily
+    import redis_hnsw_tpu_torch.api as A
+
+    monkeypatch.setattr(A, "_DEFAULT", [])
+    with pytest.raises(T.HNSWError, match="no CUDA device"):
+        T.default_client
+    with pytest.raises(T.HNSWError, match="no CUDA device"):
+        A.default_client
+    assert A._DEFAULT == []
+    assert "default_client" not in T.__all__  # a star import stays off it
+    with pytest.raises(AttributeError):
+        T.no_such_name
 
 
-def test_not_ported_branches_raise(monkeypatch):
+def test_not_ported_branches_raise(monkeypatch, tmp_path):
     import redis_hnsw_tpu_torch.ops.search as S
 
     c = T.HNSW(device="cpu")
@@ -91,9 +103,16 @@ def test_not_ported_branches_raise(monkeypatch):
         with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
             fn()
 
-    raises(8, lambda: c.save_index("g", "/nonexistent"))
-    raises(8, lambda: c.restore_index("/nonexistent"))
-    raises(8, lambda: c.index("g").enable_autosave("/nonexistent"))
+    # checkpoints (item 8) are served: save, autosave, restore
+    ckpt = str(tmp_path / "g.npz")
+    c.save_index("g", ckpt)
+    c.index("g").enable_autosave(str(tmp_path / "auto.npz"), every_ops=1)
+    c.add_node("g", "extra", np.full(8, 0.5, np.float32))
+    assert os.path.exists(str(tmp_path / "auto.npz"))
+    c.delete_node("g", "extra")
+    c.index("g").disable_autosave()
+    assert c.restore_index(ckpt, name="g2").node_count == 20
+    raises(12, lambda: c.restore_index(str(tmp_path)))  # a sharded dir
     # hamming is served: the scan, the graph engine and the flat kind
     hq = np.zeros((1, 2), np.uint32)
     for engine in ("auto", "scan", "graph"):
@@ -104,22 +123,28 @@ def test_not_ported_branches_raise(monkeypatch):
     for pallas in (False, True):
         got = c.index("hf").search_batch(hq, 2, use_pallas=pallas)[0]
         assert [(r.name, r.sim) for r in got] == [("y", 0.0), ("x", -1.0)]
-    raises(10, lambda: c.search_batch("g", q, engine="scan-approx"))
-    raises(10, lambda: c.search_batch("f", q, engine="scan-approx"))
-    raises(10, lambda: c.search_batch("g", q, recall_target=0.9))
+    # the scan-approx tier (item 10) is served, and equals the exact tier
+    exact = {i: c.search_batch(i, q, k=3, engine="scan") for i in "gf"}
+    for idx in "gf":
+        assert c.search_batch(idx, q, k=3, engine="scan-approx") == exact[idx]
+        assert c.search_batch(idx, q, k=3, recall_target=0.9) == exact[idx]
     raises(12, lambda: c.create_index("s", dim=8, kind="sharded"))
-    for env, value, item, idx in (
-        ("REDIS_HNSW_TPU_SCAN_DTYPE", "bf16", 9, "g"),
-        ("REDIS_HNSW_TPU_SCAN_DTYPE", "int8", 9, "f"),
-        ("REDIS_HNSW_TPU_REPLY", "ids", 11, "g"),
-        ("REDIS_HNSW_TPU_REPLY", "ids-force", 11, "f"),
+    for env, value, idx in (
+        ("REDIS_HNSW_TPU_SCAN_DTYPE", "bf16", "g"),
+        ("REDIS_HNSW_TPU_SCAN_DTYPE", "int8", "f"),
     ):
         monkeypatch.setenv(env, value)
-        raises(item, lambda: c.search_batch(idx, q))
+        raises(9, lambda: c.search_batch(idx, q))
         monkeypatch.delenv(env)
-    monkeypatch.setenv("REDIS_HNSW_TPU_REPLY", "ids")
-    raises(11, lambda: c.search_batch("g", q, engine="graph"))
+    # ids-only replies (item 11) are served on both engines and kinds
+    for value in ("ids", "ids-force"):
+        monkeypatch.setenv("REDIS_HNSW_TPU_REPLY", value)
+        for idx in "gf":
+            assert c.search_batch(idx, q, k=3) == exact[idx]
+        assert len(c.search_batch("g", q, k=3, engine="graph")[0]) == 3
     monkeypatch.delenv("REDIS_HNSW_TPU_REPLY")
+    # the serving extras (item 11) are exported
+    assert callable(T.tune) and callable(T.run_mixed)
     # the graph engine is served: engine="graph", and "auto" above the
     # scan cap
     assert len(c.search_batch("g", q, k=3, engine="graph")[0]) == 3
