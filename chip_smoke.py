@@ -7,8 +7,9 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
 ``redis_hnsw_tpu_torch/csrc`` into ``build/``, then:
 
 0. prints the card's name and power limit, the kernels' build time and,
-   for kernels A, A′, B and D (the split kernels) and C, ptxas registers,
-   spills, shared memory and resident blocks (C's at its main plans);
+   for kernels A, A′, B and D (the split kernels), the tier cores A-bf16
+   and A-int8 and C, ptxas registers, spills, shared memory and resident
+   blocks (C's at its main plans);
 1. holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at ragged edges: bitwise on integer-lattice
    data (every score exact in f32) and on random hamming words, to a
@@ -42,7 +43,16 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
    127/128/129, D = 1/33/129, split boundaries, a dead bin, a duplicate
    row) and at the flat-sift1m shape, where its best candidate per query
    must be kernel A's top-1 and its stable top-10 on every query it
-   certifies kernel A's top-10, bit for bit;
+   certifies kernel A's top-10, bit for bit; kernels A-bf16 and A-int8
+   (the bf16 and int8 scan tiers' select on the tensor cores) at their
+   tile's and splits' edges with equal rows planted, D = 1 ... 129, k = 1
+   ... 1000, fewer live rows than k, all-zero rows and the 4-byte-copy
+   form -- int8 bitwise on Gaussian data, bf16 bitwise on lattice data
+   (|v| <= 16) and within 1e-5 (qq + sq) on Gaussian data -- and timed at
+   2048 x 1,000,064 x 128 at k = 10 and 80 with the SM clock sampled,
+   beside their tensor-core bounds, plain versions and library
+   yardsticks (bf16 torch.mm, torch._int_mm and the descale, then
+   torch.topk);
 2. ``hnsw-main``: the reference workload -- an HNSW index of 10,000 x 128
    rows (M=16, efcon=200, native host core) built by
    ``add_batch(batch_size=2048)`` as bench.py builds it (layer-0
@@ -103,7 +113,19 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
    the scan-approx tier and ``recall_target`` equal to the exact tier on
    flat-sift1m and hnsw-main, REDIS_HNSW_TPU_REPLY=ids-force giving the
    same ids and sims within 2 ulp, and the ids guard's calibration; 4e
-   ``tune`` on hnsw-main and a ``device_trace`` that names kernel A.
+   ``tune`` on hnsw-main and a ``device_trace`` that names kernel A;
+5. the scan tiers (REDIS_HNSW_TPU_SCAN_DTYPE): 5a flat-sift1m's 16,384
+   queries under the bf16 tier and the int8-resident tier (INT8_RESCORE 1
+   and 8): qps, ms per chunk by part, table bytes and peak device memory,
+   recall@10 against phase 3's exact reply, every sim the f32 direct form
+   of its row; 5b the HNSW scan path under both tiers on hnsw-main and on
+   phase 2d's 262,144-row index against their float64 oracles, the tier
+   cache rebuilt on a switch at one epoch, ids-force on the int8 tier;
+   5c the capacity shape, 8,388,608 x 128 clustered rows
+   (benchmarks/million.py's generator, copied) served as an int8-resident
+   flat index at INT8_RESCORE 1 and 8 against the exact f32 tier over
+   the same rows. ``python3 chip_smoke.py --capacity-rows 32000000`` runs
+   5c alone at the JAX package's capacity-demo size.
 
 Every failed check raises, so the script exits non-zero. The last lines
 are the card line, one JSON object of per-kernel numbers, and
@@ -112,6 +134,7 @@ are the card line, one JSON object of per-kernel numbers, and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -818,6 +841,311 @@ def phase_hamming_kernels(dev):
     }
 
 
+# -- kernels A-bf16 and A-int8 (the bf16 and int8 scan tiers) ----------------
+
+TIER_CORES = ("bf16", "int8")
+
+
+def tier_operands(core, qt, xt, sqm, qq):
+    """A core's operands from f32 queries and rows, as ops/scan.py builds
+    them: bf16 copies, or per-row int8 quantization with its scales; the
+    table's rows padded to 4 bytes, as the tier tables are stored."""
+    from redis_hnsw_tpu_torch.ops import scan as S
+    from redis_hnsw_tpu_torch.ops.cuda_scan import pad_lowp_rows
+
+    if core == "bf16":
+        return [S._to_bf16(qt), pad_lowp_rows(S._to_bf16(xt)), sqm, qq]
+    q8, qs = S._to_int8(qt)
+    t8, ts = S._to_int8(xt)
+    return [q8, qs, pad_lowp_rows(t8), ts, sqm, qq]
+
+
+def path_tier_args(table, sqn, live, tscale, qd):
+    """A core's operands as ops/scan.py scan_topk builds them on the
+    serving path, from a tier table (with ``tscale`` for int8), the f32
+    rows' sqnorms, the live mask and an f32 query block."""
+    from redis_hnsw_tpu_torch.ops import distance as Dm
+    from redis_hnsw_tpu_torch.ops import scan as S
+    from redis_hnsw_tpu_torch.ops.cuda_scan import euclid_sq_masked
+
+    sqm, qq = euclid_sq_masked(sqn, live), Dm.sqnorms(qd)
+    if tscale is None:
+        return [qd.to(table.dtype), table, sqm, qq]
+    q8, qscale = S._to_int8(qd)
+    return [q8, qscale, table, tscale, sqm, qq]
+
+
+def tier_case(rng, core, B, N, D, lattice, dead_frac, dev, live_rows=None):
+    """Seeded operands of a core: integer-lattice rows (|v| <= 16, exact
+    in bf16 and in every f32 sum) or Gaussian ones, with a tie class (row
+    N // 3 copied to N // 2) and ``dead_frac`` dead rows."""
+    from redis_hnsw_tpu_torch.ops import distance as Dm
+    from redis_hnsw_tpu_torch.ops.cuda_scan import euclid_sq_masked
+
+    if lattice:
+        q = rng.integers(-16, 17, (B, D)).astype(np.float32)
+        x = rng.integers(-16, 17, (N, D)).astype(np.float32)
+    else:
+        q = rng.standard_normal((B, D), dtype=np.float32)
+        x = rng.standard_normal((N, D), dtype=np.float32)
+    x[N // 2] = x[N // 3]
+    live = rng.random(N) >= dead_frac
+    if live_rows is not None:
+        live[:] = False
+        live[rng.choice(N, live_rows, replace=False)] = True
+    qt, xt = torch.from_numpy(q).to(dev), torch.from_numpy(x).to(dev)
+    sq = torch.from_numpy(np.einsum("nd,nd->n", x, x).astype(np.float32))
+    sqm = euclid_sq_masked(sq.to(dev), torch.from_numpy(live).to(dev))
+    return tier_operands(core, qt, xt, sqm, Dm.sqnorms(qt))
+
+
+def tier_table(core):
+    """Index of the table operand in a core's argument list."""
+    return 1 if core == "bf16" else 2
+
+
+def plant_tier_ties(core, args, edge):
+    """Query 0's own row at rows edge - 1 .. edge + 1, live, with query
+    0's sqnorm: the three share the top score, so they come first in id
+    order, across the edge."""
+    sqm, qq, width = args[-2], args[-1], args[0].shape[1]
+    args[tier_table(core)][edge - 1 : edge + 2, :width] = args[0][0]
+    if core == "int8":
+        args[3][edge - 1 : edge + 2] = args[1][0]
+    sqm[edge - 1 : edge + 2] = qq[0]
+
+
+def tier_fns(core):
+    from redis_hnsw_tpu_torch.ops import cuda_scan
+
+    if core == "bf16":
+        return cuda_scan.flat_topk_bf16, cuda_scan.plain_flat_topk_bf16
+    return cuda_scan.flat_topk_int8, cuda_scan.plain_flat_topk_int8
+
+
+def compare_tier(core, args, k, lattice, label, planted=None):
+    """A core against its plain version: ids and sims bitwise for int8 on
+    any data and for bf16 on lattice data; bf16 on Gaussian data: every
+    slot's score within 1e-5 * (qq + sq) of the plain version's, and the
+    ids equal at every slot whose plain score lies further than the two
+    rows' bands from each neighbour's in the plain ranking -- the last
+    slot's neighbours include the first row left out (rank k + 1), which
+    the kernel may take in its place within the bands. Returns the max
+    abs score difference."""
+    fn, plain = tier_fns(core)
+    ids, sims = fn(*args, k=k)
+    pids, psims = plain(*args, k=k + 1)
+    torch.cuda.synchronize()
+    pnext = psims[:, k:]  # rank k + 1's score, -inf past the live rows
+    next_ids = pids[:, k:]
+    pids, psims = pids[:, :k], psims[:, :k]
+    fin = torch.isfinite(psims)
+    check(torch.equal(fin, torch.isfinite(sims)),
+          f"{label}: kernel A-{core} fills other slots than the plain version")
+    err = (sims - psims)[fin].abs().max().item() if fin.any() else 0.0
+    if core == "int8" or lattice:
+        check(torch.equal(ids, pids), f"{label}: kernel A-{core} ids differ")
+        check(torch.equal(sims.view(torch.int32), psims.view(torch.int32)),
+              f"{label}: kernel A-{core} sims differ bitwise")
+    else:
+        sqm, qq = args[-2], args[-1]
+        all_ids = torch.cat([pids, next_ids], dim=1).clamp(min=0).long()
+        bands = 1e-5 * (qq[:, None] + sqm[all_ids])
+        bands = torch.where(torch.isfinite(bands), bands, 0.0)
+        band = bands[:, :k]
+        check(((sims - psims).abs() <= band)[fin].all().item(),
+              f"{label}: kernel A-bf16 scores off the plain version's by "
+              f"more than 1e-5 (qq + sq)")
+        scores = torch.cat([psims, pnext], dim=1)
+        gap = ((scores[:, 1:] - scores[:, :-1]).abs()
+               > bands[:, 1:] + bands[:, :-1])
+        sep = gap[:, :k].clone()  # apart from the next rank
+        sep[:, 1:] &= gap[:, : k - 1]  # and from the one before
+        bad = (sep & fin & (ids != pids)).nonzero()
+        if len(bad):
+            b, j = bad[0].tolist()
+            lo, hi = max(j - 1, 0), j + 2
+            raise CheckFailed(
+                f"{label}: kernel A-bf16 ids differ on well-separated "
+                f"slots ({len(bad)}; query {b} slot {j}: kernel ids "
+                f"{ids[b, lo:hi].tolist()} sims {sims[b, lo:hi].tolist()}, "
+                f"plain ids {all_ids[b, lo:hi].tolist()} sims "
+                f"{scores[b, lo:hi].tolist()}, bands "
+                f"{bands[b, lo:hi].tolist()})")
+    if planted is not None:
+        want = [planted - 1, planted, planted + 1][:k]
+        check(ids[0, :3].tolist() == want,
+              f"{label}: kernel A-{core} misorders equal rows at {planted}")
+    return err
+
+
+def offset_table(core, args, offset):
+    """The table moved ``offset`` bytes off a 16-byte boundary."""
+    i = tier_table(core)
+    t = args[i]
+    raw = torch.empty(t.numel() * t.element_size() + offset,
+                      dtype=torch.uint8, device=t.device)
+    moved = raw[offset:].view(t.dtype).view(t.shape)
+    moved.copy_(t)
+    args[i] = moved
+    return args
+
+
+def phase_tier_edges(dev, core):
+    """A core against its plain version (bitwise for int8 on Gaussian
+    data with tie classes planted, for bf16 on lattice data; bf16 also on
+    Gaussian data within its stated band): at the edges of its 128 x 128
+    tile (B, N at 1/127/128/129) and of its splits (as its own planner
+    cuts them), with dead rows and equal rows planted across them; at D =
+    1/15/16/17/31/33/129 (a 32-byte k-step, a 128-byte stage); at k = 1
+    ... 1000, also with fewer live rows than k; with all-zero rows (int8
+    scale 1); and in its 4-byte-copy form (a table 4 bytes off a 16-byte
+    boundary, rows not a multiple of 16 bytes). Returns (max abs
+    difference, cases)."""
+    from redis_hnsw_tpu_torch.ops import cuda_scan
+
+    rng = np.random.default_rng(SEED + 20 + (core == "int8"))
+    lattice = core == "bf16"
+    err, cases = 0.0, 0
+
+    def plan(dev_, B, N):
+        return cuda_scan.lowp_plan(dev_, B, N, core)
+
+    for B in (1, 127, 128, 129):
+        for N in (1, 127, 128, 129, "split-1", "split+0", "split+1"):
+            edge = 128
+            if isinstance(N, str):
+                N, edge = split_edge(plan, dev, B, int(N[len("split"):]))
+            args = tier_case(rng, core, B, N, 128, lattice, 0.1, dev)
+            planted = edge if N > edge + 2 else None
+            if planted:
+                plant_tier_ties(core, args, edge)
+            err = max(err, compare_tier(core, args, 10, lattice,
+                                        f"A-{core} edge B={B} N={N}",
+                                        planted))
+            cases += 1
+    for D in (1, 15, 16, 17, 31, 33, 129):
+        for lat in ((True, False) if lattice else (False,)):
+            args = tier_case(rng, core, 130, 3001, D, lat, 0.1, dev)
+            err = max(err, compare_tier(core, args, 40, lat,
+                                        f"A-{core} D={D} lattice={lat}"))
+            cases += 1
+    for k in (1, 10, 40, 64, 256, 257, 300, 1000):
+        for live_rows in (None, 7):
+            args = tier_case(rng, core, 130, 5000, 128, lattice, 0.2, dev,
+                             live_rows=live_rows)
+            if live_rows is None:
+                plant_tier_ties(core, args, 128)
+            err = max(err, compare_tier(
+                core, args, k, lattice, f"A-{core} k={k} live_rows={live_rows}",
+                None if live_rows else 128))
+            cases += 1
+    for D, off in ((128, 0), (128, 4), (24, 0), (100, 4)):
+        args = tier_case(rng, core, 130, 3000, D, lattice, 0.1, dev)
+        args = offset_table(core, args, off)
+        args[tier_table(core)][5:9] = 0
+        if core == "int8":
+            args[3][5:9] = 1.0
+        plant_tier_ties(core, args, 128)
+        err = max(err, compare_tier(core, args, 40, lattice,
+                                    f"A-{core} form D={D} offset={off}", 128))
+        cases += 1
+    return err, cases
+
+
+def tier_library(core, args, k):
+    """One library call a chunk for a core's function, the yardstick:
+    bf16, torch.mm in bf16 with f32 out (TF32 off); int8, torch._int_mm,
+    then the descale; each followed by the score's subtractions and
+    torch.topk, and a torch.topk over the chunks' lists."""
+    from redis_hnsw_tpu_torch.ops.cuda_scan import CHUNK_N
+
+    sqm, qq = args[-2], args[-1]
+    table = args[tier_table(core)]
+    sims = []
+    for lo in range(0, table.shape[0], CHUNK_N):
+        t = table[lo : lo + CHUNK_N]
+        if core == "bf16":
+            try:
+                s = torch.mm(args[0], t.t(), out_dtype=torch.float32)
+            except (TypeError, RuntimeError):  # no f32-out bf16 mm here
+                s = torch.mm(args[0], t.t()).float()
+            s.mul_(2.0)
+        else:
+            s = torch._int_mm(args[0], t.t()).float()
+            s.mul_(args[1][:, None] * args[3][None, lo : lo + CHUNK_N])
+            s.mul_(2.0)
+        s.sub_(qq[:, None]).sub_(sqm[None, lo : lo + CHUNK_N])
+        sims.append(torch.topk(s, min(k, s.shape[1]), dim=1).values)
+        del s
+    return torch.topk(torch.cat(sims, dim=1), k, dim=1)
+
+
+def phase_tier_kernels(dev):
+    """Kernels A-bf16 and A-int8 (the bf16 and int8 tiers' select):
+    :func:`phase_tier_edges` for each, then timed at the flat-sift1m
+    shape, B = 2048 over 1,000,064 x 128 Gaussian rows, at k = 10 and
+    k = 80 (the int8-resident tier's width at INT8_RESCORE 8) with the SM
+    clock sampled -- each held against its plain version there first,
+    at both k (bitwise for int8, within the band for bf16) -- beside the
+    tensor-core bound, the plain version's time (k = 10) and the library
+    yardstick (:func:`tier_library`). Returns their rows."""
+    from redis_hnsw_tpu_torch.ops import cuda_scan
+
+    rows, edge_note = {}, []
+    for core in TIER_CORES:
+        err, cases = phase_tier_edges(dev, core)
+        rows[core] = {"max_abs_err": err}
+        edge_note.append(f"A-{core} {cases}")
+    log(f"phase 1: kernels A-bf16 and A-int8 agree with their plain versions "
+        f"in {', '.join(edge_note)} edge cases (tile and split edges with "
+        f"equal rows planted, D = 1 ... 129, k = 1 ... 1000, few live rows, "
+        f"all-zero rows, the 4-byte-copy form; int8 bitwise on Gaussian "
+        f"data, bf16 bitwise on lattice data and within 1e-5 (qq + sq) on "
+        f"Gaussian data)")
+
+    B, N, D = 2048, 1_000_064, 128
+    rng = np.random.default_rng(SEED + 22)
+    qt, xt, sqm, qq = make_case(rng, B, N, D, False, 0.0, dev)
+    for core in TIER_CORES:
+        args = tier_operands(core, qt, xt, sqm, qq)
+        fn, plain = tier_fns(core)
+        err = max(compare_tier(core, args, k, False,
+                               f"A-{core} main shape k={k}")
+                  for k in (10, 80))
+        with ClockSampler() as clock:
+            ms = sync_ms(lambda: fn(*args, k=10), 20)
+        t = {
+            "ms": ms,
+            "ms_k80": sync_ms(lambda: fn(*args, k=80), 20),
+            "plain_ms": sync_ms(lambda: plain(*args, k=10), 2),
+        }
+        try:
+            t["library_ms"] = sync_ms(lambda: tier_library(core, args, 10), 3)
+        except RuntimeError as e:  # a library without the call on this card
+            log(f"phase 1: A-{core} library yardstick failed: {e}")
+            t["library_ms"] = None
+        elem = 2 if core == "bf16" else 1
+        peak = PEAK_F16_FLOPS if core == "bf16" else PEAK_INT8_OPS
+        nbytes = (elem * (B + N) * D + 4.0 * (N + B)
+                  + (4.0 * (N + B) if core == "int8" else 0.0))
+        bound, by = bound_ms(2.0 * B * N * D, nbytes + 8.0 * B * 10, peak)
+        bound80, _ = bound_ms(2.0 * B * N * D, nbytes + 8.0 * B * 80, peak)
+        rows[core].update(
+            route="cuda", source="redis_hnsw_tpu_torch/csrc/scan_lowp.cu",
+            replaces="redis_hnsw_tpu/ops/scan.py:157",
+            max_abs_err=max(rows[core]["max_abs_err"], err),
+            bound_ms=bound, bound_by=by, bound_ms_k80=bound80,
+            splits=cuda_scan.lowp_plan(dev, B, N, core),
+            shape={"B": B, "N": N, "D": D, "k": 10}, **t)
+        log(f"phase 1: A-{core} at B={B} N={N} D={D} (ms; while it ran at "
+            f"k=10: {clock.summary()}): " + json.dumps(rows[core]))
+        del args
+    del qt, xt, sqm, qq
+    torch.cuda.empty_cache()
+    return {"scan_topk_bf16": rows["bf16"], "scan_topk_int8": rows["int8"]}
+
+
 def compare_select(case, lattice, label, planted=False):
     """Kernel D against its plain version: bitwise on lattice data; on
     Gaussian data the bin maxima within 1e-5 relative, the best
@@ -1359,6 +1687,8 @@ def _counters():
 
     return {"scan_topk": cuda_scan.flat_topk,
             "scan_topk_hamming": cuda_scan.flat_topk_hamming,
+            "scan_topk_bf16": cuda_scan.flat_topk_bf16,
+            "scan_topk_int8": cuda_scan.flat_topk_int8,
             "count_gt_eq": cuda_count.count_gt_eq,
             "block_score": cuda_gather.fused_block_score,
             "select_bins": cuda_select.select_bins}
@@ -1374,6 +1704,19 @@ def reset_counts():
 
 def read_counts():
     return {name: fn.launches for name, fn in _counters().items()}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside -- a kernel held against its plain version, a
+    timing helper -- are taken back off the counters: they are not the
+    main path's."""
+    before = read_counts()
+    try:
+        yield
+    finally:
+        for name, fn in _counters().items():
+            fn.launches = before[name]
 
 
 def bulk_build(client, name, names, data, batch_size=2048):
@@ -1676,7 +2019,7 @@ BUILD_SERVE_POINTS = ((128, 20), (256, 20), (512, 40), (1024, 72),
                       (2048, 136))
 
 
-def phase_build(client, dev, n=262_144, n_q=2048, gate=True):
+def phase_build(client, dev, n=262_144, n_q=2048, gate=True, keep=False):
     """2d: hnsw-build-sift1m-shape -- add_batch(batch_size=2048) of n x 128
     seeded Gaussian rows (SIFT1M's width; n = a quarter of its rows by
     default), M=16, efcon=200, native host core: inserts/s, the phase
@@ -1688,7 +2031,9 @@ def phase_build(client, dev, n=262_144, n_q=2048, gate=True):
     must reach GRAPH_RECALL at a point of BUILD_SERVE_POINTS (at other
     sizes than the default the sweep's recalls are only logged: on iid
     Gaussian rows they fall as the table grows). Returns (the launches of
-    the build and the serving, kernel A's row at the build shape)."""
+    the build and the serving, kernel A's row at the build shape, and with
+    ``keep`` the index left in place with its queries, oracle and row
+    map for phase 5b -- else None)."""
     from redis_hnsw_tpu_torch.ops import cuda_scan
     from redis_hnsw_tpu_torch.ops import distance as Dm
 
@@ -1774,21 +2119,25 @@ def phase_build(client, dev, n=262_144, n_q=2048, gate=True):
     check(not gate or points[-1]["recall"] >= GRAPH_RECALL,
           f"{name}: the graph engine reaches recall@{k} < {GRAPH_RECALL} at "
           f"every point: {points}")
-    del xs64
-    client.delete_index(name)
+    kept = (name, qs, oracle, row_of) if keep else None
+    if not keep:
+        del xs64
+        client.delete_index(name)
     log(f"phase 2d: {name}: {n_q} queries k={k}: exact tier recall@{k} "
         f"{s_recall:.4f}, {n_q / scan_s:.1f} qps, every reply within the "
         f"float64 oracle's k-th distance ({oracle_s:.1f} s); graph engine "
         f"(expand=16): {json.dumps(points)}; serving launches {serve}")
     return ({key: build["launches"][key] + serve[key] for key in serve},
-            a_row)
+            a_row, kept)
 
 
 def phase_flat(client, dev, b_ms, d_ms):
     """3: flat-sift1m on the certified tier's two-pass form (kernels A and
     B), byte-identical to the exact tier; kernel B's share of the batch
     time is its launches times ``b_ms``, its phase 1 time at this shape
-    (2048 queries over 1,000,064 rows). Then 3c (:func:`phase_onepass`)."""
+    (2048 queries over 1,000,064 rows). Then 3c (:func:`phase_onepass`).
+    Returns (the launches, (the queries, the exact tier's reply)) --
+    phase 5a's truth."""
     from redis_hnsw_tpu_torch.ops import scan as S
 
     n, dim, n_q, k = 1_000_000, 128, 16_384, 10
@@ -1859,8 +2208,9 @@ def phase_flat(client, dev, b_ms, d_ms):
     onepass = phase_onepass(idx, qs, k, (enames, esims),
                             {"certified": n_q / cert_s,
                              "exact": n_q / exact_s}, d_ms)
-    # flat-sift1m stays for phase 4
-    return {name: c + onepass[name] for name, c in counts.items()}
+    # flat-sift1m stays for phases 4 and 5
+    return ({name: c + onepass[name] for name, c in counts.items()},
+            (qs, (enames, esims)))
 
 
 def phase_onepass(idx, qs, k, exact_reply, qps, d_ms):
@@ -2681,6 +3031,397 @@ def phase_wire_durability(client, dev, stage=65_536, overlap_rows=16_384):
     return counts
 
 
+# -- phase 5: the scan tiers -------------------------------------------------
+
+def tier_env(dtype, mult=None):
+    """Set REDIS_HNSW_TPU_SCAN_DTYPE (and INT8_RESCORE); returns a function
+    that restores both."""
+    keys = ("REDIS_HNSW_TPU_SCAN_DTYPE", "REDIS_HNSW_TPU_INT8_RESCORE")
+    old = {key: os.environ.get(key) for key in keys}
+    os.environ[keys[0]] = dtype
+    if mult is not None:
+        os.environ[keys[1]] = str(mult)
+
+    def restore():
+        for key, v in old.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
+
+    return restore
+
+
+def recall_of(names, truth_names):
+    """Mean per-query overlap of two [B, k] name arrays, over k."""
+    k = truth_names.shape[1]
+    return float(np.mean([len(set(a.tolist()) & set(b.tolist())) / k
+                          for a, b in zip(names, truth_names)]))
+
+
+def direct_sims_check(vecs_t, qs, rows, sims, label):
+    """Every reported sim equals the f32 direct-form sim of its row (the
+    exact tier's rescore, ops/distance.py exact_neg_sq_l2, on the card),
+    to f32 rounding (at most 1 ulp); returns the largest ulp gap."""
+    from redis_hnsw_tpu_torch.ops import distance as Dm
+
+    dev = vecs_t.device
+    ids = torch.from_numpy(np.maximum(rows, 0)).to(dev).long()
+    want = Dm.exact_neg_sq_l2(torch.from_numpy(qs).to(dev), vecs_t, ids,
+                              torch.from_numpy(rows >= 0).to(dev))
+    gap = ulp_gap(sims, want.cpu().numpy())
+    check(gap <= 1, f"{label}: sims {gap} ulp off the f32 direct form")
+    return gap
+
+
+def rows_of(idx, names):
+    """Row ids of a columnar reply's names (-1 for an empty slot)."""
+    get = idx._names.get
+    return np.array([[-1 if n is None else get(n) for n in r]
+                     for r in names.tolist()], np.int64)
+
+
+def resident_parts(idx, qs, k):
+    """ms of the int8-resident tier's two parts on one 2048-query chunk
+    ``qs`` (ops/scan.py serve_resident_int8): the device part (the
+    queries' upload and quantization, kernel A-int8 at INT8_RESCORE x k,
+    the ids' copy) and the host part (the exact rescore of every
+    candidate and the (-sim, id) sort), each the best of 3. Its launches
+    are not the main path's and stay off the counters."""
+    from redis_hnsw_tpu_torch.ops import scan as S
+
+    table, sqn, valid, tscale = idx._device()
+    k_dev = min(S.int8_rescore_mult() * k, int(table.shape[0]))
+    best = [float("inf"), float("inf")]
+    with uncounted():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            qd = S.pad_queries(qs, len(qs), table.device)
+            ids = S.scan_topk(None, sqn, valid, qd, k=k_dev, table=table,
+                              tscale=tscale)[0].cpu().numpy()
+            t1 = time.perf_counter()
+            S.sort_reply(ids, S.host_exact_sims(idx._vectors, qs, ids))
+            t2 = time.perf_counter()
+            best = [min(best[0], t1 - t0), min(best[1], t2 - t1)]
+    return {"device_ms": best[0] * 1e3, "host_rescore_ms": best[1] * 1e3}
+
+
+def compare_on_path(core, args, label):
+    """Kernel A-``core`` against its plain version on a serving path's own
+    operands (:func:`path_tier_args`) at k = 10 and k = 80 (the
+    int8-resident width at INT8_RESCORE 8): bitwise for int8, within the
+    band for bf16 (:func:`compare_tier`), off the launch counters.
+    Returns the max abs difference."""
+    with uncounted():
+        return max(compare_tier(core, args, k, False, f"{label} k={k}")
+                   for k in (10, 80))
+
+
+def serve_timed(idx, qs, k, reps=1):
+    """(seconds per call, reply) of ``idx.search_batch(qs, k)`` after one
+    warm-up call (which uploads or builds the tier's tables)."""
+    return timed(lambda: idx.search_batch(qs, k, reply="columnar"), reps)
+
+
+def phase_tier_flat(client, dev, flat_ref, kernel_ms, k=10):
+    """5a: flat-sift1m (1,000,000 x 128, phase 3's 16,384 queries in
+    2048-lane chunks) under the bf16 tier (a bf16 copy beside the f32
+    table, kernel A-bf16) and the int8-resident tier (only the int8 table
+    on the card, kernel A-int8 at INT8_RESCORE 1 and 8, host rescore):
+    qps, ms per chunk by part, peak device memory and table bytes,
+    recall@10 against the exact tier's reply, and every reported sim the
+    f32 direct-form sim of its row. Returns the launches."""
+    qs, (enames, _) = flat_ref
+    idx = client.index("flat-sift1m")
+    vecs_t = torch.from_numpy(idx._vectors[:idx.node_count]).to(dev)
+    n_q, chunks = len(qs), -(-len(qs) // 2048)
+    reset_counts()
+    out = {}
+    for label, dtype, mult in (("bf16", "bf16", None),
+                               ("int8 x1", "int8", 1), ("int8 x8", "int8", 8)):
+        restore = tier_env(dtype, mult)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            before = read_counts()
+            t0 = time.perf_counter()
+            idx.search_batch(qs[:2048], k, reply="columnar")
+            first_s = time.perf_counter() - t0
+            secs, (names, sims) = serve_timed(idx, qs, k)
+            launches = {key: v - before[key]
+                        for key, v in read_counts().items()}
+            peak = torch.cuda.max_memory_allocated()
+            table = idx._device()[0]
+            if dtype == "bf16":
+                table = idx._tier_cache[1]
+            rows = rows_of(idx, names)
+            gap = direct_sims_check(vecs_t, qs, rows, sims, f"5a {label}")
+            core = "scan_topk_" + dtype
+            # launches: one in the first call, then a warm-up and a timed
+            # call of `chunks` chunks each
+            per = (launches[core] - 1) / (2 * chunks)
+            k_dev = k if mult is None else mult * k
+            kern = kernel_ms[dtype]["ms" if k_dev == 10 else "ms_k80"]
+            part = {"kernel_ms": per * kern}
+            if dtype == "int8":
+                part.update(resident_parts(idx, qs[:2048], k))
+                part["device_ms"] -= part["kernel_ms"]  # its other work
+            part["rest_ms"] = secs * 1e3 / chunks - sum(part.values())
+            out[label] = dict(
+                qps=n_q / secs, ms_per_chunk=secs * 1e3 / chunks,
+                parts=part, first_call_s=first_s,
+                recall_at_10=recall_of(names, enames), ulp_gap=gap,
+                table_bytes=table.numel() * table.element_size(),
+                peak_bytes=peak, launches=launches[core])
+            check(launches[core] > 0 and launches["scan_topk"] == 0,
+                  f"5a {label}: the tier's kernel never launched, or kernel "
+                  f"A did: {launches}")
+        finally:
+            restore()
+    idx._tier_cache = None
+    f32_bytes = 1_000_064 * 128 * 4
+    check(out["int8 x8"]["table_bytes"] * 4 == f32_bytes,
+          "5a: the int8-resident table is not a quarter of the f32 table")
+    check(out["bf16"]["recall_at_10"] >= 0.95
+          and out["int8 x8"]["recall_at_10"] >= 0.95,
+          f"5a: recall off: {json.dumps(out)}")
+    log(f"phase 5a: flat-sift1m tiers ({n_q} queries, k={k}; recall@10 "
+        f"against the exact tier's reply; the f32 table is {f32_bytes} "
+        f"bytes; parts of a chunk: the kernel at phase 1's time x launches; "
+        f"for int8 the device part's other work (the queries' upload and "
+        f"quantization, the ids' copy) and the host rescore of every "
+        f"candidate, each timed alone on one chunk; the rest): "
+        f"{json.dumps(out)}")
+    del vecs_t
+    return read_counts()
+
+
+def phase_tier_hnsw(client, dev, kept, k=10):
+    """5b: the HNSW scan path under both tiers on hnsw-main (its live rows
+    after phase 2's deletes) and on phase 2d's 262,144-row index, each
+    reply checked against a float64 oracle (names distinct and live,
+    nearest first, sims within 1e-5; recall@10 logged, held >= 0.9 for
+    bf16 and >= 0.7 for int8, whose selection is quantized), and each
+    core held against its plain version on that index's tier table and
+    queries at k = 10 and 80 (:func:`compare_on_path`); the tier
+    cache rebuilt on a switch of tiers at one snapshot epoch; and
+    REDIS_HNSW_TPU_REPLY=ids-force on the int8 tier equal to its full
+    reply. Returns the launches."""
+    idx = client.index("hnsw-main")
+    live = idx._levels[:len(idx._names.names_array())] >= 0
+    live_rows = np.flatnonzero(live)
+    names = idx._names.names_array()
+    xs64 = torch.from_numpy(idx._vectors[live_rows]).to(dev, torch.float64)
+    qs = np.random.default_rng(SEED + 15).standard_normal(
+        (2048, 128), dtype=np.float32)
+    targets = [("hnsw-main", qs, ChunkedOracle(xs64, qs, k),
+                {names[r]: j for j, r in enumerate(live_rows)})]
+    if kept is not None:
+        targets.append(kept)
+    reset_counts()
+    out = {}
+    for name, tqs, oracle, row_of in targets:
+        for dtype in TIER_CORES:
+            restore = tier_env(dtype)
+            try:
+                secs, (rn, rs) = timed(lambda: client.search_batch(
+                    name, tqs, k=k, engine="scan", reply="columnar"), 1)
+                recall, _, short = oracle.recall(row_of, rn, rs,
+                                                 f"5b {name} {dtype}")
+                check(short == 0 and recall >= (0.9 if dtype == "bf16"
+                                                else 0.7),
+                      f"5b {name} {dtype}: recall@{k} {recall}")
+                table, _, sqn, live, tscale = client.index(
+                    name)._scan_cache[1]
+                err = compare_on_path(dtype, path_tier_args(
+                    table, sqn, live, tscale,
+                    torch.from_numpy(tqs).to(dev)), f"5b {name}")
+                out[f"{name} {dtype}"] = dict(qps=len(tqs) / secs,
+                                              recall_at_10=recall,
+                                              max_abs_err=err)
+            finally:
+                restore()
+    epoch = idx._snapshot_epoch
+    keys = []
+    for dtype in ("bf16", "int8"):
+        restore = tier_env(dtype)
+        try:
+            full = client.search_batch("hnsw-main", qs, k=k, engine="scan",
+                                       reply="columnar")
+            keys.append(idx._scan_cache[0])
+            if dtype == "int8":
+                check(idx._scan_cache[1][0].dtype == torch.int8,
+                      "5b: the int8 tier's table is not int8")
+                os.environ["REDIS_HNSW_TPU_REPLY"] = "ids-force"
+                try:
+                    got = client.search_batch("hnsw-main", qs, k=k,
+                                              engine="scan", reply="columnar")
+                finally:
+                    del os.environ["REDIS_HNSW_TPU_REPLY"]
+                check(np.array_equal(got[0], full[0]),
+                      "5b: ids-force on the int8 tier: ids differ")
+                out["ids_force_ulp"] = ulp_gap(got[1], full[1])
+                check(out["ids_force_ulp"] <= 2,
+                      f"5b: ids-force sims {out['ids_force_ulp']} ulp off")
+        finally:
+            restore()
+    check(keys == [(epoch, "bf16"), (epoch, "int8")],
+          f"5b: the tier cache did not rebuild on a switch: {keys}")
+    counts = read_counts()
+    check(counts["scan_topk_bf16"] > 0 and counts["scan_topk_int8"] > 0,
+          f"5b: a tier kernel never launched: {counts}")
+    log(f"phase 5b: the HNSW scan path under the tiers, every reply within "
+        f"the float64 oracle's checks, each core equal to its plain version "
+        f"on the index's own tier table (max_abs_err; int8 bitwise); the "
+        f"tier cache rebuilt on a switch at "
+        f"epoch {epoch}; ids-force on the int8 tier equal to its full reply: "
+        f"{json.dumps(out)}; launches {counts}")
+    del xs64
+    return counts
+
+
+# benchmarks/million.py's clustered generator, copied (not imported): 4096
+# centres, sigma 0.8, rows from seed 0 and queries from seed 1
+CAP_CENTERS, CAP_SIGMA, CAP_DIM = 4096, 0.8, 128
+
+
+def capacity_rows(n: int) -> np.ndarray:
+    """benchmarks/million.py ``dataset(n, "clustered")``, its noise drawn
+    in 2^22-row pieces of the same stream (the same values, a bounded
+    float64 temporary)."""
+    rng = np.random.default_rng(0)
+    centers = rng.standard_normal((CAP_CENTERS, CAP_DIM)).astype(np.float32)
+    assign = rng.integers(0, CAP_CENTERS, n)
+    out = centers[assign]
+    step = 1 << 22
+    for lo in range(0, n, step):
+        hi = min(lo + step, n)
+        out[lo:hi] += CAP_SIGMA * rng.standard_normal(
+            (hi - lo, CAP_DIM)).astype(np.float32)
+    return out
+
+
+def capacity_queries(n_q: int) -> np.ndarray:
+    """benchmarks/million.py ``query_set(n_q, "clustered")``."""
+    rng = np.random.default_rng(1)
+    centers = np.random.default_rng(0).standard_normal(
+        (CAP_CENTERS, CAP_DIM)).astype(np.float32)
+    assign = rng.integers(0, CAP_CENTERS, n_q)
+    out = centers[assign]
+    out += CAP_SIGMA * rng.standard_normal((n_q, CAP_DIM)).astype(np.float32)
+    return out
+
+
+def phase_capacity(client, dev, n=8_388_608, n_q=16_384, k=10):
+    """5c: the capacity shape -- n x 128 clustered rows (benchmarks/
+    million.py's generator) as an int8-resident flat index (about a
+    quarter of the f32 table's bytes on the card), served n_q queries at
+    INT8_RESCORE 1 and 8: recall@10 against the exact f32 flat tier
+    (kernel A over the same rows, uploaded once and then freed), qps,
+    and the host rescore's share of a chunk; kernel A-int8 launched by
+    search_batch and kernel A not, and the core equal to its plain
+    version bit for bit on one 2048-query chunk of this table at k = 10
+    and 80 (:func:`compare_on_path`). Returns (launches, row)."""
+    from redis_hnsw_tpu_torch.ops import scan as S
+
+    t0 = time.perf_counter()
+    data = capacity_rows(n)
+    qs = capacity_queries(n_q)
+    gen_s = time.perf_counter() - t0
+    name = "flat-capacity"
+    t0 = time.perf_counter()
+    idx = client.create_index(name, dim=CAP_DIM, kind="flat")
+    client.add_batch(name, [f"c{i}" for i in range(n)], data)
+    del data
+    add_s = time.perf_counter() - t0
+
+    # truth: the exact f32 tier (kernel A) over the same rows
+    t0 = time.perf_counter()
+    vecs = torch.from_numpy(idx._vectors[:n]).to(dev)
+    sqn = torch.from_numpy(np.einsum("nd,nd->n", idx._vectors[:n],
+                                     idx._vectors[:n])).to(dev)
+    live = torch.ones(n, dtype=torch.bool, device=dev)
+    truth = []
+    for lo in range(0, n_q, 2048):
+        qd = torch.from_numpy(qs[lo : lo + 2048]).to(dev)
+        ids, _ = S.scan_topk_exact_l2(vecs, sqn, live, qd, k=k)
+        truth.append(ids.cpu().numpy())
+    truth = np.concatenate(truth)
+    f32_bytes = vecs.numel() * 4
+    del vecs, sqn, live, qd
+    torch.cuda.empty_cache()
+    truth_s = time.perf_counter() - t0
+
+    reset_counts()
+    row = dict(rows=n, queries=n_q, data_s=gen_s, add_batch_s=add_s,
+               truth_s=truth_s, f32_table_bytes=f32_bytes)
+    try:
+        for mult in (1, 8):
+            restore = tier_env("int8", mult)
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                before = read_counts()
+                t0 = time.perf_counter()
+                idx.search_batch(qs[:2048], k, reply="columnar")
+                first_s = time.perf_counter() - t0
+                secs, (names, sims) = serve_timed(idx, qs, k)
+                launches = {key: v - before[key]
+                            for key, v in read_counts().items()}
+                check(launches["scan_topk_int8"] > 0
+                      and launches["scan_topk"] == 0,
+                      f"5c x{mult}: kernel A-int8 never launched, or kernel "
+                      f"A did: {launches}")
+                table, sqn, valid, tscale = idx._device()
+                rows = rows_of(idx, names)
+                chunks = -(-n_q // 2048)
+                parts = resident_parts(idx, qs[:2048], k)
+                row[f"x{mult}"] = dict(
+                    recall_at_10=float(np.mean([
+                        len(set(a.tolist()) & set(b.tolist())) / k
+                        for a, b in zip(rows, truth)])),
+                    qps=n_q / secs, ms_per_chunk=secs * 1e3 / chunks,
+                    parts=parts, host_rescore_share=(
+                        parts["host_rescore_ms"] / (secs * 1e3 / chunks)),
+                    first_call_s=first_s,
+                    launches=launches["scan_topk_int8"],
+                    table_bytes=table.numel() * table.element_size(),
+                    peak_bytes=torch.cuda.max_memory_allocated())
+                if mult == 1:  # the core on this table, once, after the
+                    # peak is read: the plain version takes tens of GB
+                    row["max_abs_err"] = compare_on_path(
+                        "int8", path_tier_args(
+                            table, sqn, valid, tscale,
+                            torch.from_numpy(qs[:2048]).to(dev)),
+                        "5c int8-resident")
+                    torch.cuda.empty_cache()
+            finally:
+                restore()
+    finally:
+        client.delete_index(name)
+    counts = read_counts()
+    check(row["x8"]["recall_at_10"] >= 0.95,
+          f"5c: recall@10 at INT8_RESCORE 8: {row['x8']['recall_at_10']}")
+    log(f"phase 5c: flat-capacity, {n} x {CAP_DIM} clustered rows as an "
+        f"int8-resident flat index: {json.dumps(row)}; launches {counts}")
+    return counts, row
+
+
+def phase_tiers(client, dev, flat_ref, kernel_rows, kept):
+    """5: the scan tiers at full width: flat-sift1m (5a), the HNSW scan
+    path (5b) and the capacity shape (5c). Returns the launches."""
+    t0 = time.perf_counter()
+    kernel_ms = {"bf16": kernel_rows["scan_topk_bf16"],
+                 "int8": kernel_rows["scan_topk_int8"]}
+    counts = [phase_tier_flat(client, dev, flat_ref, kernel_ms),
+              phase_tier_hnsw(client, dev, kept)]
+    if kept is not None:
+        client.delete_index(kept[0])
+    torch.cuda.empty_cache()
+    counts.append(phase_capacity(client, dev)[0])
+    log(f"phase 5: {time.perf_counter() - t0:.1f} s")
+    return {key: sum(c[key] for c in counts) for key in counts[0]}
+
+
 def ptxas_figures(text: str, name: str) -> dict:
     """{entry function: its ptxas -v lines} for the entry functions whose
     mangled name holds ``name``."""
@@ -2712,6 +3453,28 @@ def log_core_figures(path, kernel: str, smem_fn: str, slots: int) -> None:
     log(f"phase 0: {kernel}: {forms or 'no ptxas output'}; "
         f"{smem} bytes of dynamic shared memory a block; {slots} resident "
         f"blocks on the card")
+
+
+def log_tier_figures(path, card_index) -> None:
+    """One line: kernels A-bf16's and A-int8's registers, spills and
+    shared memory per core and copy form, and each core's resident
+    blocks."""
+    import ctypes
+
+    from redis_hnsw_tpu_torch.ops import cuda_scan
+    from redis_hnsw_tpu_torch.utils import build
+
+    figs = ptxas_figures(build.build_log(path), "lowp_tile_kernel")
+    forms = "; ".join(
+        f"<{'bf16' if 'Bf16' in fn else 'int8'}, "
+        f"{'16' if 'Li16E' in fn else '4'}-byte copies> " + ", ".join(lines)
+        for fn, lines in sorted(figs.items()))
+    smem = ctypes.CDLL(path).scan_lowp_smem_bytes()
+    slots = {core: cuda_scan.lowp_block_slots(card_index, core)
+             for core in TIER_CORES}
+    log(f"phase 0: lowp_tile_kernel: {forms or 'no ptxas output'}; {smem} "
+        f"bytes of dynamic shared memory a block; resident blocks on the "
+        f"card {slots}")
 
 
 def log_block_score_figures(path, card_index) -> None:
@@ -2756,6 +3519,11 @@ def main() -> int:
         help="run only phase 2d's bulk build and serving, at this many rows "
         "(e.g. 1000000, SIFT1M's size), and print its lines; the graph "
         "engine's recall is logged, not gated")
+    parser.add_argument(
+        "--capacity-rows", type=int, default=0,
+        help="run only phase 5c, the int8-resident capacity shape, at this "
+        "many clustered rows (e.g. 32000000, the JAX package's capacity "
+        "demo), and print its lines")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2778,9 +3546,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log("  " + line.strip())
     dev = torch.device("cuda")
+    if args.capacity_rows:
+        counts, row = phase_capacity(h.HNSW(), dev, n=args.capacity_rows)
+        log(card)
+        log(json.dumps({"capacity_rows": args.capacity_rows,
+                        "launches": counts, "capacity": row}))
+        return 0
     if args.build_rows:
-        counts, a_row = phase_build(h.HNSW(), dev, n=args.build_rows,
-                                    gate=False)
+        counts, a_row, _ = phase_build(h.HNSW(), dev, n=args.build_rows,
+                                       gate=False)
         log(card)
         log(json.dumps({"build_rows": args.build_rows, "launches": counts,
                         "scan_topk_build_shape": a_row}))
@@ -2799,10 +3573,12 @@ def main() -> int:
     log_core_figures(paths["select_bins"], "select_bins_kernel",
                      "select_bins_smem_bytes",
                      cuda_select.block_slots(card_index))
+    log_tier_figures(paths["scan_lowp"], card_index)
     log_block_score_figures(paths["block_score"], card_index)
 
     kernels = phase_kernels(dev)
     kernels.update(phase_hamming_kernels(dev))
+    kernels.update(phase_tier_kernels(dev))
     kernels["block_score"] = phase_block_score(dev)
     kernels["select_bins"] = phase_select(dev)
     client = h.HNSW()
@@ -2810,13 +3586,16 @@ def main() -> int:
     kernels["block_score"]["launches_by_form"] = c_forms
     path_counts = [phase_graph_lattice(dev), phase_hnsw_hamming(client, dev)]
     phase_hamming_lattice(dev)
-    build_counts, kernels["scan_topk"]["build_shape"] = phase_build(client,
-                                                                    dev)
-    path_counts += [build_counts,
-                    phase_flat(client, dev, kernels["count_gt_eq"]["ms"],
-                               kernels["select_bins"]["ms"]),
+    build_counts, kernels["scan_topk"]["build_shape"], kept = phase_build(
+        client, dev, keep=True)
+    flat_counts, flat_ref = phase_flat(client, dev,
+                                       kernels["count_gt_eq"]["ms"],
+                                       kernels["select_bins"]["ms"])
+    path_counts += [build_counts, flat_counts,
                     phase_flat_hamming(client, dev),
-                    phase_wire_durability(client, dev)]
+                    phase_wire_durability(client, dev),
+                    phase_tiers(client, dev, flat_ref, kernels, kept)]
+    del kept, flat_ref
     client.delete_index("flat-sift1m")
     client.delete_index("hnsw-main")
     for counts in path_counts:

@@ -1,18 +1,21 @@
 """Flat (brute-force, exact) index.
 
-Port of ``redis_hnsw_tpu/models/flat.py`` (euclidean f32 and hamming).
-Not present in the reference (which only has the HNSW graph): it is the
-exact-kNN oracle and an index kind of its own -- at up to millions of rows
-a full scan on the card is exact and holds no graph. It serves through the
-same scan engine as the HNSW index (ops/scan.py serve_block): the exact
-tier, or for euclidean the certified-exact tier at >= 2^19 rows, and the
-scan-approx tier when asked. Shares
-the name table and similarity conventions of the HNSW index.
+Port of ``redis_hnsw_tpu/models/flat.py``. Not present in the reference
+(which only has the HNSW graph): it is the exact-kNN oracle and an index
+kind of its own -- at up to millions of rows a full scan on the card is
+exact and holds no graph. It serves through the same scan engine as the
+HNSW index (ops/scan.py serve_block): the exact tier, or for euclidean
+the certified-exact tier at >= 2^19 rows, and the scan-approx tier when
+asked; under REDIS_HNSW_TPU_SCAN_DTYPE the bf16 tier (a bf16 copy beside
+the f32 table) or the int8-resident capacity tier (only an int8 copy on
+the card, candidates rescored on the host). Shares the name table and
+similarity conventions of the HNSW index.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..config import IndexConfig, resolve_device
 from ..errors import (
@@ -24,6 +27,29 @@ from ..errors import (
 )
 from ..utils.names import NameTable
 from .hnsw import SearchResult
+
+# Rows quantized at a time by the int8-resident tier's host quantizer:
+# bounds its f32 temporaries at capacity scale.
+QUANT_CHUNK = 1 << 20
+
+
+def quantize_rows(vecs: np.ndarray):
+    """Host per-row symmetric int8 quantization of the f32 rows ``vecs``
+    -> (q8 [N, D] int8, scale [N] f32), in QUANT_CHUNK-row numpy chunks:
+    scale = max|v| / 127 (1 on an all-zero row), q8 = round(v / scale)
+    half to even, clipped to +-127 -- the JAX package's flat quantizer
+    (its models/flat.py ``_device``) byte for byte."""
+    scale = np.empty(vecs.shape[0], np.float32)
+    q8 = np.empty(vecs.shape, np.int8)
+    for lo in range(0, vecs.shape[0], QUANT_CHUNK):
+        sl = vecs[lo : lo + QUANT_CHUNK]
+        amax = np.abs(sl).max(axis=1)
+        sc = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+        scale[lo : lo + QUANT_CHUNK] = sc
+        q8[lo : lo + QUANT_CHUNK] = np.clip(
+            np.round(sl / sc[:, None]), -127, 127
+        ).astype(np.int8)
+    return q8, scale
 
 
 class FlatIndex:
@@ -41,7 +67,8 @@ class FlatIndex:
         self._names = NameTable()
         self._epoch = 0
         self._dev = None
-        self._dev_epoch = -1
+        self._dev_epoch = None
+        self._tier_cache = None  # (epoch, the bf16 tier's table)
 
     @property
     def node_count(self) -> int:
@@ -164,16 +191,27 @@ class FlatIndex:
         self._epoch += 1
 
     def _device(self):
-        """Device tables (vecs, sqn, valid) of the current epoch: rows
-        padded to a multiple of 128, sqnorms computed on the host with
-        np.einsum (as the JAX package does, so the tables are
-        byte-equal; zeros for hamming). Packed hamming words go up as
-        int32, as the snapshot's do: torch has no full uint32 type."""
+        """Device tables (table, sqn, valid, tscale) of the current epoch
+        and tier: rows padded to a multiple of 128, sqnorms computed on
+        the host with np.einsum (as the JAX package does, so the tables
+        are byte-equal; zeros for hamming). Packed hamming words go up as
+        int32, as the snapshot's do: torch has no full uint32 type.
+
+        ``tscale`` is None except in the int8-RESIDENT tier
+        (REDIS_HNSW_TPU_SCAN_DTYPE=int8 on a euclidean table): there the
+        f32 rows never reach the card -- ``table`` is the int8 copy,
+        quantized on the host (:func:`quantize_rows`, its rows padded to
+        4 bytes), a quarter of the bytes -- and the selected candidates
+        are rescored exactly on the host, where the f32 rows live
+        (search_batch)."""
+        from ..ops.cuda_scan import lowp_pad
         from ..ops.scan import scan_dtype
         from ..ops.snapshot import to_device
 
-        scan_dtype(self.config.metric)
-        if self._dev is None or self._dev_epoch != self._epoch:
+        resident = (
+            self.config.metric == "euclidean" and scan_dtype() == "int8"
+        )
+        if self._dev is None or self._dev_epoch != (self._epoch, resident):
             n = max(self._names.high_water, 1)
             n_pad = ((n + 127) // 128) * 128
             if self._vectors.shape[0] == n_pad:
@@ -189,12 +227,34 @@ class FlatIndex:
                 sqn = np.zeros(n_pad, np.float32)
             else:
                 sqn = np.einsum("nd,nd->n", vecs, vecs).astype(np.float32)
-            self._dev = None  # free the old tables before the upload
-            self._dev = tuple(
-                to_device(a, self.device) for a in (vecs, sqn, valid)
-            )
-            self._dev_epoch = self._epoch
+            self._dev = self._tier_cache = None  # free the old tables
+            if resident:
+                q8, scale = quantize_rows(vecs)
+                pad = lowp_pad(q8.shape[1], 1)
+                if pad:  # rows of 4-byte multiples, as the core reads them
+                    q8 = np.pad(q8, ((0, 0), (0, pad)))
+                self._dev = tuple(
+                    to_device(a, self.device) for a in (q8, sqn, valid, scale)
+                )
+            else:
+                self._dev = tuple(
+                    to_device(a, self.device) for a in (vecs, sqn, valid)
+                ) + (None,)
+            self._dev_epoch = (self._epoch, resident)
         return self._dev
+
+    def _bf16_table(self, vecs):
+        """The bf16 tier's selection table beside the f32 ``vecs``, built
+        on the card once per epoch."""
+        from ..ops.cuda_scan import pad_lowp_rows
+        from ..ops.scan import _to_bf16
+
+        cached = self._tier_cache
+        if cached is None or cached[0] != self._epoch:
+            self._tier_cache = cached = (
+                self._epoch, pad_lowp_rows(_to_bf16(vecs))
+            )
+        return cached[1]
 
     def search_batch(
         self, queries, k: int, use_pallas: bool = False,
@@ -207,12 +267,18 @@ class FlatIndex:
         the default serves through the scan engine in 2048-query chunks,
         on the certified tier at >= 2^19 euclidean rows. ``approx``, and
         a ``recall_target`` at or below the approx tier's floor, ask for
-        the scan-approx tier (ops/scan.py serve_block). ``host_qs`` is
-        taken for the JAX package's signature; its only reader there is
-        the int8-resident tier (ROADMAP queue 1 item 9), and a flat reply
-        carries its sims whatever REDIS_HNSW_TPU_REPLY says, as in the
-        JAX package. ``reply="columnar"`` returns the (names, sims) array
-        pair."""
+        the scan-approx tier (ops/scan.py serve_block).
+        REDIS_HNSW_TPU_SCAN_DTYPE=bf16 selects on a bf16 copy of the
+        table (kernel A-bf16) and rescores exactly on the card; ``int8``
+        serves the int8-resident tier (ops/scan.py serve_resident_int8:
+        kernel A-int8 selects ``INT8_RESCORE * k`` candidates, rescored
+        exactly on the host against ``host_qs``, the host mirror of
+        device-resident ``queries``, or the queries copied back). Under
+        int8, ``use_pallas=True`` serves that tier too: the JAX package
+        scores the int8 table as f32 rows there (ROADMAP.md section 3).
+        A flat reply carries its sims whatever REDIS_HNSW_TPU_REPLY says,
+        as in the JAX package. ``reply="columnar"`` returns the (names,
+        sims) array pair."""
         from ..ops import scan as SC
         from ..ops.search import (
             MAX_LANES,
@@ -235,13 +301,13 @@ class FlatIndex:
         if self.node_count == 0:
             return empty_reply(qs.shape[0], k, reply)
         metric = self.config.metric
-        vecs, sqn, valid = self._device()
+        vecs, sqn, valid, tscale = self._device()
         k_eff = min(int(k), int(vecs.shape[0]))
         n_q = qs.shape[0]
         if n_q == 0:
             ids = np.empty((0, int(k)), np.int32)
             sims = np.empty((0, int(k)), np.float32)
-        elif use_pallas:
+        elif use_pallas and tscale is None:
             qd = SC.pad_queries(qs, n_q, vecs.device)
             if metric == "hamming":
                 ids, sims = SC.scan_topk_exact_hamming(vecs, valid, qd,
@@ -251,6 +317,17 @@ class FlatIndex:
                                                   k=k_eff)
             ids, sims = ids.cpu().numpy(), sims.cpu().numpy()
         else:
+            table = None
+            if tscale is None and metric == "euclidean" and (
+                SC.scan_dtype() == "bf16"
+            ):
+                table = self._bf16_table(vecs)
+            hq = None
+            if tscale is not None:
+                hq = host_qs if isinstance(qs, torch.Tensor) else qs
+                if hq is None:
+                    hq = qs.cpu().numpy()
+                hq = np.asarray(hq, np.float32)
             sink = SC.CertRerunSink()
             qd = qs
             if n_q > MAX_LANES:
@@ -260,11 +337,17 @@ class FlatIndex:
             for lo in range(0, n_q, MAX_LANES):
                 part = qd[lo : lo + MAX_LANES]
                 n_part = int(part.shape[0])
+                part = SC.pad_queries(part, SC.pad_pow2(n_part), vecs.device)
+                if tscale is not None:
+                    parts.append(SC.serve_resident_int8(
+                        vecs, sqn, valid, tscale, part, self._vectors,
+                        hq[lo : lo + n_part], k=k_eff, n_q=n_part,
+                    ))
+                    continue
                 parts.append(SC.serve_block(
-                    vecs, sqn, valid,
-                    SC.pad_queries(part, SC.pad_pow2(n_part), vecs.device),
-                    k=k_eff, n_q=n_part, metric=metric, rerun_sink=sink,
-                    approx=approx,
+                    vecs, sqn, valid, part, k=k_eff, n_q=n_part,
+                    metric=metric, rerun_sink=sink, approx=approx,
+                    table=table,
                 ))
             sink.flush()  # patches the parts' rows in place
             ids = np.concatenate([p[0] for p in parts])

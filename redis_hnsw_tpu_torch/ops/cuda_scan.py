@@ -43,6 +43,11 @@ partial sum is an integer below 2^24.
   ``torch.mm`` and :func:`chunked_topk` -- the kernels' references in the
   tests.
 
+The bf16 and int8 scan tiers select with two more cores on kernel A's
+selection (:func:`flat_topk_bf16`, :func:`flat_topk_int8`; kernels
+A-bf16 and A-int8 of ``csrc/scan_lowp.cu``), for work that the JAX
+package leaves to XLA; their section below gives their scores.
+
 Bound on the H100: the scoring is 2*B*N*D fp32 operations (true fp32, no
 tensor cores) against (B + N)*D*4 bytes, so it is compute-bound at the
 serving shapes; A′ by 2*B*N*32W int8 tensor-core operations (its B*N*W
@@ -369,3 +374,221 @@ def flat_topk_hamming(queries, words, bias, *, k: int):
 
 
 flat_topk_hamming.launches = 0
+
+
+# -- kernels A-bf16 and A-int8: the bf16 and int8 scan tiers -------------------
+#
+# The JAX package scores these tiers in XLA (ops/scan.py ``_chunk_scores``:
+# a bf16 or int8 jnp.dot, then lax.top_k per chunk). Here two cores of
+# ``csrc/scan_lowp.cu`` score on the tensor cores under kernel A's
+# selection (heaps in device memory, list_merge_kernel), so every k is
+# served:
+#
+#   bf16: score = (2 * dot - qq) - sq,            dot = bf16 q . bf16 x (f32)
+#   int8: score = (2 * (dot * (qscale * tscale)) - qq) - sq,
+#                                                  dot = int8 q . int8 x
+#
+# each step rounded on its own, in the JAX package's order
+# (ops/scan.py:166-170). ``qq`` is the f32 queries' sqnorm and ``sq_masked``
+# the f32 rows' (+inf on a dead row). The int8 dot is exact, so kernel and
+# plain version agree bit for bit on any data; the bf16 products are exact
+# in f32 and the tensor cores' sums round otherwise than a library
+# matmul's, so the two agree bit for bit where every partial sum is exact
+# (integer data) and to f32 rounding of the sums elsewhere.
+
+def bf16_scores(q16, t16, sq_masked, qq):
+    """[B, n] bf16-tier scores of the bf16 queries ``q16`` against the bf16
+    rows ``t16``: an f32 matmul of the widened copies (every product exact)
+    then ``(2 * dot - qq) - sq``."""
+    dots = torch.mm(q16.float(), t16.float().t())
+    return dots.mul_(2.0).sub_(qq[:, None]).sub_(sq_masked[None, :])
+
+
+def int8_scores(q8, qscale, t8, tscale, sq_masked, qq):
+    """[B, n] int8-tier scores: the exact int8 dots (an f32 matmul, exact
+    while every partial sum is an integer below 2^24, i.e. up to
+    ``D.INT8_F32_MAX_DIM``; f64 above), descaled as the JAX package does."""
+    wide = (torch.float32 if q8.shape[1] <= D.INT8_F32_MAX_DIM
+            else torch.float64)
+    dots = torch.mm(q8.to(wide), t8.to(wide).t()).float()
+    dots.mul_(qscale[:, None] * tscale[None, :]).mul_(2.0)
+    return dots.sub_(qq[:, None]).sub_(sq_masked[None, :])
+
+
+def plain_flat_topk_bf16(q16, t16, sq_masked, qq, *, k: int):
+    """Plain PyTorch version of :func:`flat_topk_bf16`: chunked
+    :func:`bf16_scores` through :func:`chunked_topk`."""
+    t16 = t16[:, : q16.shape[1]]  # its 4-byte padding adds nothing
+    return chunked_topk(
+        lambda lo, hi: bf16_scores(q16, t16[lo:hi], sq_masked[lo:hi], qq),
+        q16.shape[0], t16.shape[0], k, q16.device,
+    )
+
+
+def plain_flat_topk_int8(q8, qscale, t8, tscale, sq_masked, qq, *, k: int):
+    """Plain PyTorch version of :func:`flat_topk_int8`: chunked
+    :func:`int8_scores` through :func:`chunked_topk`."""
+    t8 = t8[:, : q8.shape[1]]  # its 4-byte padding adds nothing
+    return chunked_topk(
+        lambda lo, hi: int8_scores(q8, qscale, t8[lo:hi], tscale[lo:hi],
+                                   sq_masked[lo:hi], qq),
+        q8.shape[0], t8.shape[0], k, q8.device,
+    )
+
+
+LOWP_CORES = {"bf16": 0, "int8": 1}
+
+
+def _lowp_lib():
+    from ..utils.build import load_kernel
+
+    lib = load_kernel("scan_lowp")
+    lib.scan_lowp_launch.restype = _I
+    lib.scan_lowp_launch.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _I, _P, _P, _P, _P]
+    lib.scan_lowp_slots.restype = _I
+    lib.scan_lowp_slots.argtypes = [_I]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def lowp_block_slots(device_index: int, core: str) -> int:
+    """Blocks of core ``core``'s split kernel that card ``device_index``
+    holds at once."""
+    with torch.cuda.device(device_index):
+        slots = _lowp_lib().scan_lowp_slots(LOWP_CORES[core])
+    if slots <= 0:
+        raise RuntimeError(f"scan_lowp {core}: cannot read the card's "
+                           "occupancy")
+    return slots
+
+
+def lowp_plan(device, B: int, N: int, core: str) -> tuple[int, int]:
+    """(splits, 128-row tiles per split) of core ``core`` ("bf16" or
+    "int8"): :func:`plan`'s wave planner over the core's own resident
+    blocks, with A′'s fixed work a split (the cores share its layout and
+    its selection)."""
+    from .cuda_select import plan_tiles
+
+    return plan_tiles(lambda index: lowp_block_slots(index, core), device,
+                      B, N, HAMMING_SPLIT_TILES)
+
+
+def lowp_pad(width: int, elem_size: int) -> int:
+    """Zero columns that pad a tier table's row of ``width`` elements of
+    ``elem_size`` bytes to a multiple of 4 bytes, the cores' narrowest
+    copy (an odd bf16 width, an int8 width not a multiple of 4)."""
+    return (-width * elem_size % 4) // elem_size
+
+
+def pad_lowp_rows(table):
+    """``table`` [N, D] (bf16 or int8) with its rows zero-padded to a
+    multiple of 4 bytes, which adds nothing to a dot: the tier tables are
+    stored so, once an epoch, and the cores pad only the queries."""
+    pad = lowp_pad(table.shape[1], table.element_size())
+    return torch.nn.functional.pad(table, (0, pad)) if pad else table
+
+
+def _check_lowp(q, t, sq_masked, qq, k, dtype):
+    if q.dim() == 2 and t.dim() == 2:
+        want = q.shape[1] + lowp_pad(q.shape[1], q.element_size())
+        if t.shape[1] != want:
+            raise ValueError(
+                f"a tier table of query width {q.shape[1]} holds rows of "
+                f"{want} columns (padded to 4 bytes by pad_lowp_rows), "
+                f"got {t.shape[1]}"
+            )
+        t = t[:, : q.shape[1]]
+    _check_table(q, t, sq_masked, k, dtype)
+    if tuple(qq.shape) != (q.shape[0],) or qq.dtype != torch.float32:
+        raise ValueError("qq must be [B] float32")
+    if qq.device != q.device:
+        raise ValueError("all operands must be on one device")
+
+
+def _launch_lowp(core, q, t, qq, qscale, sq_masked, tscale, k):
+    """Launch core ``core`` on CUDA tensors; returns (ids, sims). The
+    table's rows are already a multiple of 4 bytes (:func:`pad_lowp_rows`);
+    the queries are zero-padded to its width here."""
+    esize = q.element_size()
+    if t.shape[1] != q.shape[1]:
+        q = torch.nn.functional.pad(q, (0, t.shape[1] - q.shape[1]))
+    q, t, qq, sq_masked = (x.contiguous() for x in (q, t, qq, sq_masked))
+    if qscale is not None:
+        qscale, tscale = qscale.contiguous(), tscale.contiguous()
+    B, Dw = q.shape
+    N = t.shape[0]
+    dev = q.device
+    out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
+    if B == 0:
+        return out_i, out_s
+    lib = _lowp_lib()
+    splits, _ = lowp_plan(dev, B, N, core)
+    slabs = torch.empty((splits, B, _lib().scan_topk_slab_len(k), 2),
+                        dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.scan_lowp_launch(
+            LOWP_CORES[core], q.data_ptr(), t.data_ptr(), qq.data_ptr(),
+            None if qscale is None else qscale.data_ptr(),
+            sq_masked.data_ptr(),
+            None if tscale is None else tscale.data_ptr(), B, N,
+            Dw * esize, k, splits, slabs.data_ptr(), out_s.data_ptr(),
+            out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"scan_lowp {core} kernel launch failed: CUDA error {err}"
+        )
+    return out_i, out_s
+
+
+def flat_topk_bf16(q16, t16, sq_masked, qq, *, k: int):
+    """Top-k of every query over every row by the bf16 tier's score.
+
+    ``q16`` [B, D] and ``t16`` [N, D'] bfloat16 (D' = D padded to 4
+    bytes, :func:`pad_lowp_rows`), ``sq_masked`` [N] f32 (the f32 rows'
+    sqnorms, +inf on dead rows), ``qq`` [B] f32 (the f32 queries'
+    sqnorms). Returns (ids [B, k] int32, sims [B, k] f32) in
+    (-sim, id) order with -1/-inf padding, at any ``k``. A CUDA tensor
+    launches kernel A-bf16 (or raises); a CPU tensor takes the plain
+    version."""
+    _check_lowp(q16, t16, sq_masked, qq, k, torch.bfloat16)
+    if q16.device.type == "cpu":
+        return plain_flat_topk_bf16(q16, t16, sq_masked, qq, k=k)
+    if q16.device.type != "cuda":
+        raise ValueError(f"unsupported device {q16.device}")
+    out = _launch_lowp("bf16", q16, t16, qq, None, sq_masked, None, k)
+    flat_topk_bf16.launches += 1
+    return out
+
+
+flat_topk_bf16.launches = 0
+
+
+def flat_topk_int8(q8, qscale, t8, tscale, sq_masked, qq, *, k: int):
+    """Top-k of every query over every row by the int8 tier's score.
+
+    ``q8`` [B, D] int8 with ``qscale`` [B] f32 and ``t8`` [N, D'] int8
+    (D' = D padded to 4 bytes, :func:`pad_lowp_rows`) with ``tscale``
+    [N] f32 (per-row symmetric quantization, ops/scan.py ``_to_int8``),
+    ``sq_masked`` and ``qq`` as in :func:`flat_topk_bf16`. Same reply
+    contract. A CUDA tensor launches kernel A-int8 (or
+    raises); a CPU tensor takes the plain version."""
+    _check_lowp(q8, t8, sq_masked, qq, k, torch.int8)
+    for s, n in ((qscale, q8.shape[0]), (tscale, t8.shape[0])):
+        if tuple(s.shape) != (n,) or s.dtype != torch.float32:
+            raise ValueError("qscale [B] and tscale [N] must be float32")
+        if s.device != q8.device:
+            raise ValueError("all operands must be on one device")
+    if q8.device.type == "cpu":
+        return plain_flat_topk_int8(q8, qscale, t8, tscale, sq_masked, qq,
+                                    k=k)
+    if q8.device.type != "cuda":
+        raise ValueError(f"unsupported device {q8.device}")
+    out = _launch_lowp("int8", q8, t8, qq, qscale, sq_masked, tscale, k)
+    flat_topk_int8.launches += 1
+    return out
+
+
+flat_topk_int8.launches = 0

@@ -1,8 +1,8 @@
 """Exact scan engine: brute-force k-NN over the index snapshot.
 
-Port of the euclidean-f32 and hamming parts of ``redis_hnsw_tpu/ops/scan.py``.
-Below
-``ops/search.py`` SCAN_MAX_ROWS the scan serves ``search_batch``: it is
+Port of ``redis_hnsw_tpu/ops/scan.py``, its certified hamming tier, its
+sharded parts and its TPU-link machinery aside. Below ``ops/search.py``
+SCAN_MAX_ROWS the scan serves ``search_batch``: it is
 exact (recall 1.0), and a whole query batch against the whole table is
 one dense pass that a GPU runs well.
 
@@ -52,6 +52,13 @@ exactness; on the H100 a second pass only halves the throughput,
 PERF.md.) Replies carry ``-distance`` with a zero
 distance as -0.0, as the JAX package's word-packed reply decodes it.
 
+The **bf16 and int8 tiers** (:func:`scan_dtype`, opt-in) select on a
+low-precision copy of the table -- kernel A-bf16 or A-int8
+(ops/cuda_scan.py) on the tensor cores -- and rescore the k they select
+from the f32 rows in exact direct form, so reported sims stay exact; a
+tier table never certifies. The flat index's int8 tier keeps only the
+int8 table on the card (:func:`serve_resident_int8`).
+
 The **scan-approx** tier (``approx=True``) is served on the exact tier
 (:func:`serve_block`), and REDIS_HNSW_TPU_REPLY=ids copies only a
 euclidean reply's ids off the card and rescores its sims on the host
@@ -74,8 +81,11 @@ from .cuda_count import count_gt_eq
 from .cuda_scan import (
     euclid_sq_masked,
     flat_topk,
+    flat_topk_bf16,
     flat_topk_hamming,
+    flat_topk_int8,
     hamming_bias,
+    pad_lowp_rows,
 )
 from .cuda_select import BIN_L, select_bins
 
@@ -94,20 +104,57 @@ def scan_oversample() -> int:
         raise ValueError(f"REDIS_HNSW_TPU_SCAN_OVERSAMPLE={v!r}")
 
 
-def scan_dtype(metric: str = "euclidean") -> str:
-    """Euclidean scan-table tier, REDIS_HNSW_TPU_SCAN_DTYPE. Only ``f32``
-    (the default; selection is exactly exact) is ported; the bf16 and
-    int8 tiers raise on a euclidean table. A hamming table ignores the
-    tier, as in the JAX package."""
+def int8_rescore_mult() -> int:
+    """Selection width multiplier of the int8-resident flat tier
+    (models/flat.py): the card selects ``mult * k`` candidates on the
+    quantized table and the host's exact f32 rescore keeps the best k of
+    them, buying back recall lost to int8 scoring error.
+    REDIS_HNSW_TPU_INT8_RESCORE, default 8, as in the JAX package."""
+    v = os.environ.get("REDIS_HNSW_TPU_INT8_RESCORE", "8")
+    try:
+        return max(1, int(v))
+    except ValueError:
+        raise ValueError(f"REDIS_HNSW_TPU_INT8_RESCORE={v!r}")
+
+
+def scan_dtype() -> str:
+    """Euclidean scan-table tier, REDIS_HNSW_TPU_SCAN_DTYPE (a hamming
+    table ignores it, as in the JAX package):
+
+    * ``f32`` (the default) -- kernel A selects on the f32 table; the
+      selection is exactly exact.
+    * ``bf16`` -- kernel A-bf16 selects on a bfloat16 copy of the table
+      (:func:`_to_bf16`) against bf16 queries: a tensor-core product, half
+      the bytes. Selection can differ from f32 only where two rows' scores
+      agree to ~3 decimal digits; the selected k are rescored in exact f32
+      direct form from the f32 table, so reported sims stay exact.
+    * ``int8`` -- kernel A-int8 selects on a per-row symmetric int8 copy
+      (:func:`_to_int8`, a quarter of the f32 bytes) against per-row
+      quantized queries; the final k are rescored like bf16's. On a flat
+      index it is the int8-RESIDENT tier: only the int8 table goes to the
+      card (models/flat.py).
+
+    A tier table never serves the certified tier."""
     v = os.environ.get("REDIS_HNSW_TPU_SCAN_DTYPE", "f32")
     if v not in ("f32", "bf16", "int8"):
         raise ValueError(f"REDIS_HNSW_TPU_SCAN_DTYPE={v!r}")
-    if v != "f32" and metric == "euclidean":
-        raise NotImplementedError(
-            f"REDIS_HNSW_TPU_SCAN_DTYPE={v} (bf16/int8 scan tiers) is not "
-            "ported yet (ROADMAP queue 1 item 9)"
-        )
     return v
+
+
+def _to_bf16(vecs):
+    """The bf16 tier's table: ``vecs`` rounded to bfloat16 (to nearest,
+    ties to even, as XLA converts)."""
+    return vecs.to(torch.bfloat16)
+
+
+def _to_int8(vecs):
+    """Per-row symmetric int8 quantization -> (q8 [N, D] int8, scale [N]
+    f32): scale = max|v| / 127 (1 on an all-zero row, so the descale stays
+    finite), q8 = round(v / scale) half to even, clipped to +-127. The
+    JAX package's ``_to_int8`` byte for byte (ops/distance.py
+    ``quantize_query``, whose scale multiplies by 1/127 as XLA compiles
+    the JAX package's division by the constant)."""
+    return D.quantize_query(vecs)
 
 
 def onepass_enabled() -> bool:
@@ -127,16 +174,22 @@ def onepass_enabled() -> bool:
 
 
 def scan_topk(vecs, sqn, live, queries, *, k: int, k_sel: int | None = None,
-              metric: str = "euclidean"):
+              metric: str = "euclidean", table=None, tscale=None):
     """Top-k of every query against every live row.
 
     ``vecs`` [N, D] f32 (= snapshot vecs) with ``sqn`` [N] row sqnorms,
     scored in matmul form by kernel A; or, with ``metric="hamming"``,
     [N, W] int32 packed bits scored by kernel A′ (``sqn`` unused).
-    ``live`` [N] bool masks real, undeleted rows. The kernel selects
-    ``k_sel`` (default ``k``) rows and the best ``k`` are kept. Returns
-    (ids, sims) sorted descending by (sim, -id) -- the kernels' own order
-    -- with -1/-inf in empty slots. Both kernels serve every k.
+    ``table`` selects on a tier's copy instead (``vecs`` is then unused):
+    a bf16 table scored by kernel A-bf16 against the queries cast to
+    bf16, or an int8 table with its per-row ``tscale`` scored by kernel
+    A-int8 against the queries quantized by :func:`_to_int8`; ``qq`` is
+    the f32 queries' sqnorm and ``sqn`` the f32 rows' either way, as in
+    the JAX package. ``live`` [N] bool masks real, undeleted rows. The
+    kernel selects ``k_sel`` (default ``k``) rows and the best ``k`` are
+    kept. Returns (ids, sims) sorted descending by (sim, -id) -- the
+    kernels' own order -- with -1/-inf in empty slots. Every kernel
+    serves every k.
     """
     k_sel = k if k_sel is None else max(int(k_sel), k)
     if metric == "hamming":
@@ -144,10 +197,18 @@ def scan_topk(vecs, sqn, live, queries, *, k: int, k_sel: int | None = None,
             queries, vecs, hamming_bias(live), k=k_sel
         )
     else:
-        ids, sims = flat_topk(
-            queries, vecs, euclid_sq_masked(sqn, live), D.sqnorms(queries),
-            k=k_sel,
-        )
+        sq, qq = euclid_sq_masked(sqn, live), D.sqnorms(queries)
+        if table is None:
+            ids, sims = flat_topk(queries, vecs, sq, qq, k=k_sel)
+        elif tscale is None:
+            ids, sims = flat_topk_bf16(
+                queries.to(table.dtype), table, sq, qq, k=k_sel
+            )
+        else:
+            q8, qscale = _to_int8(queries)
+            ids, sims = flat_topk_int8(
+                q8, qscale, table, tscale, sq, qq, k=k_sel
+            )
     return ids[:, :k], sims[:, :k]
 
 
@@ -167,12 +228,15 @@ def scan_topk_exact_hamming(words, live, queries, *, k: int):
 
 
 def scan_topk_exact_l2(vecs, sqn, live, queries, *, k: int,
-                       k_sel: int | None = None):
+                       k_sel: int | None = None, table=None, tscale=None):
     """Euclidean scan + exact direct-form rescore of the final k (the
     matmul form loses ~1e-3 relative to cancellation; reported sims
     must match the reference kernel to f32 rounding, metrics.rs:79-84),
-    re-sorted by ``(-sim, id)``."""
-    ids, sims = scan_topk(vecs, sqn, live, queries, k=k, k_sel=k_sel)
+    re-sorted by ``(-sim, id)``. ``table`` / ``tscale`` select on a bf16
+    or int8 tier's copy (:func:`scan_topk`); the rescore always reads the
+    f32 ``vecs``."""
+    ids, sims = scan_topk(vecs, sqn, live, queries, k=k, k_sel=k_sel,
+                          table=table, tscale=tscale)
     sims = D.exact_neg_sq_l2(
         queries, vecs, ids.clamp(min=0).long(), sims != NEG_INF
     )
@@ -524,17 +588,20 @@ def neg_sq_rows(v, q):
     reply equals the full reply. (The JAX package sums with a library
     reduction here; the two differ in the last ulps, as every
     direct-form sim of the two packages may, ROADMAP.md section 3.)"""
-    d = torch.from_numpy(np.ascontiguousarray(v))
+    d = torch.as_tensor(v)
     d = d - torch.from_numpy(np.ascontiguousarray(q))[:, None, :]
     return (-D._sum_last(d * d)).numpy()
 
 
 def host_exact_sims(vecs_host, qs_host, ids):
     """Exact direct-form sims of ``ids`` [B, k] rows vs ``qs_host``
-    [B, D], computed on the host from the f32 row table. Invalid ids
-    (< 0) get -inf."""
+    [B, D], computed on the host from the f32 row table (its rows
+    gathered by torch's ``index_select``, which runs on several threads
+    where numpy's fancy index runs on one). Invalid ids (< 0) get -inf."""
     q = np.atleast_2d(np.asarray(qs_host, np.float32))
-    v = vecs_host[np.clip(ids, 0, len(vecs_host) - 1)]
+    rows = np.clip(ids, 0, len(vecs_host) - 1).astype(np.int64).ravel()
+    v = torch.from_numpy(np.ascontiguousarray(vecs_host)).index_select(
+        0, torch.from_numpy(rows)).view(*ids.shape, vecs_host.shape[1])
     sims = neg_sq_rows(v, q)
     return np.where(ids >= 0, sims, NEG_INF).astype(np.float32)
 
@@ -553,25 +620,41 @@ def sort_reply(ids, sims):
 # -- host-side engine wrapper -------------------------------------------------
 
 def _scan_state(index, max_staleness: int = 0):
-    """Per-epoch device state of the scan: (vecs, sqn, live). Cached on
-    the index keyed by the SNAPSHOT epoch -- the epoch the tables hold,
-    which lags the index's mutation epoch under bounded-staleness
-    serving. With a stale snapshot the live mask is truncated at the
-    snapshot's row high-water (``live_hw``) so rows allocated after it
-    -- whose vectors the stale table does not hold -- never score. A
-    hamming snapshot's ``vecs`` are its packed words (int32), which the
-    hamming kernels read as they are; its ``sqn`` are zeros."""
-    scan_dtype(index.config.metric)
+    """Per-epoch device state of the scan: (table, vecs, sqn, live,
+    tscale). ``table`` is the selection table -- ``vecs`` itself, or the
+    bf16 or int8 tier's copy (:func:`scan_dtype`), built on the card from
+    the snapshot with its rows padded to 4 bytes -- ``vecs`` the f32
+    rows the rescore reads, ``tscale`` the int8 tier's per-row scales
+    (None otherwise). A hamming snapshot's ``vecs`` are its packed words
+    (int32), which the hamming kernels read as they are, and its table;
+    its ``sqn`` are zeros.
+
+    Cached on the index keyed by (SNAPSHOT epoch, tier): the epoch the
+    tables hold, which lags the index's mutation epoch under
+    bounded-staleness serving, and the tier, so a switch of tiers at the
+    same epoch rebuilds the tables. With a stale snapshot the live mask
+    is truncated at the snapshot's row high-water (``live_hw``) so rows
+    allocated after it -- whose vectors the stale table does not hold --
+    never score."""
+    dt = scan_dtype() if index.config.metric == "euclidean" else "f32"
     snap = index.device_snapshot(max_staleness)
-    snap_epoch = index._snapshot_epoch
+    key = (index._snapshot_epoch, dt)
     cached = getattr(index, "_scan_cache", None)
-    if cached is not None and cached[0] == snap_epoch:
+    if cached is not None and cached[0] == key:
         return cached[1]
+    index._scan_cache = None  # free the old tables before building
     live_np = np.zeros(snap.n_pad, bool)
     h = min(len(index._levels), snap.n_pad, snap.live_hw)
     live_np[:h] = index._levels[:h] >= 0
-    state = (snap.vecs, snap.sqnorms, torch.from_numpy(live_np).to(index.device))
-    index._scan_cache = (snap_epoch, state)
+    live = torch.from_numpy(live_np).to(index.device)
+    table, tscale = snap.vecs, None
+    if dt == "bf16":
+        table = pad_lowp_rows(_to_bf16(snap.vecs))
+    elif dt == "int8":
+        table, tscale = _to_int8(snap.vecs)
+        table = pad_lowp_rows(table)
+    state = (table, snap.vecs, snap.sqnorms, live, tscale)
+    index._scan_cache = (key, state)
     return state
 
 
@@ -595,19 +678,23 @@ def pad_queries(qs, n_pad: int, device):
 
 
 def serve_block(vecs, sqn, live, qd, *, k: int, n_q: int, metric: str,
-                rerun_sink=None, approx: bool = False, ids_only=False):
+                rerun_sink=None, approx: bool = False, ids_only=False,
+                table=None, tscale=None):
     """Serve the (padded) query block ``qd`` on the tier its table takes:
     a hamming table the exact tier (kernel A′); a euclidean table the
-    certified tier where ``cert_enabled`` admits it and ``approx`` is
-    off, else the exact tier. Returns the ``(ids, sims)`` numpy reply of
-    the first ``n_q`` queries; ``rerun_sink`` defers the certified
-    tier's fallback reruns.
+    certified tier where ``cert_enabled`` admits it and neither
+    ``approx`` nor a tier ``table`` is given, else the exact tier --
+    selecting on ``table`` (with ``tscale`` for int8) where one is given,
+    kernel A-bf16 or A-int8, and rescoring from ``vecs``. Returns the
+    ``(ids, sims)`` numpy reply of the first ``n_q`` queries;
+    ``rerun_sink`` defers the certified tier's fallback reruns.
 
     ``approx`` is the scan-approx tier. The JAX package selects it with
     ``jax.lax.approx_max_k`` at k_sel = 4k, which is exact off the TPU;
-    here it is kernel A's exact select at k, so its replies are the
-    exact tier's (recall 1.0, above APPROX_TIER_FLOOR) and equal the
-    JAX package's CPU replies. Selecting 4k would only cost time.
+    here it is the tier's exact select at k (kernel A's, or a bf16 or
+    int8 table's), so its replies are the exact select's (for f32,
+    recall 1.0, above APPROX_TIER_FLOOR) and equal the JAX package's CPU
+    replies. Selecting 4k would only cost time.
 
     ``ids_only`` copies only the ids off the card and returns ``(ids,
     None)``; the caller rescores the sims on the host (the ids-reply
@@ -615,7 +702,8 @@ def serve_block(vecs, sqn, live, qd, *, k: int, n_q: int, metric: str,
     the sims too, so that tier still copies them."""
     if metric == "hamming":
         ids, sims = scan_topk_exact_hamming(vecs, live, qd, k=k)
-    elif not approx and cert_enabled(int(vecs.shape[0]), int(vecs.shape[1])):
+    elif (table is None and not approx
+          and cert_enabled(int(vecs.shape[0]), int(vecs.shape[1]))):
         result = scan_certified_l2(vecs, sqn, live, qd, k=k)
         ids, sims = certified_finish(
             vecs, sqn, live, qd, result, k=k, n_q=n_q,
@@ -623,10 +711,27 @@ def serve_block(vecs, sqn, live, qd, *, k: int, n_q: int, metric: str,
         )
         return (ids, None) if ids_only else (ids, sims)
     else:
-        ids, sims = scan_topk_exact_l2(vecs, sqn, live, qd, k=k)
+        ids, sims = scan_topk_exact_l2(vecs, sqn, live, qd, k=k,
+                                       table=table, tscale=tscale)
     if ids_only:
         return ids[:n_q].cpu().numpy(), None
     return ids[:n_q].cpu().numpy(), sims[:n_q].cpu().numpy()
+
+
+def serve_resident_int8(q8, sqn, live, tscale, qd, host_vecs, host_qs, *,
+                        k: int, n_q: int):
+    """The int8-resident flat tier (models/flat.py): kernel A-int8 selects
+    ``min(int8_rescore_mult() * k, N)`` candidates on the card's int8
+    table; only their ids are copied off, every candidate is rescored
+    exactly on the host from the f32 rows ``host_vecs`` against the host
+    queries ``host_qs`` [n_q, D], and the best k are kept in ``(-sim,
+    id)`` order. Returns the numpy (ids, sims) [n_q, k]."""
+    k_dev = min(int8_rescore_mult() * k, int(q8.shape[0]))
+    ids, _ = scan_topk(None, sqn, live, qd, k=k_dev, table=q8,
+                       tscale=tscale)
+    ids = ids[:n_q].cpu().numpy()
+    ids, sims = sort_reply(ids, host_exact_sims(host_vecs, host_qs, ids))
+    return ids[:, :k], sims[:, :k]
 
 
 def scan_dispatch(index, qs, k: int, approx: bool = False, host_qs=None,
@@ -642,7 +747,8 @@ def scan_dispatch(index, qs, k: int, approx: bool = False, host_qs=None,
     ``qs``, or a ``host_qs`` mirror of a device ``qs``), a euclidean
     reply copies only its ids off the card and its sims are recomputed
     on the host (see :func:`reply_ids_engaged`)."""
-    vecs, sqn, live = _scan_state(index, max_staleness=staleness)
+    table, vecs, sqn, live, tscale = _scan_state(index,
+                                                 max_staleness=staleness)
     metric = index.config.metric
     if host_qs is None and not isinstance(qs, torch.Tensor):
         host_qs = qs
@@ -655,7 +761,8 @@ def scan_dispatch(index, qs, k: int, approx: bool = False, host_qs=None,
     ids, sims = serve_block(
         vecs, sqn, live, qd, k=min(int(k), int(vecs.shape[0])), n_q=n_q,
         metric=metric, rerun_sink=cert_sink, approx=approx,
-        ids_only=ids_mode,
+        ids_only=ids_mode, table=None if table is vecs else table,
+        tscale=tscale,
     )
     if ids_mode:
         return sort_reply(ids, host_exact_sims(index._vectors, host_qs, ids))

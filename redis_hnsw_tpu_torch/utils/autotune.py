@@ -19,10 +19,12 @@ import numpy as np
 def _exact_topk(index, queries, k):
     """Ground truth from the index's own device snapshot: the exact scan
     (ops/scan.py scan_topk_exact_l2, kernel A on the card; kernel A′'s
-    exact tier for hamming) over every live row, as [B, k] row ids."""
+    exact tier for hamming) over every live row, as [B, k] row ids. It
+    reads the f32 table whatever REDIS_HNSW_TPU_SCAN_DTYPE says, as the
+    JAX package's oracle does."""
     from ..ops import scan as SC
 
-    vecs, sqn, live = SC._scan_state(index)
+    _, vecs, sqn, live, _ = SC._scan_state(index)
     n_q = queries.shape[0]
     qd = SC.pad_queries(queries, SC.pad_pow2(n_q), vecs.device)
     k = min(int(k), int(vecs.shape[0]))

@@ -831,3 +831,222 @@ def test_onepass_on_card_matches_cpu(card, monkeypatch):
     for a, b in (*zip(out["cuda"], out["cpu"]), out["cuda"]):
         assert np.array_equal(a[0], b[0])
         assert np.array_equal(a[1].view(np.int32), b[1].view(np.int32))
+
+
+# -- kernels A-bf16 and A-int8 (the bf16 and int8 scan tiers) ----------------
+
+LOWP_CORES = ["bf16", "int8"]
+
+
+def lowp_operands(rng, B, N, dim, core, lattice, dead, device,
+                  live_rows=None, offset=0):
+    """A core's operands (ops/cuda_scan.py flat_topk_bf16 / _int8) from
+    seeded f32 rows: integer-lattice (|v| <= 16, exact in bf16) or
+    Gaussian, with a tie class (row N // 3 copied to N // 2) and dead
+    rows; the byte table's rows padded to 4 bytes (as the tier tables are
+    stored) and the table ``offset`` bytes off its allocation (4 takes
+    the 4-byte-copy form)."""
+    from redis_hnsw_tpu_torch.ops import scan as TS
+
+    if lattice:
+        q = rng.integers(-16, 17, (B, dim)).astype(np.float32)
+        x = rng.integers(-16, 17, (N, dim)).astype(np.float32)
+    else:
+        q = rng.standard_normal((B, dim)).astype(np.float32)
+        x = rng.standard_normal((N, dim)).astype(np.float32)
+    x[N // 2] = x[N // 3]
+    live = rng.random(N) >= dead
+    if live_rows is not None:
+        live[:] = False
+        live[rng.choice(N, live_rows, replace=False)] = True
+    qt, xt = torch.from_numpy(q).to(device), torch.from_numpy(x).to(device)
+    sq = torch.from_numpy(np.einsum("nd,nd->n", x, x)).to(device)
+    sqm = cuda_scan.euclid_sq_masked(sq, torch.from_numpy(live).to(device))
+    qq = TD.sqnorms(qt)
+    if core == "bf16":
+        table = cuda_scan.pad_lowp_rows(xt.to(torch.bfloat16))
+        args = [qt.to(torch.bfloat16), table, sqm, qq]
+    else:
+        q8, qs = TS._to_int8(qt)
+        table, ts = TS._to_int8(xt)
+        table = cuda_scan.pad_lowp_rows(table)
+        args = [q8, qs, table, ts, sqm, qq]
+    if offset:
+        nbytes = table.numel() * table.element_size()
+        raw = torch.empty(nbytes + offset, dtype=torch.uint8, device=device)
+        moved = raw[offset:].view(table.dtype).view(table.shape)
+        moved.copy_(table)
+        args[1 if core == "bf16" else 2] = moved
+    return args
+
+
+def run_lowp(core, args, k, plain=False):
+    if core == "bf16":
+        fn = (cuda_scan.plain_flat_topk_bf16 if plain
+              else cuda_scan.flat_topk_bf16)
+    else:
+        fn = (cuda_scan.plain_flat_topk_int8 if plain
+              else cuda_scan.flat_topk_int8)
+    return fn(*args, k=k)
+
+
+def assert_lowp_matches(core, args, k, lattice, planted=None):
+    """A core against its plain version: bitwise (ids and sims) for int8
+    on any data and for bf16 on lattice data; bf16 on Gaussian data:
+    every slot's sim within 1e-5 * (qq + sq) of the plain version's and
+    the ids equal at every slot whose plain score lies further than the
+    two rows' bands from each neighbour's in the plain ranking, the first
+    row left out (rank k + 1) included."""
+    fn = cuda_scan.flat_topk_bf16 if core == "bf16" else \
+        cuda_scan.flat_topk_int8
+    before = fn.launches
+    ids, sims = run_lowp(core, args, k)
+    pi, ps = run_lowp(core, args, k + 1, plain=True)
+    torch.cuda.synchronize()
+    next_i, next_s = pi[:, k:], ps[:, k:]
+    pi, ps = pi[:, :k], ps[:, :k]
+    assert fn.launches == before + 1
+    fin = torch.isfinite(ps)
+    assert torch.equal(fin, torch.isfinite(sims))
+    if core == "int8" or lattice:
+        assert torch.equal(ids, pi)
+        assert torch.equal(sims.view(torch.int32), ps.view(torch.int32))
+    else:
+        sqm, qq = args[-2], args[-1]
+        all_i = torch.cat([pi, next_i], dim=1).clamp(min=0).long()
+        bands = 1e-5 * (qq[:, None] + sqm[all_i])
+        bands = torch.where(torch.isfinite(bands), bands, 0.0)
+        assert ((sims - ps).abs() <= bands[:, :k])[fin].all()
+        scores = torch.cat([ps, next_s], dim=1)
+        gap = ((scores[:, 1:] - scores[:, :-1]).abs()
+               > bands[:, 1:] + bands[:, :-1])
+        sep = gap[:, :k].clone()
+        sep[:, 1:] &= gap[:, : k - 1]
+        assert torch.equal(ids[sep & fin], pi[sep & fin])
+    if planted is not None:
+        assert ids[0, :3].tolist() == [planted - 1, planted, planted + 1][:k]
+
+
+def plant_lowp_ties(args, core, edge):
+    """Query 0's own row at rows edge - 1 .. edge + 1, live, with query
+    0's sqnorm: equal scores at the top, so its top 3 are those rows in
+    id order, across a tile or split edge."""
+    sqm, qq, width = args[-2], args[-1], args[0].shape[1]
+    if core == "bf16":
+        args[1][edge - 1 : edge + 2, :width] = args[0][0]
+    else:
+        args[2][edge - 1 : edge + 2, :width] = args[0][0]
+        args[3][edge - 1 : edge + 2] = args[1][0]
+    sqm[edge - 1 : edge + 2] = qq[0]
+
+
+@pytest.mark.parametrize("core", LOWP_CORES)
+@pytest.mark.parametrize("lattice", [True, False])
+@pytest.mark.parametrize(
+    "B,N,dim,k,dead",
+    [(3, 1000, 128, 10, 0.3), (70, 3000, 128, 40, 0.0), (5, 7, 24, 10, 0.3),
+     (130, 2049, 33, 256, 0.5), (64, 64, 128, 1, 0.0), (1, 1, 1, 1, 0.0),
+     (127, 129, 15, 10, 0.1), (129, 127, 16, 10, 0.1), (128, 128, 17, 10, 0.1),
+     (9, 3001, 31, 64, 0.2), (33, 2000, 129, 80, 0.2)],
+)
+def test_lowp_cores_ragged(card, core, lattice, B, N, dim, k, dead):
+    """Both cores against their plain versions at ragged shapes: B and N
+    at 1 and about the 128-row tile, D from 1 to 129 (a 32-byte k-step,
+    a 128-byte stage, widths padded to 4 bytes)."""
+    rng = np.random.default_rng(B * N + dim)
+    args = lowp_operands(rng, B, N, dim, core, lattice, dead, card)
+    assert_lowp_matches(core, args, k, lattice)
+
+
+def lowp_plan(core):
+    return lambda dev, B, N: cuda_scan.lowp_plan(dev, B, N, core)
+
+
+@pytest.mark.parametrize("core", LOWP_CORES)
+@pytest.mark.parametrize("B", [1, 129, 2049])
+@pytest.mark.parametrize("N", [127, 128, 129, "split-1", "split+0",
+                               "split+1"])
+def test_lowp_tile_and_split_edges(card, core, B, N):
+    """Both cores bitwise at their tile's and splits' edges (as their own
+    planner cuts them), on Gaussian data for int8 and lattice data for
+    bf16, with query 0's copies planted across the edge."""
+    edge = 128
+    if isinstance(N, str):
+        N, edge = split_edge(lowp_plan(core), card, B, int(N[len("split"):]))
+    rng = np.random.default_rng(B * 7 + N)
+    lattice = core == "bf16"
+    args = lowp_operands(rng, B, N, 128, core, lattice, 0.1, card)
+    planted = None
+    if N > edge + 2:
+        plant_lowp_ties(args, core, edge)
+        planted = edge
+    assert_lowp_matches(core, args, 10, lattice, planted)
+
+
+@pytest.mark.parametrize("core", LOWP_CORES)
+@pytest.mark.parametrize("k", [1, 10, 64, 256, 257, 1000])
+@pytest.mark.parametrize("live_rows", [None, 7])
+def test_lowp_widths(card, core, k, live_rows):
+    """Every width: k from 1 to 1000, and fewer live rows than k."""
+    rng = np.random.default_rng(k + 3)
+    lattice = core == "bf16"
+    args = lowp_operands(rng, 130, 5000, 24, core, lattice, 0.2, card,
+                         live_rows=live_rows)
+    assert_lowp_matches(core, args, k, lattice)
+
+
+@pytest.mark.parametrize("core", LOWP_CORES)
+@pytest.mark.parametrize("dim,offset", [(64, 0), (64, 4), (24, 0),
+                                        (100, 0)])
+def test_lowp_copy_forms(card, core, dim, offset):
+    """The 16-byte copies (rows a multiple of 16 bytes, aligned) and the
+    4-byte ones (a table 4 bytes off, or a row of 24 / 100 int8 bytes),
+    and all-zero rows (int8 scale 1)."""
+    rng = np.random.default_rng(dim + offset)
+    lattice = core == "bf16"
+    args = lowp_operands(rng, 130, 3000, dim, core, lattice, 0.1, card,
+                         offset=offset)
+    table = args[1] if core == "bf16" else args[2]
+    table[5:9] = 0
+    if core == "int8":
+        args[3][5:9] = 1.0
+    assert bool(table.data_ptr() % 16) == bool(offset)
+    assert_lowp_matches(core, args, 40, lattice)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+def test_tier_search_on_card_matches_cpu(card, monkeypatch, dtype):
+    """REDIS_HNSW_TPU_SCAN_DTYPE on the card and on the CPU gives the same
+    replies on lattice data: the HNSW scan path (scan and scan-approx),
+    the flat index (bf16 copy, int8-resident at INT8_RESCORE 1 and 8) and
+    flat use_pallas; the core launches on the card."""
+    rng = np.random.default_rng(12)
+    data = rng.integers(-16, 17, (3000, 32)).astype(np.float32)
+    qs = rng.integers(-16, 17, (50, 32)).astype(np.float32)
+    names = [f"n{i}" for i in range(3000)]
+    monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_DTYPE", dtype)
+    fn = cuda_scan.flat_topk_bf16 if dtype == "bf16" else \
+        cuda_scan.flat_topk_int8
+    out = {}
+    for dev in ("cuda", "cpu"):
+        c = T.HNSW(device=dev)
+        c.create_index("g", dim=32, m=8, seed=3)
+        c.add_batch("g", names, data)
+        c.create_index("f", dim=32, kind="flat")
+        c.add_batch("f", names, data)
+        for i in "gf":
+            c.delete_batch(i, names[::7])
+        before = fn.launches
+        got = [c.search_batch("g", qs, k=10, engine=e, reply="columnar")
+               for e in ("scan", "scan-approx")]
+        for mult in ("1", "8"):
+            monkeypatch.setenv("REDIS_HNSW_TPU_INT8_RESCORE", mult)
+            got.append(c.index("f").search_batch(qs, 10, reply="columnar"))
+        got.append(c.index("f").search_batch(qs, 10, use_pallas=True,
+                                             reply="columnar"))
+        if dev == "cuda":
+            assert fn.launches > before
+        out[dev] = got
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert np.array_equal(a[0], b[0])
+        assert np.array_equal(a[1].view(np.int32), b[1].view(np.int32))

@@ -150,7 +150,7 @@ def test_bounded_staleness_contract(rng):
     b.add_node("n30", data[30])
     b.add_node("n31", data[31])
     assert b.device_snapshot(max_staleness=2) is s0
-    _, _, live = _scan_state(b, max_staleness=2)
+    _, _, _, live, _ = _scan_state(b, max_staleness=2)
     assert int(live.sum()) == 30 and s0.live_hw == 30
     got = b.search_batch(data[31:32], 1, staleness=2)
     assert got[0][0].name != "n31"

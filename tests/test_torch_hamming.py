@@ -354,7 +354,7 @@ def test_flat_hamming_upload(rng):
     data[0] = 0xFFFFFFFF
     b = TFlat("f", T.IndexConfig(dim=64, metric="hamming"), device="cpu")
     b.add_batch([f"n{i}" for i in range(130)], data)
-    vecs, sqn, valid = b._device()
+    vecs, sqn, valid, tscale = b._device()
     assert vecs.dtype == torch.int32 and vecs.shape == (256, 2)
     assert np.array_equal(vecs[:130].numpy().view(np.uint32), data)
-    assert not sqn.any() and int(valid.sum()) == 130
+    assert not sqn.any() and int(valid.sum()) == 130 and tscale is None

@@ -129,13 +129,14 @@ def test_not_ported_branches_raise(monkeypatch, tmp_path):
         assert c.search_batch(idx, q, k=3, engine="scan-approx") == exact[idx]
         assert c.search_batch(idx, q, k=3, recall_target=0.9) == exact[idx]
     raises(12, lambda: c.create_index("s", dim=8, kind="sharded"))
-    for env, value, idx in (
-        ("REDIS_HNSW_TPU_SCAN_DTYPE", "bf16", "g"),
-        ("REDIS_HNSW_TPU_SCAN_DTYPE", "int8", "f"),
-    ):
-        monkeypatch.setenv(env, value)
-        raises(9, lambda: c.search_batch(idx, q))
-        monkeypatch.delenv(env)
+    # the bf16 and int8 scan tiers (item 9) are served on both kinds
+    for value in ("bf16", "int8"):
+        monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_DTYPE", value)
+        for idx in "gf":
+            assert c.search_batch(idx, q, k=3, engine="scan") == exact[idx]
+            assert c.search_batch(idx, q, k=3) == exact[idx]
+        assert c.index("f").search_batch(q, 3, use_pallas=True) == exact["f"]
+    monkeypatch.delenv("REDIS_HNSW_TPU_SCAN_DTYPE")
     # ids-only replies (item 11) are served on both engines and kinds
     for value in ("ids", "ids-force"):
         monkeypatch.setenv("REDIS_HNSW_TPU_REPLY", value)

@@ -13,7 +13,11 @@ directory that .gitignore lists.
 
 Shapes: kernels A, B and D at B = 2048 queries over 1,000,064 rows of
 D = 128 (A at k = 10 and k_sel = 40; A at k = 10 and B also at B = 16
-over those rows and at hnsw-main's 2048 x 16,384); A′ at 2048 x 1,000,064 rows of
+over those rows and at hnsw-main's 2048 x 16,384; the bf16 and int8
+tiers' kernels A-bf16 and A-int8 on those rows' bf16 and int8 copies, at
+k = 10, and A-int8 also at k = 80, the int8-resident tier's width:
+``a_bf16_ms``, ``a_int8_ms``, ``a_int8_k80_ms``, where the checkout has
+them); A′ at 2048 x 1,000,064 rows of
 8 words, k_sel = 40 and k = 10, at B = 16 over those rows and at 2048 x
 16,384 (hnsw-hamming-256b's scan), k = 10; C at B = 2048, E = 16 over a
 1,000,064 x 32 x 128 block table in f32 (``c_ms``), f16 and bf16, at B =
@@ -144,7 +148,21 @@ def main() -> int:
     t["b_hnsw_ms"] = sync_ms(
         lambda: cuda_count.count_gt_eq(xs, sqs, q, qq, tt), 20)
     t["d_ms"] = sync_ms(lambda: cuda_select.select_bins(x, sq, q, qq), 10)
-    del x, q, sq, qq, xs, sqs, q16, qq16, tt, tt16
+    del xs, sqs, q16, qq16, tt, tt16
+    if hasattr(cuda_scan, "flat_topk_int8"):  # a checkout with the tiers
+        from redis_hnsw_tpu_torch.ops import scan as S
+
+        xb, qb = S._to_bf16(x), S._to_bf16(q)
+        t["a_bf16_ms"] = sync_ms(
+            lambda: cuda_scan.flat_topk_bf16(qb, xb, sq, qq, k=10), 10)
+        del xb, qb
+        (x8, xs8), (q8, qs8) = S._to_int8(x), S._to_int8(q)
+        for k in (10, 80):
+            t["a_int8_ms" if k == 10 else "a_int8_k80_ms"] = sync_ms(
+                lambda: cuda_scan.flat_topk_int8(q8, qs8, x8, xs8, sq, qq,
+                                                 k=k), 10)
+        del x8, xs8, q8, qs8
+    del x, q, sq, qq
     torch.cuda.empty_cache()
 
     W = 8
