@@ -106,8 +106,9 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
    1.0; then one overlap-mode stage of 16,384 rows holding its
    owed-queries parity; 4b the RESP server (``HNSWServer(port=0)`` over
    this client) answering the reference's cmd.sh flow, every ENGINE,
-   SEEDS, RECALL_TARGET, SAVE + RESTORE, a hamming index, a flat one and
-   the error replies with what the in-process client answers, and 512
+   SEEDS, RECALL_TARGET, SAVE + RESTORE, a hamming index, a flat one, a
+   sharded one (``KIND sharded``, a directory checkpoint) and the error
+   replies with what the in-process client answers, and 512
    single-query round trips timed; 4c flat-sift1m saved and restored on
    the card, byte-identical on the one-pass tier and the exact tier; 4d
    the scan-approx tier and ``recall_target`` equal to the exact tier on
@@ -125,7 +126,27 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
    (benchmarks/million.py's generator, copied) served as an int8-resident
    flat index at INT8_RESCORE 1 and 8 against the exact f32 tier over
    the same rows. ``python3 chip_smoke.py --capacity-rows 32000000`` runs
-   5c alone at the JAX package's capacity-demo size.
+   5c alone at the JAX package's capacity-demo size;
+6. the sharded index (``parallel.ShardedHNSW``), 4 shards on the one card,
+   every kernel launched in this phase: 6a ``sharded-main``, phase 2's
+   rows and queries built by interleaved and by plain
+   ``add_batch(batch_size=2048)`` and on a (2, 2) mesh, the three graphs
+   byte-equal; the exact tier against the float64 oracle, the certified
+   tier's one-pass and two-pass forms, scan-approx and ids-force
+   byte-equal to it, the bf16 and int8 tiers' recall, the (2, 2) mesh
+   byte-equal to the 1-D mesh on every engine, the graph sweep with seeds
+   (its first point at recall@10 >= 0.95), 100 deletes, a checkpoint
+   restored on the card, qps by engine; 6b ``sharded-lattice``, phase 2b's
+   rows over 4 shards on the card and on the CPU, replies byte-equal on
+   every engine and tier, then the bulk-built graphs; 6c
+   ``sharded-hamming``, config5 over 4 shards, the scan byte-equal to a
+   numpy brute force and the graph sweep to tie-aware recall@10 >= 0.95;
+   6d ``sharded-build``, phase 2d's 262,144 rows by interleaved add_batch
+   (inserts/s beside phase 2d's, the phase split), served on the exact
+   tier and the graph engine against a float64 oracle (``python3
+   chip_smoke.py --sharded-rows 1000000`` runs 6d alone at that size); 6e
+   the [S, 2048, 10] merge for S = 2, 4, 8, 16 beside one shard's exact
+   scan of 1,000,064 / S rows.
 
 Every failed check raises, so the script exits non-zero. The last lines
 are the card line, one JSON object of per-kernel numbers, and
@@ -1196,7 +1217,7 @@ def compare_select(case, lattice, label, planted=False):
               and torch.equal(top[ok].view(torch.int32),
                               as_[ok].view(torch.int32)),
               f"{label}: kernel D's certified top-10 is not kernel A's")
-        log(f"phase 1: {label}: kernel D certifies {int(ok.sum())} of "
+        log(f"{label}: kernel D certifies {int(ok.sum())} of "
             f"{len(ok)} queries; their top-10 is kernel A's bit for bit")
     return err
 
@@ -1261,7 +1282,8 @@ def phase_select(dev):
         for lattice in (True, False):
             case = make_case(rng, lattice=lattice, dev=dev, **kw)
             err = max(err, compare_select(
-                case, lattice, f"{label} {'lattice' if lattice else 'gauss'}"))
+                case, lattice,
+                f"phase 1: {label} {'lattice' if lattice else 'gauss'}"))
             del case
     log("phase 1: kernel D agrees with its plain version (bitwise on "
         "lattice data; on Gaussian data its best candidate is kernel A's "
@@ -1719,6 +1741,24 @@ def uncounted():
             fn.launches = before[name]
 
 
+@contextlib.contextmanager
+def env(**values):
+    """Set REDIS_HNSW_TPU_<key> variables for the block, then restore
+    them; a value of None leaves its variable as it is."""
+    keys = {f"REDIS_HNSW_TPU_{k}": str(v) for k, v in values.items()
+            if v is not None}
+    old = {key: os.environ.get(key) for key in keys}
+    os.environ.update(keys)
+    try:
+        yield
+    finally:
+        for key, v in old.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
+
+
 def bulk_build(client, name, names, data, batch_size=2048):
     """``add_batch`` of the rows into index ``name`` with the build's phase
     timer on (each phase ends in a device sync); returns its seconds, the
@@ -1829,8 +1869,7 @@ def phase_hnsw(client, dev, n=10_000, n_q=2048):
     # the other frontier tiers; a delete rebuilds the snapshot in them
     tiers = {}
     for tier in ("f16", "off"):
-        os.environ["REDIS_HNSW_TPU_NBRVEC_DTYPE"] = tier
-        try:
+        with env(NBRVEC_DTYPE=tier):
             extra = int(rng.choice(np.flatnonzero(live)))
             client.delete_node("hnsw-main", names[extra])
             live[extra] = False
@@ -1847,8 +1886,6 @@ def phase_hnsw(client, dev, n=10_000, n_q=2048):
                 ef_search=GRAPH_SWEEP[t_at][0], iters=GRAPH_SWEEP[t_at][1],
                 expand=16, reply="columnar"), 2)
             tiers[tier] = (GRAPH_SWEEP[t_at], t_recall, n_q / t_s)
-        finally:
-            del os.environ["REDIS_HNSW_TPU_NBRVEC_DTYPE"]
     counts = read_counts()
     c_forms = dict(cuda_gather.fused_block_score.forms)
     check(counts["scan_topk"] > 0, "hnsw-main: kernel A never launched")
@@ -1907,8 +1944,7 @@ def phase_graph_lattice(dev, n=2000, n_q=256, devices=("cuda", "cpu")):
     reset_counts()
     checked = 0
     for j, tier in enumerate(("f32", "f16")):
-        os.environ["REDIS_HNSW_TPU_NBRVEC_DTYPE"] = tier
-        try:
+        with env(NBRVEC_DTYPE=tier):
             for c in clients:  # a mutation rebuilds the tier
                 c.delete_node("lat", f"l{j * 7}")
             for kw in (dict(expand=1), dict(expand=16),
@@ -1922,8 +1958,6 @@ def phase_graph_lattice(dev, n=2000, n_q=256, devices=("cuda", "cpu")):
                       f"graph-lattice: card and CPU replies differ ({tier}, "
                       f"{kw})")
                 checked += 1
-        finally:
-            del os.environ["REDIS_HNSW_TPU_NBRVEC_DTYPE"]
     counts = read_counts()
     check(counts["block_score"] > 0 and counts["scan_topk"] > 0,
           f"graph-lattice: a kernel never launched: {counts}")
@@ -1936,8 +1970,7 @@ def phase_graph_lattice(dev, n=2000, n_q=256, devices=("cuda", "cpu")):
     names = [f"l{i}" for i in range(n)]
     bulk = {}
     for l0 in ("scan", "beam"):
-        os.environ["REDIS_HNSW_TPU_BUILD_L0"] = l0
-        try:
+        with env(BUILD_L0=l0):
             reset_counts()
             states = []
             for c in clients:
@@ -1947,8 +1980,6 @@ def phase_graph_lattice(dev, n=2000, n_q=256, devices=("cuda", "cpu")):
                 states.append(graph_state(c.index("latb")))
                 c.delete_index("latb")
             bulk[l0] = read_counts()
-        finally:
-            del os.environ["REDIS_HNSW_TPU_BUILD_L0"]
         check(states[0] == states[1],
               f"graph-lattice: the card's bulk build ({l0}) differs from "
               f"the CPU's")
@@ -2017,6 +2048,8 @@ class ChunkedOracle:
 # until one reaches GRAPH_RECALL.
 BUILD_SERVE_POINTS = ((128, 20), (256, 20), (512, 40), (1024, 72),
                       (2048, 136))
+# phase 2d's inserts/s by row count, logged beside phase 6d's
+BUILD_RATES = {}
 
 
 def phase_build(client, dev, n=262_144, n_q=2048, gate=True, keep=False):
@@ -2059,6 +2092,7 @@ def phase_build(client, dev, n=262_144, n_q=2048, gate=True, keep=False):
     # rows left with no layer-0 link: every link of theirs was pruned by
     # their neighbours' degree caps (the reference's bidirectional shrink)
     isolated = int((snap.adj0[:n] < 0).all(1).sum())
+    BUILD_RATES[n] = n / build["s"]
     log(f"phase 2d: {name}: add_batch(batch_size=2048) of {n} x {dim} rows "
         f"in {build['s']:.3f} s ({n / build['s']:.1f} inserts/s); phases "
         f"{json.dumps(build['phases'])}; snapshot refreshes "
@@ -2152,8 +2186,7 @@ def phase_flat(client, dev, b_ms, d_ms):
     add_s = time.perf_counter() - t0
     check(S.cert_enabled(1_000_064, dim), "flat-sift1m: certified tier off")
     before = dict(S.CERT_STATS)
-    os.environ["REDIS_HNSW_TPU_CERT_ONEPASS"] = "0"  # the two-pass form
-    try:
+    with env(CERT_ONEPASS="0"):  # the two-pass form
         reset_counts()
         t0 = time.perf_counter()
         cnames, csims = idx.search_batch(qs, k, reply="columnar")
@@ -2162,8 +2195,6 @@ def phase_flat(client, dev, b_ms, d_ms):
         t0 = time.perf_counter()
         cnames2, csims2 = idx.search_batch(qs, k, reply="columnar")
         cert_s = time.perf_counter() - t0
-    finally:
-        del os.environ["REDIS_HNSW_TPU_CERT_ONEPASS"]
     check(counts["scan_topk"] > 0 and counts["count_gt_eq"] > 0,
           f"flat-sift1m: a kernel never launched: {counts}")
     check(np.array_equal(cnames, cnames2)
@@ -2176,13 +2207,10 @@ def phase_flat(client, dev, b_ms, d_ms):
     check(share >= 0.99, f"flat-sift1m: certified share {share}")
     check(stats["audits"] >= 1 and stats["audit_mismatches"] == 0,
           f"flat-sift1m: audit {stats}")
-    os.environ["REDIS_HNSW_TPU_SCAN_CERT"] = "0"
-    try:
+    with env(SCAN_CERT="0"):
         t0 = time.perf_counter()
         enames, esims = idx.search_batch(qs, k, reply="columnar")
         exact_s = time.perf_counter() - t0
-    finally:
-        del os.environ["REDIS_HNSW_TPU_SCAN_CERT"]
     check(np.array_equal(cnames, enames)
           and np.array_equal(csims.view(np.int32), esims.view(np.int32)),
           "flat-sift1m: certified replies differ from the exact tier")
@@ -2270,14 +2298,16 @@ def hamming_dists(qs, rows_words):
     return POPCOUNT8[x.view(np.uint8)].sum(-1, dtype=np.int64)
 
 
-def hamming_oracle(data, qs, k):
+def hamming_oracle(data, qs, k, rank=None):
     """numpy brute force: per query the k rows nearest by hamming
-    distance, ties to the lowest row; returns (rows [B, k], sims [B, k]
-    = -distance as f32, -0.0 at distance 0, as the reply carries it)."""
+    distance, ties to the lowest row (or the lowest ``rank``, a
+    permutation of the rows); returns (rows [B, k], sims [B, k] =
+    -distance as f32, -0.0 at distance 0, as the reply carries it)."""
     n = len(data)
+    rank = np.arange(n) if rank is None else rank
     rows = np.empty((len(qs), k), np.int64)
     for lo in range(0, len(qs), 8):
-        key = hamming_dists(qs[lo : lo + 8], data[None]) * n + np.arange(n)
+        key = hamming_dists(qs[lo : lo + 8], data[None]) * n + rank
         part = np.argpartition(key, k - 1, axis=1)[:, :k]
         rows[lo : lo + 8] = np.take_along_axis(
             part, np.argsort(np.take_along_axis(key, part, 1), axis=1), 1)
@@ -2391,8 +2421,7 @@ def phase_hamming_lattice(dev, n=2000, n_q=256, devices=("cuda", "cpu")):
             c.add_node("hl", f"l{i}", data[i])
     checked = 0
     for j, tier in enumerate(("f32", "off")):
-        os.environ["REDIS_HNSW_TPU_NBRVEC_DTYPE"] = tier
-        try:
+        with env(NBRVEC_DTYPE=tier):
             for c in clients:  # a mutation rebuilds the tier
                 c.delete_node("hl", f"l{j * 7 + 1}")
             for kw in (dict(expand=1), dict(expand=16),
@@ -2407,8 +2436,6 @@ def phase_hamming_lattice(dev, n=2000, n_q=256, devices=("cuda", "cpu")):
                       f"hamming-lattice: card and CPU replies differ "
                       f"({tier}, {kw})")
                 checked += 1
-        finally:
-            del os.environ["REDIS_HNSW_TPU_NBRVEC_DTYPE"]
     log(f"phase 2c: a {n}-row hamming index, {n_q} queries: card replies "
         f"equal the CPU's byte for byte in {checked} configurations (word "
         f"blocks / row gathers, expand 1/16, seeds 0/4, scan)")
@@ -2440,11 +2467,8 @@ def phase_flat_hamming(client, dev):
           f"{name}: kernel A′ never launched: {counts}")
     exact_s, (enames2, esims2) = timed(
         lambda: idx.search_batch(qs, k, reply="columnar"), 1)
-    os.environ["REDIS_HNSW_TPU_SCAN_CERT"] = "1"
-    try:
+    with env(SCAN_CERT="1"):
         cnames, csims = idx.search_batch(qs, k, reply="columnar")
-    finally:
-        del os.environ["REDIS_HNSW_TPU_SCAN_CERT"]
     check(S.CERT_STATS == before,
           f"{name}: a hamming batch took the certified tier")
     pallas_s, (pnames, psims) = timed(
@@ -2808,6 +2832,33 @@ def phase_wire(client, tmp, stream, queries):
                          *wire_qargs(qs[0]), *extra),
                    wire_search(want), f"SEARCH flat {extra}")
 
+        # KIND sharded: one shard a visible card, every engine, a directory
+        # checkpoint restored
+        expect(c.cmd("HNSW.NEW", "sh", "DIM", 8, "M", 4, "KIND", "sharded"),
+               "OK", "NEW sharded")
+        for i in range(40):
+            expect(c.cmd("HNSW.NODE.ADD", "sh", f"s{i}", "DATA",
+                         *wire_qargs(np.full(8, i % 13, np.float32))), "OK",
+                   "NODE.ADD sharded")
+        sq = np.full(8, 4.5, np.float32)
+        expect(c.cmd("HNSW.GET", "sh"), wire_info(client.get_index("sh")),
+               "GET sharded")
+        expect(c.cmd("HNSW.SEARCH", "sh", "K", 4, "QUERY", *wire_qargs(sq)),
+               wire_search(client.search("sh", sq, k=4)), "SEARCH sharded")
+        search_all("sh", sq, 4)
+        expect(c.cmd("HNSW.NODE.DEL", "sh", "s4"), 1, "NODE.DEL sharded")
+        shdir = os.path.join(tmp, "wire-sharded")
+        expect(c.cmd("HNSW.SAVE", "sh", "PATH", shdir), "OK", "SAVE sharded")
+        expect(c.cmd("HNSW.RESTORE", "sh-copy", "PATH", shdir), "OK",
+               "RESTORE sharded")
+        expect(c.cmd("HNSW.SEARCH", "sh-copy", "K", 4, "QUERY",
+                     *wire_qargs(sq), "ENGINE", "scan"),
+               wire_search(client.search_batch("sh", sq[None], k=4,
+                                               engine="scan")[0]),
+               "SEARCH sharded copy")
+        for name in ("sh", "sh-copy"):
+            expect(c.cmd("HNSW.DEL", name), 1, "DEL sharded")
+
         # error replies carry the client's own messages
         errors = [
             (("HNSW.GET", "ghost"), lambda: client.get_index("ghost")),
@@ -2815,8 +2866,6 @@ def phase_wire(client, tmp, stream, queries):
              lambda: client.create_index("ham", dim=8)),
             (("HNSW.NODE.ADD", "fl", "x", "DATA", 4, 1, 2, 3, 4),
              lambda: client.add_node("fl", "x", np.ones(4, np.float32))),
-            (("HNSW.NEW", "sh", "DIM", 8, "KIND", "sharded"),
-             lambda: client.create_index("sh", dim=8, kind="sharded")),
             (("HNSW.SEARCH", "ham", "QUERY", *wire_qargs(hq), "ENGINE",
               "graph", "RECALL_TARGET", "0.9"),
              lambda: client.search_batch("ham", hq[None], engine="graph",
@@ -2852,7 +2901,8 @@ def phase_wire(client, tmp, stream, queries):
     log(f"phase 4b: the wire: {n_checked} replies over RESP equal the "
         f"in-process client's (cmd.sh flow, ENGINE scan|graph|scan-approx|"
         f"auto, SEEDS, RECALL_TARGET, SAVE + RESTORE, hamming, KIND flat, "
-        f"errors incl. KIND sharded); 512 single-query HNSW.SEARCH round "
+        f"KIND sharded with a directory SAVE + RESTORE, errors); 512 "
+        f"single-query HNSW.SEARCH round "
         f"trips on {stream} ({STREAM_DIM}-d): host parity path p50 "
         f"{lat['plain'][0]:.3f} ms p99 {lat['plain'][1]:.3f} ms; ENGINE scan "
         f"p50 {lat['scan'][0]:.3f} ms p99 {lat['scan'][1]:.3f} ms")
@@ -2889,13 +2939,10 @@ def phase_flat_checkpoint(client, tmp, k=10, n_q=16_384):
     check(read_counts()["select_bins"] > d0,
           "flat checkpoint: kernel D never launched")
     same_reply(want, got, "flat checkpoint one-pass")
-    os.environ["REDIS_HNSW_TPU_SCAN_CERT"] = "0"
-    try:
+    with env(SCAN_CERT="0"):
         exact = idx.search_batch(qs, k, reply="columnar")
         same_reply(exact, back.search_batch(qs, k, reply="columnar"),
                    "flat checkpoint exact tier")
-    finally:
-        del os.environ["REDIS_HNSW_TPU_SCAN_CERT"]
     same_reply(want, exact, "flat checkpoint one-pass vs exact")
     del back
     log(f"phase 4c: flat-sift1m checkpoint: save_index(compress=False) "
@@ -2940,8 +2987,7 @@ def phase_approx_ids(client, dev, flat_qs, flat_exact, k=10, n_q=2048):
     gkw = dict(engine="graph", ef_search=256, expand=16, iters=24,
                reply="columnar")
     graph = idx.search_batch(qs, k, **gkw)
-    os.environ["REDIS_HNSW_TPU_REPLY"] = "ids-force"
-    try:
+    with env(REPLY="ids-force"):
         for label, kw, want in (("scan", dict(engine="scan",
                                               reply="columnar"), exact),
                                 ("graph", gkw, graph)):
@@ -2957,18 +3003,13 @@ def phase_approx_ids(client, dev, flat_qs, flat_exact, k=10, n_q=2048):
                    "flat-sift1m ids-force")
         ids_s, _ = timed(lambda: idx.search_batch(qs, k, engine="scan",
                                                   reply="columnar"), 5)
-    finally:
-        del os.environ["REDIS_HNSW_TPU_REPLY"]
     full_s, _ = timed(lambda: idx.search_batch(qs, k, engine="scan",
                                                reply="columnar"), 5)
     card = (torch.device("cuda", torch.cuda.current_device())
             if dev.type == "cuda" else dev)
     spb, spe = S._ids_guard_calibrate(card)
-    os.environ["REDIS_HNSW_TPU_REPLY"] = "ids"
-    try:
+    with env(REPLY="ids"):
         verdict = S.reply_ids_engaged(128, card)
-    finally:
-        del os.environ["REDIS_HNSW_TPU_REPLY"]
     out.update(ids_qps=n_q / ids_s, full_qps=n_q / full_s, verdict=verdict,
                d2h_s_per_byte=spb, host_s_per_elem=spe)
     log(f"phase 4d: scan-approx and recall_target 0.99 / 0.5 equal the "
@@ -3032,25 +3073,6 @@ def phase_wire_durability(client, dev, stage=65_536, overlap_rows=16_384):
 
 
 # -- phase 5: the scan tiers -------------------------------------------------
-
-def tier_env(dtype, mult=None):
-    """Set REDIS_HNSW_TPU_SCAN_DTYPE (and INT8_RESCORE); returns a function
-    that restores both."""
-    keys = ("REDIS_HNSW_TPU_SCAN_DTYPE", "REDIS_HNSW_TPU_INT8_RESCORE")
-    old = {key: os.environ.get(key) for key in keys}
-    os.environ[keys[0]] = dtype
-    if mult is not None:
-        os.environ[keys[1]] = str(mult)
-
-    def restore():
-        for key, v in old.items():
-            if v is None:
-                os.environ.pop(key, None)
-            else:
-                os.environ[key] = v
-
-    return restore
-
 
 def recall_of(names, truth_names):
     """Mean per-query overlap of two [B, k] name arrays, over k."""
@@ -3140,8 +3162,7 @@ def phase_tier_flat(client, dev, flat_ref, kernel_ms, k=10):
     out = {}
     for label, dtype, mult in (("bf16", "bf16", None),
                                ("int8 x1", "int8", 1), ("int8 x8", "int8", 8)):
-        restore = tier_env(dtype, mult)
-        try:
+        with env(SCAN_DTYPE=dtype, INT8_RESCORE=mult):
             torch.cuda.reset_peak_memory_stats()
             before = read_counts()
             t0 = time.perf_counter()
@@ -3176,8 +3197,6 @@ def phase_tier_flat(client, dev, flat_ref, kernel_ms, k=10):
             check(launches[core] > 0 and launches["scan_topk"] == 0,
                   f"5a {label}: the tier's kernel never launched, or kernel "
                   f"A did: {launches}")
-        finally:
-            restore()
     idx._tier_cache = None
     f32_bytes = 1_000_064 * 128 * 4
     check(out["int8 x8"]["table_bytes"] * 4 == f32_bytes,
@@ -3222,8 +3241,7 @@ def phase_tier_hnsw(client, dev, kept, k=10):
     out = {}
     for name, tqs, oracle, row_of in targets:
         for dtype in TIER_CORES:
-            restore = tier_env(dtype)
-            try:
+            with env(SCAN_DTYPE=dtype):
                 secs, (rn, rs) = timed(lambda: client.search_batch(
                     name, tqs, k=k, engine="scan", reply="columnar"), 1)
                 recall, _, short = oracle.recall(row_of, rn, rs,
@@ -3239,32 +3257,24 @@ def phase_tier_hnsw(client, dev, kept, k=10):
                 out[f"{name} {dtype}"] = dict(qps=len(tqs) / secs,
                                               recall_at_10=recall,
                                               max_abs_err=err)
-            finally:
-                restore()
     epoch = idx._snapshot_epoch
     keys = []
     for dtype in ("bf16", "int8"):
-        restore = tier_env(dtype)
-        try:
+        with env(SCAN_DTYPE=dtype):
             full = client.search_batch("hnsw-main", qs, k=k, engine="scan",
                                        reply="columnar")
             keys.append(idx._scan_cache[0])
             if dtype == "int8":
                 check(idx._scan_cache[1][0].dtype == torch.int8,
                       "5b: the int8 tier's table is not int8")
-                os.environ["REDIS_HNSW_TPU_REPLY"] = "ids-force"
-                try:
+                with env(REPLY="ids-force"):
                     got = client.search_batch("hnsw-main", qs, k=k,
                                               engine="scan", reply="columnar")
-                finally:
-                    del os.environ["REDIS_HNSW_TPU_REPLY"]
                 check(np.array_equal(got[0], full[0]),
                       "5b: ids-force on the int8 tier: ids differ")
                 out["ids_force_ulp"] = ulp_gap(got[1], full[1])
                 check(out["ids_force_ulp"] <= 2,
                       f"5b: ids-force sims {out['ids_force_ulp']} ulp off")
-        finally:
-            restore()
     check(keys == [(epoch, "bf16"), (epoch, "int8")],
           f"5b: the tier cache did not rebuild on a switch: {keys}")
     counts = read_counts()
@@ -3357,8 +3367,7 @@ def phase_capacity(client, dev, n=8_388_608, n_q=16_384, k=10):
                truth_s=truth_s, f32_table_bytes=f32_bytes)
     try:
         for mult in (1, 8):
-            restore = tier_env("int8", mult)
-            try:
+            with env(SCAN_DTYPE="int8", INT8_RESCORE=mult):
                 torch.cuda.reset_peak_memory_stats()
                 before = read_counts()
                 t0 = time.perf_counter()
@@ -3394,8 +3403,6 @@ def phase_capacity(client, dev, n=8_388_608, n_q=16_384, k=10):
                             torch.from_numpy(qs[:2048]).to(dev)),
                         "5c int8-resident")
                     torch.cuda.empty_cache()
-            finally:
-                restore()
     finally:
         client.delete_index(name)
     counts = read_counts()
@@ -3420,6 +3427,555 @@ def phase_tiers(client, dev, flat_ref, kernel_rows, kept):
     counts.append(phase_capacity(client, dev)[0])
     log(f"phase 5: {time.perf_counter() - t0:.1f} s")
     return {key: sum(c[key] for c in counts) for key in counts[0]}
+
+
+# -- phase 6: the sharded index -----------------------------------------------
+
+SHARDS = 4
+
+
+def card_mesh(dev, shape=(SHARDS,)):
+    """``dev`` repeated over a 1-D mesh, or a (slice, data) one."""
+    from redis_hnsw_tpu_torch.parallel import DATA_AXIS, SLICE_AXIS, Mesh
+
+    grid = np.empty(int(np.prod(shape)), object)
+    grid[:] = [torch.device(dev)] * grid.size
+    axes = (DATA_AXIS,) if len(shape) == 1 else (SLICE_AXIS, DATA_AXIS)
+    return Mesh(grid.reshape(shape), axes)
+
+
+def shard_graphs(idx):
+    """graph_state of every shard: what its build decided."""
+    return [graph_state(s) for s in idx.shards]
+
+
+def same_cols(a, b, label):
+    check(np.array_equal(a[0], b[0])
+          and np.array_equal(np.asarray(a[1]).view(np.int32),
+                             np.asarray(b[1]).view(np.int32)),
+          f"{label}: replies differ")
+
+
+def compare_on_shard(idx, qs, lattice, label, k=10):
+    """Every kernel a sharded search runs, held against its plain version
+    on shard 0's own tables and the phase's queries (padded as
+    search_batch pads one chunk), off the launch counters, with phase 1's
+    and phase 5's criteria (bitwise on lattice data): kernel A at k (the
+    exact scan), B at the two-pass certificate's width, D (the one-pass
+    certificate; on Gaussian data its certified top-10 is A's), C on the
+    shard's frontier table with each query's exact top-16 rows as the
+    candidates (the beam's expand = 16), and A-bf16 / A-int8 on the
+    shard's tier tables at k = 10 and 80; on a hamming shard kernel A′,
+    bitwise. Returns {kernel: max abs difference}."""
+    from redis_hnsw_tpu_torch.ops import distance as Dm
+    from redis_hnsw_tpu_torch.ops import scan as SC
+    from redis_hnsw_tpu_torch.ops.cuda_scan import (
+        euclid_sq_masked,
+        hamming_bias,
+        plain_flat_topk,
+    )
+
+    shard = idx.shards[0]
+    qd = SC.pad_queries(qs, SC.pad_pow2(len(qs)), shard.device)
+    _, vecs, sqn, live, _ = SC._scan_state(shard)
+    err = {}
+    with uncounted():
+        if idx.config.metric == "hamming":
+            err["scan_topk_hamming"] = compare_hamming(
+                (qd, vecs, hamming_bias(live)), k, f"{label} A′")
+            return err
+        case = (qd, vecs, euclid_sq_masked(sqn, live), Dm.sqnorms(qd))
+        n = int(vecs.shape[0])
+        err["scan_topk"] = compare_topk(case, k, lattice, f"{label} A")
+        err["count_gt_eq"] = compare_count(
+            case, min(SC.scan_oversample() * k, n), k, lattice, f"{label} B")
+        err["select_bins"] = compare_select(case, lattice, f"{label} D")
+        snap = shard.device_snapshot()
+        check(snap.nbrvec is not None and snap.nbrvec.is_floating_point(),
+              f"{label}: shard 0 has no float frontier table")
+        cand = plain_flat_topk(*case, k=min(16, n))[0].to(torch.int32)
+        err["block_score"] = compare_block(
+            (qd, case[3], snap.nbrvec, snap.nbrsqn, cand), lattice,
+            f"{label} C")
+    for core in TIER_CORES:
+        with env(SCAN_DTYPE=core):
+            table, _, tsqn, tlive, tscale = SC._scan_state(shard)
+        err[f"scan_topk_{core}"] = compare_on_path(
+            core, path_tier_args(table, tsqn, tlive, tscale, qd),
+            f"{label} A-{core}")
+    return err
+
+
+def sharded_add(idx, names, data, batch_size=2048, interleave=True):
+    """Seconds of one ``add_batch`` into a sharded index, the card synced."""
+    t0 = time.perf_counter()
+    idx.add_batch(names, data, batch_size=batch_size, interleave=interleave)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+# name, environment, search_batch keywords: every scan engine of 6a
+SHARDED_SCAN_ENGINES = (
+    ("exact (auto)", {}, dict(engine="auto")),
+    ("certified one-pass", dict(SCAN_CERT=1, CERT_ONEPASS=1),
+     dict(engine="scan")),
+    ("certified two-pass", dict(SCAN_CERT=1, CERT_ONEPASS=0),
+     dict(engine="scan")),
+    ("scan-approx", {}, dict(engine="scan-approx")),
+    ("ids-force", dict(REPLY="ids-force"), dict(engine="scan")),
+    ("bf16", dict(SCAN_DTYPE="bf16"), dict(engine="scan")),
+    ("int8", dict(SCAN_DTYPE="int8"), dict(engine="scan")),
+)
+SHARDED_SEEDS = 8
+
+
+def phase_sharded_main(dev, n=10_000, n_q=2048):
+    """6a: sharded-main -- phase 2's 10,000 x 128 rows and 2048 queries in
+    a ShardedHNSW over 4 shards on the card (M=16, efcon=200), built by
+    interleaved and by plain ``add_batch(batch_size=2048)`` (graphs byte-
+    equal) and on a (2, 2) mesh; every engine's reply checked: the exact
+    tier against the float64 oracle, the certified tier's two forms and
+    ids-force byte-equal to it, the bf16 / int8 tiers' recall, the graph
+    sweep with seeds, the (2, 2) mesh byte-equal to the 1-D one on every
+    engine; then 100 deletes and a checkpoint restored on the card."""
+    import tempfile
+
+    import redis_hnsw_tpu_torch as h
+    from redis_hnsw_tpu_torch.ops import scan as SC
+    from redis_hnsw_tpu_torch.parallel import ShardedHNSW
+
+    dim, k, label = 128, 10, "sharded-main"
+    rng = np.random.default_rng(SEED)  # phase 2's rows and queries
+    data = rng.standard_normal((n, dim)).astype(np.float32)
+    qs = rng.standard_normal((n_q, dim)).astype(np.float32)
+    names = [f"v{i}" for i in range(n)]
+    cfg = h.IndexConfig(dim=dim, m=16, ef_construction=200, seed=SEED,
+                        backend="native")
+    idx = {}
+    rate = {}
+    # the first build pays the first calls' costs: a warm-up build first
+    for kind, interleave, shape in (("warm-up", True, (SHARDS,)),
+                                    ("interleaved", True, (SHARDS,)),
+                                    ("plain", False, (SHARDS,)),
+                                    ("2-D", True, (2, 2))):
+        idx[kind] = ShardedHNSW(label, cfg, mesh=card_mesh(dev, shape))
+        rate[kind] = n / sharded_add(idx[kind], names, data,
+                                     interleave=interleave)
+    state = shard_graphs(idx["interleaved"])
+    check(state == shard_graphs(idx["plain"])
+          and state == shard_graphs(idx["2-D"]),
+          f"{label}: the interleaved, plain and (2, 2) builds' graphs differ")
+    del idx["plain"], idx["warm-up"], state
+    a, a2 = idx["interleaved"], idx["2-D"]
+    sizes = [s.node_count for s in a.shards]
+    n_pad = max(s.device_snapshot().n_pad for s in a.shards)
+    errs = compare_on_shard(a, qs, False, f"{label} shard 0")
+
+    xs64 = torch.from_numpy(data).to(dev, torch.float64)
+    live = np.ones(n, bool)
+    qps, cert, tiers = {}, {}, {}
+    replies = {}
+    truth = GraphOracle(xs64, live, qs, names, k)
+    for name, env_vars, kw in SHARDED_SCAN_ENGINES:
+        with env(**env_vars):
+            before = dict(SC.CERT_STATS)
+            secs, r = timed(lambda: a.search_batch(qs, k, reply="columnar",
+                                                    **kw), 2)
+            if "SCAN_CERT" in env_vars:
+                cert[name] = {key: SC.CERT_STATS[key] - before.get(key, 0)
+                              for key in ("batches", "queries",
+                                          "fallback_queries")}
+            same_cols(a2.search_batch(qs, k, reply="columnar", **kw), r,
+                      f"{label} (2, 2) mesh against 1-D, {name}")
+        qps[name] = n_q / secs
+        replies[name] = r
+        if name == "exact (auto)":
+            oracle_check(xs64, live, qs, names, *r, k, f"{label} {name}")
+        elif name in ("bf16", "int8"):
+            tiers[name] = truth.recall(*r, f"{label} {name}")
+        else:
+            same_cols(r, replies["exact (auto)"],
+                      f"{label}: {name} against the exact tier")
+    points = []
+    for i, (ef, iters) in enumerate(GRAPH_SWEEP):
+        for seeds in (SHARDED_SEEDS, 0):
+            kw = dict(engine="graph", ef_search=ef, iters=iters, expand=16,
+                      seeds=seeds)
+            secs, r = timed(lambda: a.search_batch(qs, k, reply="columnar",
+                                                    **kw), 1)
+            rec = truth.recall(*r, f"{label} graph ef={ef} seeds={seeds}")
+            points.append(dict(ef=ef, iters=iters, seeds=seeds, recall=rec,
+                               qps=n_q / secs))
+            if i == 0 and seeds:
+                check(rec >= GRAPH_RECALL,
+                      f"{label}: graph recall@{k} {rec} < {GRAPH_RECALL} at "
+                      f"the sweep's first point with seeds")
+                same_cols(a2.search_batch(qs, k, reply="columnar", **kw), r,
+                          f"{label} (2, 2) mesh against 1-D, graph")
+                with env(REPLY="ids-force"):
+                    same_cols(a.search_batch(qs, k, reply="columnar", **kw),
+                              r, f"{label}: graph ids-force")
+                graph_kw = kw
+    del a2, idx
+
+    # mutations and a checkpoint restored on the card
+    victims = rng.choice(n, 100, replace=False)
+    a.delete_batch([names[v] for v in victims])
+    live[victims] = False
+    dead = {names[v] for v in victims}
+    ex = a.search_batch(qs, k, reply="columnar")
+    gr = a.search_batch(qs, k, reply="columnar", **graph_kw)
+    check(not dead & set(ex[0].ravel().tolist())
+          and not dead & set(gr[0].ravel().tolist()),
+          f"{label}: a deleted name was served")
+    oracle_check(xs64, live, qs, names, *ex, k, f"{label} after deletes")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        a.save(tmp, compress=False)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = ShardedHNSW.restore(tmp, mesh=card_mesh(dev))
+        restore_s = time.perf_counter() - t0
+        check(all(s.device == torch.device(dev) for s in back.shards),
+              f"{label}: a restored shard is off the card")
+        same_cols(back.search_batch(qs, k, reply="columnar"), ex,
+                  f"{label} restored, exact")
+        same_cols(back.search_batch(qs, k, reply="columnar", **graph_kw), gr,
+                  f"{label} restored, graph")
+        # the client sizes a sharded index to the visible cards and never
+        # places a shard elsewhere: 4 shards on fewer cards raise
+        have = torch.cuda.device_count()
+        if have < SHARDS:
+            try:
+                h.HNSW().restore_index(tmp, name="too-many")
+            except ValueError as e:
+                check(f"need {SHARDS} devices" in str(e),
+                      f"{label}: the client's restore raised {e!r}")
+            else:
+                raise CheckFailed(f"{label}: {SHARDS} shards restored on "
+                                  f"{have} card(s)")
+    one = h.HNSW().create_index("sharded-client", dim=dim, kind="sharded")
+    check(one.n_shards == have
+          and all(s.device.type == "cuda" for s in one.shards),
+          f"{label}: the client's sharded kind is not on every card")
+    del xs64, back
+    log(f"phase 6a: {label}: {n} x {dim} rows over {SHARDS} shards on "
+        f"{dev} (shard rows {sizes}, n_pad {n_pad}); add_batch("
+        f"batch_size=2048) inserts/s, phase timer off: warm-up (interleaved) "
+        f"{rate['warm-up']:.1f}, interleaved {rate['interleaved']:.1f}, "
+        f"plain {rate['plain']:.1f}, (2, 2) mesh {rate['2-D']:.1f}; the "
+        f"graphs byte-equal; {n_q} queries k={k}, qps by engine "
+        f"{json.dumps({key: round(v, 1) for key, v in qps.items()})}; exact "
+        f"tier within the float64 oracle; certified one- and two-pass, "
+        f"scan-approx and ids-force byte-equal to it (CERT_STATS per engine, "
+        f"3 calls each: {cert}); bf16 / int8 recall@{k} {tiers}; the (2, 2) "
+        f"mesh byte-equal to the 1-D mesh on every engine; graph sweep "
+        f"(expand=16) {json.dumps(points)}; after 100 deletes no deleted "
+        f"name served, the exact tier within the oracle; save {save_s:.2f} s, "
+        f"restore on the card {restore_s:.2f} s, replies byte-equal; every "
+        f"kernel on shard 0's tables equal to its plain version (max abs "
+        f"difference {json.dumps(errs)})")
+    return errs
+
+
+def phase_sharded_lattice(dev, n=2000, n_q=256, devices=("cuda", "cpu")):
+    """6b: sharded-lattice -- phase 2b's lattice rows over 4 shards on the
+    card and on the CPU: replies byte-equal on every engine and tier,
+    then the bulk-built graphs (BUILD_L0 scan and beam)."""
+    import redis_hnsw_tpu_torch as h
+    from redis_hnsw_tpu_torch.ops import scan as SC
+    from redis_hnsw_tpu_torch.parallel import ShardedHNSW
+
+    dim, label = 32, "sharded-lattice"
+    rng = np.random.default_rng(SEED + 3)
+    data = rng.integers(-4, 5, (n, dim)).astype(np.float32)
+    qs = rng.integers(-4, 5, (n_q, dim)).astype(np.float32)
+    names = [f"l{i}" for i in range(n)]
+    cfg = h.IndexConfig(dim=dim, m=8, ef_construction=64, seed=SEED)
+    idxs = [ShardedHNSW("lat", cfg, mesh=[torch.device(d)] * SHARDS)
+            for d in devices]
+    for idx in idxs:
+        for i in range(n):
+            idx.add_node(names[i], data[i])
+    # a name of every shard per tier switch: deleting them gives every
+    # shard a new epoch, so the switch rebuilds every shard's tables
+    by_shard = [[] for _ in range(SHARDS)]
+    for name in names:
+        by_shard[[name in s for s in idxs[0].shards].index(True)].append(name)
+    errs = compare_on_shard(idxs[0], qs, True, f"{label} shard 0")
+    checked, cert = [], {}
+
+    def compare(env_vars, kw):
+        kw = dict(kw)
+        k = kw.pop("k", 10)
+        got = []
+        with env(**env_vars):
+            for idx in idxs:
+                before = dict(SC.CERT_STATS)
+                got.append(idx.search_batch(qs, k, reply="columnar", **kw))
+                if idx is idxs[0] and "SCAN_CERT" in env_vars:
+                    cert[f"one-pass={env_vars['CERT_ONEPASS']} k={k}"] = {
+                        key: SC.CERT_STATS[key] - before.get(key, 0)
+                        for key in ("batches", "queries", "fallback_queries")}
+        same_cols(got[0], got[1], f"{label}: card and CPU ({env_vars}, {kw})")
+        checked.append(1)
+
+    for e in ("scan", "scan-approx"):
+        compare({}, dict(engine=e))
+    compare(dict(SCAN_CERT=1, CERT_ONEPASS=1), dict(engine="scan", k=3))
+    compare(dict(SCAN_CERT=1, CERT_ONEPASS=0), dict(engine="scan"))
+    compare(dict(SCAN_DTYPE="bf16"), dict(engine="scan"))
+    compare(dict(SCAN_DTYPE="int8"), dict(engine="scan"))
+    compare(dict(REPLY="ids-force"), dict(engine="graph", expand=16))
+    for j, tier in enumerate(("f32", "f16")):
+        with env(NBRVEC_DTYPE=tier):
+            for idx in idxs:
+                idx.delete_batch([by_shard[s][j] for s in range(SHARDS)])
+            for kw in (dict(expand=1), dict(expand=16),
+                       dict(expand=16, seeds=4), dict(expand=1, seeds=4)):
+                compare({}, dict(engine="graph", **kw))
+    counts_at = read_counts()
+    bulk = {}
+    for l0 in ("scan", "beam"):
+        states = []
+        with env(BUILD_L0=l0):
+            for d in devices:
+                idx = ShardedHNSW("latb", cfg, mesh=[torch.device(d)] * SHARDS)
+                idx.add_batch(names, data, batch_size=512)
+                states.append(shard_graphs(idx))
+        check(states[0] == states[1],
+              f"{label}: the card's bulk build ({l0}) differs from the CPU's")
+        bulk[l0] = {key: v - counts_at[key]
+                    for key, v in read_counts().items()}
+        counts_at = read_counts()
+    log(f"phase 6b: {label}: {n} x {dim} lattice rows over {SHARDS} shards: "
+        f"card replies equal the CPU's byte for byte in {len(checked)} "
+        f"configurations (scan, scan-approx, certified one- and two-pass, "
+        f"bf16, int8, ids-force, graph with f32 / f16 blocks, expand 1/16, "
+        f"seeds 0/4; the card's CERT_STATS {cert}); the bulk builds "
+        f"(add_batch, 512-row waves; BUILD_L0 scan and beam) equal the CPU's "
+        f"byte for byte; launches {bulk}; every kernel on shard 0's tables "
+        f"bitwise equal to its plain version (A-bf16 within its band; max "
+        f"abs difference {json.dumps(errs)})")
+    return errs
+
+
+def phase_sharded_hamming(dev, n=10_000, n_q=2048):
+    """6c: sharded-hamming -- phase 2c's config5 rows (10,000 x 256 bits,
+    M=16, efcon=200) over 4 shards, built by add_batch(batch_size=2048):
+    the scan (kernel A′ per shard) byte-equal to a numpy brute force, the
+    graph engine over config5's sweep to tie-aware recall@10 >= 0.95."""
+    import redis_hnsw_tpu_torch as h
+    from redis_hnsw_tpu_torch.parallel import ShardedHNSW
+
+    W, k, label = 8, 10, "sharded-hamming"
+    rng = np.random.default_rng(SEED + 4)
+    data = rng.integers(0, 2**32, (n, W), dtype=np.uint32)
+    qs = rng.integers(0, 2**32, (n_q, W), dtype=np.uint32)
+    qs[0] = data[17]  # a distance-0 reply
+    names = [f"h{i}" for i in range(n)]
+    idx = ShardedHNSW(label, h.IndexConfig(
+        dim=32 * W, m=16, ef_construction=200, seed=SEED, metric="hamming",
+        backend="native"), mesh=card_mesh(dev))
+    build_s = sharded_add(idx, names, data)
+    scan_s, (snames, ssims) = timed(
+        lambda: idx.search_batch(qs, k, reply="columnar"), 2)
+    # ties go to the lower global id, shard * n_pad + row
+    n_pad = max(s.device_snapshot().n_pad for s in idx.shards)
+    gid = np.array([
+        next(si * n_pad + s._names.get(nm)
+             for si, s in enumerate(idx.shards) if nm in s)
+        for nm in names])
+    rows, osims = hamming_oracle(data, qs, k, rank=np.argsort(np.argsort(gid)))
+    hamming_reply_check(rows, osims, names, snames, ssims, f"{label} scan")
+    errs = compare_on_shard(idx, qs, True, f"{label} shard 0", k=k)
+    kth = osims[:, -1]
+    row_of = {nm: i for i, nm in enumerate(names)}
+    seen = []
+    for ef, iters in HAMMING_SWEEP:
+        g_s, (gnames, gsims) = timed(lambda: idx.search_batch(
+            qs, k, engine="graph", ef_search=ef, iters=iters, expand=16,
+            reply="columnar"), 1)
+        grows = np.array([[row_of.get(x, -1) for x in row]
+                          for row in gnames.tolist()])
+        distinct = (np.diff(np.sort(grows, axis=1), axis=1) > 0).all()
+        check(distinct and grows.min() >= 0,
+              f"{label} graph: a reply is not {k} distinct names")
+        true = -hamming_dists(qs, data[grows]).astype(np.float32)
+        check(np.array_equal(gsims.view(np.int32), true.view(np.int32))
+              and (np.diff(gsims, axis=1) <= 0).all(),
+              f"{label} graph: sims wrong or not nearest first")
+        recall = float((gsims >= kth[:, None]).sum()) / gsims.size
+        seen.append(dict(ef=ef, iters=iters, recall=recall, qps=n_q / g_s))
+        if recall >= GRAPH_RECALL:
+            break
+    else:
+        raise CheckFailed(f"{label}: no sweep point reaches tie-aware "
+                          f"recall@{k} >= {GRAPH_RECALL}: {seen}")
+    log(f"phase 6c: {label}: {n} x {32 * W} bits over {SHARDS} shards, "
+        f"add_batch(batch_size=2048) {n / build_s:.1f} inserts/s; scan "
+        f"{n_q} queries k={k}: {n_q / scan_s:.1f} qps, byte-identical to a "
+        f"numpy brute force, kernel A′ on shard 0's words bitwise equal to "
+        f"its plain version; graph engine (expand=16) {json.dumps(seen)}")
+    return errs
+
+
+def phase_sharded_build(dev, n=262_144, n_q=2048, gate=True):
+    """6d: sharded-build -- phase 2d's rows (n x 128 seeded Gaussian,
+    M=16, efcon=200) over 4 shards on the card, built by interleaved
+    add_batch(batch_size=2048) with the build's phase timer on (as phase
+    2d's), then 2048 queries on the exact tier against a float64 oracle
+    and on the graph engine over BUILD_SERVE_POINTS; every kernel held
+    against its plain version on shard 0's tables; the certified tier's
+    one-pass form (kernel D on every shard) at k = 10 and 5, byte-equal
+    to the exact tier. ``gate``: the graph engine must reach GRAPH_RECALL,
+    and at k = 5 the one-pass form must certify queries without the
+    chunk's re-serve (at most a quarter uncertified), so D's own rows
+    reach the reply (both only logged at other sizes). Returns the max
+    abs differences."""
+    import redis_hnsw_tpu_torch as h
+    from redis_hnsw_tpu_torch.ops import construct
+    from redis_hnsw_tpu_torch.ops import scan as SC
+    from redis_hnsw_tpu_torch.parallel import ShardedHNSW
+    from redis_hnsw_tpu_torch.utils.profiling import PhaseTimer
+
+    dim, k, label = 128, 10, "sharded-build"
+    rng = np.random.default_rng(SEED + 9)  # phase 2d's rows and queries
+    data = rng.standard_normal((n, dim), dtype=np.float32)
+    qs = rng.standard_normal((n_q, dim), dtype=np.float32)
+    names = [f"b{i}" for i in range(n)]
+    idx = ShardedHNSW(label, h.IndexConfig(
+        dim=dim, m=16, ef_construction=200, seed=SEED, backend="native"),
+        mesh=card_mesh(dev))
+    torch.cuda.reset_peak_memory_stats()
+    construct.BUILD_TIMER = timer = PhaseTimer()
+    try:
+        build_s = sharded_add(idx, names, data)
+    finally:
+        construct.BUILD_TIMER = None
+    peak = torch.cuda.max_memory_allocated()
+    check(idx.node_count == n, f"{label}: {idx.node_count} rows, not {n}")
+    refreshes = [dict(s.snapshot_refreshes) for s in idx.shards]
+    check(all(r["full"] == 1 for r in refreshes),
+          f"{label}: a shard's snapshot was rebuilt mid-build: {refreshes}")
+    single = BUILD_RATES.get(n)
+    log(f"phase 6d: {label}: interleaved add_batch(batch_size=2048) of {n} x "
+        f"{dim} rows over {SHARDS} shards in {build_s:.3f} s "
+        f"({n / build_s:.1f} inserts/s; phase 2d's single index on the same "
+        f"rows: {'%.1f' % single if single else 'not run'}); phases "
+        f"{json.dumps(timer.summary())}; snapshot refreshes {refreshes}; "
+        f"max_memory_allocated {peak} bytes")
+    xs64 = torch.from_numpy(data).to(dev, torch.float64)
+    oracle = ChunkedOracle(xs64, qs, k)
+    row_of = {nm: i for i, nm in enumerate(names)}
+    scan_s, (snames, ssims) = timed(lambda: idx.search_batch(
+        qs, k, engine="scan", reply="columnar"), 1)
+    s_recall, exact, short = oracle.recall(row_of, snames, ssims,
+                                           f"{label} scan")
+    check(exact and short == 0,
+          f"{label}: the exact tier missed a nearer row ({s_recall}, "
+          f"{short} short replies)")
+    errs = compare_on_shard(idx, qs, False, f"{label} shard 0", k=k)
+    # a query is certified when every shard's kernel D certifies it; a
+    # chunk with more than a quarter uncertified is served again whole
+    cert = {}
+    for kc in (k, 5):
+        want = (snames, ssims) if kc == k else idx.search_batch(
+            qs, kc, engine="scan", reply="columnar")
+        with env(SCAN_CERT=1, CERT_ONEPASS=1):
+            before = dict(SC.CERT_STATS)
+            c_s, got = timed(lambda: idx.search_batch(
+                qs, kc, engine="scan", reply="columnar"), 1)
+            cert[kc] = {key: SC.CERT_STATS[key] - before.get(key, 0)
+                        for key in ("batches", "queries", "fallback_queries")}
+        same_cols(got, want,
+                  f"{label}: certified one-pass at k={kc} against the exact "
+                  f"tier")
+        cert[kc]["qps"] = n_q / c_s
+    st = cert[5]
+    check(not gate or (st["fallback_queries"] < st["queries"]
+                       and 4 * st["fallback_queries"] <= st["queries"]),
+          f"{label}: at k=5 kernel D's replies never reached the reply: "
+          f"{cert}")
+    points = []
+    for i, (ef, iters) in enumerate(BUILD_SERVE_POINTS):
+        if i >= 2 and points[-1]["recall"] >= GRAPH_RECALL:
+            break
+        g_s, (gnames, gsims) = timed(lambda: idx.search_batch(
+            qs, k, engine="graph", ef_search=ef, iters=iters, expand=16,
+            reply="columnar"), 1)
+        r, _, short = oracle.recall(row_of, gnames, gsims,
+                                    f"{label} graph ef={ef} iters={iters}")
+        points.append(dict(ef=ef, iters=iters, recall=r, qps=n_q / g_s,
+                           short_replies=short))
+    check(not gate or points[-1]["recall"] >= GRAPH_RECALL,
+          f"{label}: the graph engine reaches recall@{k} < {GRAPH_RECALL} at "
+          f"every point: {points}")
+    del xs64, oracle, idx
+    torch.cuda.empty_cache()
+    log(f"phase 6d: {label}: {n_q} queries k={k}: exact tier recall@{k} "
+        f"{s_recall:.4f}, {n_q / scan_s:.1f} qps, every reply within the "
+        f"float64 oracle's k-th distance; certified one-pass byte-equal to "
+        f"the exact tier, CERT_STATS and qps by k (2 calls each) "
+        f"{json.dumps(cert)}; every kernel on shard 0's tables equal to its "
+        f"plain version (max abs difference {json.dumps(errs)}); graph "
+        f"engine (expand=16): {json.dumps(points)}")
+    return errs
+
+
+def phase_merge(dev, rows=1_000_064, n_q=2048, k=10, dim=128):
+    """6e: the merge at benchmarks/merge_scaling.py's shapes -- [S, 2048,
+    10] per-shard lists merged on the card for S = 2, 4, 8, 16 -- beside one
+    shard's exact scan of rows / S rows (kernel A and the rescore), timed
+    with CUDA events. These launches are not the main path's."""
+    from redis_hnsw_tpu_torch.ops import scan as SC
+    from redis_hnsw_tpu_torch.parallel.sharded import _merge_stacked_topk
+
+    rng = torch.Generator(device=dev).manual_seed(SEED)
+    qd = torch.randn((n_q, dim), generator=rng, device=dev)
+    out = []
+    with uncounted():
+        for S in (2, 4, 8, 16):
+            sims = torch.randn((S, n_q, k), generator=rng, device=dev)
+            sims = sims.sort(dim=2, descending=True).values
+            gids = torch.randint(0, rows, (S, n_q, k), generator=rng,
+                                 device=dev)
+            merge_ms = sync_ms(lambda: _merge_stacked_topk(gids, sims, k), 20)
+            n = rows // S
+            vecs = torch.randn((n, dim), generator=rng, device=dev)
+            sqn = (vecs * vecs).sum(1)
+            live = torch.ones(n, dtype=torch.bool, device=dev)
+            scan_ms = sync_ms(lambda: SC.scan_topk_exact_l2(
+                vecs, sqn, live, qd, k=k), 5)
+            out.append(dict(S=S, merge_ms=merge_ms, shard_rows=n,
+                            shard_scan_ms=scan_ms,
+                            merge_share=merge_ms / (merge_ms + scan_ms)))
+            del vecs, sqn, live
+    log(f"phase 6e: the merge of [S, {n_q}, {k}] lists on the card beside one "
+        f"shard's exact scan of {rows} / S rows x {dim} ({n_q} queries, "
+        f"k={k}): {json.dumps(out)}")
+    return out
+
+
+def phase_sharded(dev, build_rows=262_144):
+    """6: the sharded index on the card (4 shards on it): 6a-6e. Every
+    kernel must launch in this phase. Returns the launches and each
+    kernel's max abs difference from its plain version on the shards'
+    tables."""
+    t0 = time.perf_counter()
+    reset_counts()
+    errs = {}
+    for part in (phase_sharded_main(dev), phase_sharded_lattice(dev),
+                 phase_sharded_hamming(dev),
+                 phase_sharded_build(dev, n=build_rows)):
+        for name, e in part.items():
+            errs[name] = max(errs.get(name, 0.0), e)
+    phase_merge(dev)
+    counts = read_counts()
+    for name, c in counts.items():
+        check(c > 0, f"phase 6: kernel {name} never launched: {counts}")
+    log(f"phase 6: {time.perf_counter() - t0:.1f} s; launches {counts}")
+    return counts, errs
 
 
 def ptxas_figures(text: str, name: str) -> dict:
@@ -3520,6 +4076,11 @@ def main() -> int:
         "(e.g. 1000000, SIFT1M's size), and print its lines; the graph "
         "engine's recall is logged, not gated")
     parser.add_argument(
+        "--sharded-rows", type=int, default=0,
+        help="run only phase 6d, the sharded bulk build over 4 shards and its "
+        "serving, at this many rows (e.g. 1000000), and print its lines; the "
+        "graph engine's recall is logged, not gated")
+    parser.add_argument(
         "--capacity-rows", type=int, default=0,
         help="run only phase 5c, the int8-resident capacity shape, at this "
         "many clustered rows (e.g. 32000000, the JAX package's capacity "
@@ -3551,6 +4112,13 @@ def main() -> int:
         log(card)
         log(json.dumps({"capacity_rows": args.capacity_rows,
                         "launches": counts, "capacity": row}))
+        return 0
+    if args.sharded_rows:
+        reset_counts()
+        phase_sharded_build(dev, n=args.sharded_rows, gate=False)
+        log(card)
+        log(json.dumps({"sharded_rows": args.sharded_rows,
+                        "launches": read_counts()}))
         return 0
     if args.build_rows:
         counts, a_row, _ = phase_build(h.HNSW(), dev, n=args.build_rows,
@@ -3598,6 +4166,11 @@ def main() -> int:
     del kept, flat_ref
     client.delete_index("flat-sift1m")
     client.delete_index("hnsw-main")
+    torch.cuda.empty_cache()
+    counts, errs = phase_sharded(dev)
+    path_counts.append(counts)
+    for name, e in errs.items():
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], e)
     for counts in path_counts:
         for name, c in counts.items():
             launches[name] += c

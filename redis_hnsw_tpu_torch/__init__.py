@@ -6,10 +6,10 @@ add/get/delete with online graph repair, k-NN search) plus bulk
 construction and batched search, checkpoints in the JAX package's file
 format, a RESP server (``python -m redis_hnsw_tpu_torch.server``), the
 streaming insert+query mix (``run_mixed``) and search-knob tuning
-(``tune``), served by hand-written CUDA kernels (``csrc/``). Indexes live
-on the card unless the client is created with ``device="cpu"``;
-``default_client`` is made on first access, on the card. ROADMAP.md lists
-what is not ported yet; those entry points raise ``NotImplementedError``.
+(``tune``), and sharded indexes over a list of devices (``parallel/``),
+served by hand-written CUDA kernels (``csrc/``). Indexes live on the card
+unless the client is created with ``device="cpu"``; ``default_client`` is
+made on first access, on the card.
 
 The JAX package's ``enable_compilation_cache`` has no counterpart: there
 is no XLA cache here, and ``utils/build.py`` builds the kernels once into
@@ -18,7 +18,12 @@ is no XLA cache here, and ``utils/build.py`` builds the kernels once into
 
 from .api import HNSW
 from .config import IndexConfig
-from .convert import index_from_state, state_from_index
+from .convert import (
+    index_from_state,
+    sharded_from_state,
+    sharded_state,
+    state_from_index,
+)
 from .errors import (
     CapacityError,
     DimensionMismatch,
@@ -55,6 +60,8 @@ __all__ = [
     "SearchResult",
     "index_from_state",
     "state_from_index",
+    "sharded_state",
+    "sharded_from_state",
     "HNSWError",
     "DimensionMismatch",
     "IndexExists",

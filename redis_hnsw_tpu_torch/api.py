@@ -20,13 +20,14 @@ Defaults mirror the reference: m=5, ef_construction=200, k=5
 construction on HNSW indexes, ops/construct.py; one table append on flat
 ones), delete_batch, search_batch.
 
-A client serves from one device: the card by default (``HNSW()``), the
-CPU only when asked (``HNSW(device="cpu")``). ``save_index`` /
+A client serves from one device type: the card by default (``HNSW()``),
+the CPU only when asked (``HNSW(device="cpu")``). ``kind="sharded"``
+(parallel/sharded.py) spreads an index over ``n_shards`` devices of that
+type: cards (every visible one by default), or on the CPU the one CPU
+device ``n_shards`` times (once by default). ``save_index`` /
 ``restore_index`` write and read the JAX package's checkpoint files
-(utils/checkpoint.py), so an index crosses between the packages through
-them. Not ported yet, and raising ``NotImplementedError``:
-``kind="sharded"`` and sharded checkpoint directories (ROADMAP queue 1
-item 12).
+(utils/checkpoint.py) -- one npz, or a sharded index's directory -- so an
+index crosses between the packages through them.
 
 ``default_client`` is the module-level client of the JAX package (the
 reference's process-global INDICES registry, src/lib.rs:32-35). It is
@@ -44,6 +45,7 @@ from .config import IndexConfig, resolve_device
 from .errors import IndexExists, IndexNotFound
 from .models.flat import FlatIndex
 from .models.hnsw import HNSWIndex, SearchResult
+from .parallel.sharded import ShardedHNSW
 
 DEFAULT_K = 5  # src/lib.rs:120
 
@@ -53,7 +55,7 @@ class HNSW:
 
     def __init__(self, device=None) -> None:
         self.device = resolve_device(device)
-        self._indices: dict[str, HNSWIndex | FlatIndex] = {}
+        self._indices: dict[str, HNSWIndex | FlatIndex | ShardedHNSW] = {}
         # The registry lock guards the name->index map only; every index
         # carries its OWN lock serializing its mutations and searches, so
         # operations on *different* indexes run concurrently (the
@@ -85,7 +87,9 @@ class HNSW:
         backend: str = "auto",
         n_shards: int | None = None,
     ):
-        """HNSW.NEW. Returns the index handle (reference returns "OK")."""
+        """HNSW.NEW. Returns the index handle (reference returns "OK").
+        ``kind="sharded"`` partitions the corpus over ``n_shards``
+        devices of this client's type (see the module docstring)."""
         with self._lock:
             if name in self._indices:
                 raise IndexExists(name)
@@ -104,10 +108,8 @@ class HNSW:
             elif kind == "flat":
                 idx = FlatIndex(name, cfg, device=self.device)
             elif kind == "sharded":
-                raise NotImplementedError(
-                    "kind='sharded' is not ported yet (ROADMAP queue 1 "
-                    "item 12)"
-                )
+                idx = ShardedHNSW(name, cfg, n_shards=n_shards,
+                                  device=self.device)
             else:
                 raise ValueError(f"unknown index kind: {kind!r}")
             self._indices[name] = idx
@@ -175,28 +177,31 @@ class HNSW:
     # -- persistence (checkpoint/restore; reference: RDB callbacks) -------
 
     def save_index(self, index: str, path: str) -> None:
-        """Checkpoint an index to one npz file (reference: RDB save
-        callbacks, src/types.rs:157-284), in the JAX package's format
-        v1 (utils/checkpoint.py)."""
+        """Checkpoint an index (reference: RDB save callbacks,
+        src/types.rs:157-284) in the JAX package's format v1: one npz
+        file (utils/checkpoint.py), or for a sharded index a directory of
+        one npz per shard and a manifest."""
         from .utils.checkpoint import save_index as _save
 
         idx, lk = self._entry(index)
         with lk:
-            _save(idx, path)
+            if isinstance(idx, ShardedHNSW):
+                idx.save(path)
+            else:
+                _save(idx, path)
 
     def restore_index(self, path: str, name: str | None = None):
         """Restore an index from a checkpoint of either package onto
         this client's device and register it (reference: RDB load +
         make_index rehydration, src/lib.rs:229-315), under ``name`` if
-        given. A directory is a sharded checkpoint, which raises."""
+        given. A directory is a sharded checkpoint: its shards go to
+        ``make_mesh(n_shards, device)`` of this client's device."""
         from .utils.checkpoint import load_index as _load
 
         if os.path.isdir(path):
-            raise NotImplementedError(
-                "sharded checkpoints (a directory with manifest.json) are "
-                "not ported yet (ROADMAP queue 1 item 12)"
-            )
-        idx = _load(path, device=self.device)
+            idx = ShardedHNSW.restore(path, device=self.device)
+        else:
+            idx = _load(path, device=self.device)
         if name is not None:
             idx.name = name
         with self._lock:

@@ -14,6 +14,14 @@ name table) are byte-equal to the source index's and every later
 snapshot and reply matches. ``utils/checkpoint.py`` writes and reads the
 state as the JAX package's npz files, so a checkpoint of either package
 restores in the other.
+
+A sharded index's state is ``(manifest, [state per shard])`` in the JAX
+package's sharded checkpoint layout v1 (``ShardedHNSW.save``: the
+manifest holds ``format_version``, ``name``, ``n_shards`` and six config
+keys); :func:`sharded_state` reads it and :func:`sharded_from_state`
+builds a ``parallel.ShardedHNSW`` from it. The host layers of the two
+packages are the same, so ``sharded_state`` of a JAX ``ShardedHNSW``
+carries it into this package without a file.
 """
 
 from __future__ import annotations
@@ -197,3 +205,48 @@ def _fill_names(table, names, live) -> None:
         else:
             table._name_of.append(None)
             table._free.append(row)
+
+
+def sharded_state(index) -> tuple[dict, list[dict]]:
+    """``(manifest, [state per shard])`` of a sharded index (the inverse
+    of :func:`sharded_from_state`)."""
+    cfg = index.config
+    manifest = {
+        "format_version": FORMAT_VERSION,
+        "name": index.name,
+        "n_shards": index.n_shards,
+        "config": {
+            "dim": cfg.dim,
+            "m": cfg.m,
+            "ef_construction": cfg.ef_construction,
+            "metric": cfg.metric,
+            "capacity": cfg.capacity,
+            "seed": cfg.seed,
+        },
+    }
+    return manifest, [state_from_index(s) for s in index.shards]
+
+
+def sharded_from_state(manifest: dict, states, mesh=None, device=None):
+    """Build a ``parallel.ShardedHNSW`` from a sharded state: on ``mesh``
+    (default ``make_mesh(n_shards, device)``), which must have the
+    state's shard count; shard s goes to the mesh's s-th device. A
+    manifest of another format version is refused (HNSWError)."""
+    from .parallel.sharded import ShardedHNSW, resolve_mesh
+
+    if manifest.get("format_version") != FORMAT_VERSION:
+        raise HNSWError(
+            "cannot load sharded checkpoint format version "
+            f"{manifest.get('format_version')} (supported: {FORMAT_VERSION})"
+        )
+    n = int(manifest["n_shards"])
+    mesh = resolve_mesh(mesh, n, device)
+    if mesh.devices.size != n or len(states) != n:
+        raise HNSWError(
+            f"checkpoint has {n} shards but the mesh provides "
+            f"{mesh.devices.size} devices"
+        )
+    shards = [index_from_state(state, device=dev)
+              for state, dev in zip(states, mesh.devices.flat)]
+    return ShardedHNSW(manifest["name"], IndexConfig(**manifest["config"]),
+                       mesh=mesh, shards=shards)

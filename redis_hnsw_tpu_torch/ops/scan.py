@@ -1,7 +1,8 @@
 """Exact scan engine: brute-force k-NN over the index snapshot.
 
-Port of ``redis_hnsw_tpu/ops/scan.py``, its certified hamming tier, its
-sharded parts and its TPU-link machinery aside. Below ``ops/search.py``
+Port of ``redis_hnsw_tpu/ops/scan.py``, its certified hamming tier and
+its TPU-link machinery aside (parallel/sharded.py serves each shard with
+the functions here). Below ``ops/search.py``
 SCAN_MAX_ROWS the scan serves ``search_batch``: it is
 exact (recall 1.0), and a whole query batch against the whole table is
 one dense pass that a GPU runs well.

@@ -452,12 +452,15 @@ def _pivot_pool(index, snap):
     return pool
 
 
-def _seed_ids_for(pool, qd, seeds: int):
-    """Top-``seeds`` pivots per lane as global row ids [B, seeds]."""
+def _seed_ids_for(pool, qd, seeds: int, width: int | None = None):
+    """Top-``seeds`` pivots per lane as global row ids [B, seeds]; at most
+    ``width`` columns (default the pool's rows). The sharded index scans
+    every shard's pool at ``min(seeds, PIVOT_POOL)``, as the JAX package
+    scans its -1-padded pools: slots past a short pool's rows are -1."""
     from .scan import scan_topk
 
     ids_dev, table, sqn = pool
-    s = min(int(seeds), int(table.shape[0]))
+    s = min(int(seeds), int(table.shape[0]) if width is None else width)
     live = torch.ones(table.shape[0], dtype=torch.bool, device=table.device)
     metric = "hamming" if table.dtype == torch.int32 else "euclidean"
     local, _ = scan_topk(table, sqn, live, qd, k=s, metric=metric)

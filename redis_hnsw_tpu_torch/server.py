@@ -31,8 +31,10 @@ either package reads), and HNSW.SEARCH accepts ENGINE
 auto|graph|scan|scan-approx to route through the batched device engines
 (ops/search.py) instead of the host parity path, SEEDS n (with ENGINE
 graph) to seed the beam with per-lane pivot entrypoints, and
-RECALL_TARGET f to make the route a guarantee. ``KIND sharded`` is not
-ported yet and replies with its error (ROADMAP queue 1 item 12).
+RECALL_TARGET f to make the route a guarantee. ``KIND sharded`` makes a
+sharded index over every visible card (parallel/sharded.py; the CPU
+once under ``--device cpu``), and ``--restore`` takes a sharded
+checkpoint directory as well as an npz file.
 """
 
 from __future__ import annotations
@@ -199,8 +201,7 @@ class Dispatcher:
                 raise HNSWError("missing required argument data_dim")
             # METRIC/CAPACITY/KIND extend the reference's grammar
             # (src/lib.rs:37-56: only DIM/M/EFCON exist upstream; hamming
-            # is declared-but-missing there, Readme.md:8). KIND sharded
-            # replies with its NotImplementedError (item 12).
+            # is declared-but-missing there, Readme.md:8).
             c.create_index(
                 args[0],
                 dim=int(kw["dim"]),
@@ -363,7 +364,8 @@ def main() -> None:  # pragma: no cover - manual entry
     )
     ap.add_argument(
         "--restore", nargs="*", default=(), metavar="PATH",
-        help="checkpoints (npz, of either package) to register at startup",
+        help="checkpoints of either package to register at startup (npz "
+        "or sharded dir)",
     )
     args = ap.parse_args()
     srv = HNSWServer(args.host, args.port, device=args.device)

@@ -25,10 +25,15 @@ import numpy as np
 
 from ..convert import FORMAT_VERSION, index_from_state, state_from_index
 
-__all__ = ["FORMAT_VERSION", "save_index", "save_flat_index", "load_index"]
+__all__ = [
+    "FORMAT_VERSION", "save_index", "save_flat_index", "load_index",
+    "write_state", "load_state",
+]
 
 
-def _write(state: dict, path: str, compress: bool) -> None:
+def write_state(state: dict, path: str, compress: bool = True) -> None:
+    """Write one index state (:func:`convert.state_from_index`) as an npz
+    checkpoint file, atomically."""
     arrays = dict(state)
     arrays["meta"] = np.frombuffer(
         json.dumps(state["meta"]).encode("utf-8"), dtype=np.uint8
@@ -44,7 +49,7 @@ def save_index(index, path: str, compress: bool = True) -> None:
     """Serialize an HNSWIndex or FlatIndex to ``path`` (npz, atomic
     rename). ``compress=False`` trades file size for speed (large
     indexes, staged builds)."""
-    _write(state_from_index(index), path, compress)
+    write_state(state_from_index(index), path, compress)
 
 
 def save_flat_index(index, path: str, compress: bool = True) -> None:
@@ -58,7 +63,13 @@ def load_index(path: str, device=None):
     ``device`` (None = the card); inverse of :func:`save_index`. Unknown
     format versions are refused, not migrated (HNSWError), as the
     reference refuses unknown encvers (types.rs:181-182)."""
+    return index_from_state(load_state(path), device=device)
+
+
+def load_state(path: str) -> dict:
+    """The index state held in an npz checkpoint file of either package
+    (the inverse of :func:`write_state`)."""
     with np.load(path, allow_pickle=False) as z:
         state = {key: z[key] for key in z.files}
     state["meta"] = json.loads(bytes(state["meta"].tobytes()).decode("utf-8"))
-    return index_from_state(state, device=device)
+    return state

@@ -219,9 +219,18 @@ def test_client_save_restore(tmp_path):
     q = np.full((2, 8), 7.25, np.float32)
     assert norm(cb.search_batch("b", q, k=3)[0]) == norm(
         ca.search_batch("a", q, k=3)[0])
-    os.mkdir(tmp_path / "sharded")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cb.restore_index(str(tmp_path / "sharded"))
+    # a sharded directory of the JAX client restores in the port's
+    ca.create_index("s", dim=8, m=4, ef_construction=16, seed=0,
+                    kind="sharded")
+    ca.add_batch("s", [f"n{i}" for i in range(50)],
+                 np.arange(50, dtype=np.float32)[:, None].repeat(8, 1))
+    ca.save_index("s", str(tmp_path / "sharded"))
+    back = cb.restore_index(str(tmp_path / "sharded"))
+    assert back.n_shards == 8 and back.node_count == 50
+    assert {s.device.type for s in back.shards} == {"cpu"}
+    assert norm(cb.search_batch("s", q, k=3)) == norm(
+        ca.search_batch("s", q, k=3))
+    assert cb.get_index("s") == ca.get_index("s")
 
 
 @pytest.mark.parametrize("backend", BACKENDS)

@@ -1,8 +1,7 @@
 """The torch port stands alone: it imports neither jax nor the JAX
-package, serves from the card unless asked for the CPU (its default
-client too), and raises NotImplementedError (naming its ROADMAP item) on
-every branch of the JAX package it does not port yet -- and serves the
-branches it has, at every k the JAX package serves."""
+package (its ``parallel/`` subpackage included), serves from the card
+unless asked for the CPU (its default client too), and serves every
+branch of the JAX package's client, at every k the JAX package serves."""
 
 import ast
 import os
@@ -44,7 +43,11 @@ def _port_sources():
 
 def test_no_jax_imports_in_port_sources():
     found = []
-    for path in _port_sources():
+    sources = list(_port_sources())
+    for sub in ("mesh.py", "sharded.py", "__init__.py"):
+        assert os.path.join(REPO, "redis_hnsw_tpu_torch", "parallel",
+                            sub) in sources
+    for path in sources:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
         for node in ast.walk(tree):
@@ -86,7 +89,7 @@ def test_default_device_is_the_card(monkeypatch):
         T.no_such_name
 
 
-def test_not_ported_branches_raise(monkeypatch, tmp_path):
+def test_every_branch_is_served(monkeypatch, tmp_path):
     import redis_hnsw_tpu_torch.ops.search as S
 
     c = T.HNSW(device="cpu")
@@ -99,10 +102,6 @@ def test_not_ported_branches_raise(monkeypatch, tmp_path):
         c.add_node("f", f"n{i}", np.full(8, i, np.float32))
     c.add_node("h", "b0", np.zeros(2, np.uint32))
 
-    def raises(item, fn):
-        with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
-            fn()
-
     # checkpoints (item 8) are served: save, autosave, restore
     ckpt = str(tmp_path / "g.npz")
     c.save_index("g", ckpt)
@@ -112,7 +111,6 @@ def test_not_ported_branches_raise(monkeypatch, tmp_path):
     c.delete_node("g", "extra")
     c.index("g").disable_autosave()
     assert c.restore_index(ckpt, name="g2").node_count == 20
-    raises(12, lambda: c.restore_index(str(tmp_path)))  # a sharded dir
     # hamming is served: the scan, the graph engine and the flat kind
     hq = np.zeros((1, 2), np.uint32)
     for engine in ("auto", "scan", "graph"):
@@ -128,7 +126,18 @@ def test_not_ported_branches_raise(monkeypatch, tmp_path):
     for idx in "gf":
         assert c.search_batch(idx, q, k=3, engine="scan-approx") == exact[idx]
         assert c.search_batch(idx, q, k=3, recall_target=0.9) == exact[idx]
-    raises(12, lambda: c.create_index("s", dim=8, kind="sharded"))
+    # sharding (item 12) is served: create, fill, search, a directory
+    # checkpoint restored
+    sh = c.create_index("s", dim=8, seed=1, kind="sharded", n_shards=3)
+    assert sh.n_shards == 3 and {d.type for d in sh.devices} == {"cpu"}
+    c.add_batch("s", [f"n{i}" for i in range(20)],
+                np.arange(20, dtype=np.float32)[:, None].repeat(8, 1))
+    for engine in ("auto", "scan", "graph"):
+        assert c.search_batch("s", q, k=3, engine=engine) == exact["g"]
+    c.save_index("s", str(tmp_path / "sharded"))
+    back = c.restore_index(str(tmp_path / "sharded"), name="s2")
+    assert back.n_shards == 3
+    assert c.search_batch("s2", q, k=3) == exact["g"]
     # the bf16 and int8 scan tiers (item 9) are served on both kinds
     for value in ("bf16", "int8"):
         monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_DTYPE", value)

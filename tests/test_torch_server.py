@@ -101,6 +101,9 @@ def run_script(pair, script, dirs=None):
     return got
 
 
+OK = b"+OK\r\n"
+
+
 def vec(v, dim):
     return [str(float(v))] * dim
 
@@ -327,12 +330,26 @@ def test_graph_recall_target_error(pair):
     assert b"redis_hnsw_tpu_torch.tune()" in replies[1]
 
 
-def test_sharded_kind_replies_item_12(pair):
+def test_sharded_kind_replies_item_12(pair, tmp_path):
+    """KIND sharded round trip on the port's server (one shard on the
+    CPU; tests/test_torch_sharded.py holds 8 shards to the JAX server's
+    bytes): create, add, search, save the directory, drop, restore."""
     c = RawClient(pair[1].server_address[1])
-    assert c.cmd("HNSW.NEW", "sw", "DIM", 8, "KIND", "sharded") == (
-        b"-ERR kind='sharded' is not ported yet (ROADMAP queue 1 "
-        b"item 12)\r\n")
+    d = str(tmp_path / "sw")
+    assert c.cmd("HNSW.NEW", "sw", "DIM", 8, "KIND", "sharded") == OK
+    for i in range(12):
+        assert c.cmd("HNSW.NODE.ADD", "sw", f"n{i}", "DATA", 8,
+                     *vec(i, 8)) == OK
+    search = ("HNSW.SEARCH", "sw", "K", 2, "QUERY", 8, *vec(3, 8))
+    first = c.cmd(*search)
+    assert first.startswith(b"*3\r\n:2\r\n") and b"$2\r\nn3\r\n" in first
+    assert c.cmd(*search, "ENGINE", "graph") == first
+    assert b"node_count\r\n:12\r\n" in c.cmd("HNSW.GET", "sw")
+    assert c.cmd("HNSW.SAVE", "sw", "PATH", d) == OK
+    assert c.cmd("HNSW.DEL", "sw") == b":1\r\n"
     assert c.cmd("HNSW.GET", "sw") == b"-Index: sw does not exist\r\n"
+    assert c.cmd("HNSW.RESTORE", "sw", "PATH", d) == OK
+    assert c.cmd(*search) == first
     c.close()
 
 
