@@ -8,8 +8,9 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
 
 0. prints the card's name and power limit, the kernels' build time and,
    for kernels A, A′, B and D (the split kernels), the tier cores A-bf16
-   and A-int8 and C, ptxas registers, spills, shared memory and resident
-   blocks (C's at its main plans);
+   and A-int8 (both A-int8's forms: the wgmma form of scan_int8.cu and
+   the general form of scan_lowp.cu) and C, ptxas registers, spills,
+   shared memory and resident blocks (C's at its main plans);
 1. holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at ragged edges: bitwise on integer-lattice
    data (every score exact in f32) and on random hamming words, to a
@@ -44,15 +45,16 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
    row) and at the flat-sift1m shape, where its best candidate per query
    must be kernel A's top-1 and its stable top-10 on every query it
    certifies kernel A's top-10, bit for bit; kernels A-bf16 and A-int8
-   (the bf16 and int8 scan tiers' select on the tensor cores) at their
-   tile's and splits' edges with equal rows planted, D = 1 ... 129, k = 1
-   ... 1000, fewer live rows than k, all-zero rows and the 4-byte-copy
-   form -- int8 bitwise on Gaussian data, bf16 bitwise on lattice data
-   (|v| <= 16) and within 1e-5 (qq + sq) on Gaussian data -- and timed at
-   2048 x 1,000,064 x 128 at k = 10 and 80 with the SM clock sampled,
-   beside their tensor-core bounds, plain versions and library
-   yardsticks (bf16 torch.mm, torch._int_mm and the descale, then
-   torch.topk);
+   (the bf16 and int8 scan tiers' select on the tensor cores; A-int8 in
+   each of its forms the operands take) at their tile's and splits'
+   edges (as each form's planner cuts them) with equal rows planted, D =
+   1 ... 129, k = 1 ... 1000, fewer live rows than k, all-zero rows and
+   the 4-byte-copy form -- int8 bitwise on Gaussian data, bf16 bitwise on
+   lattice data (|v| <= 16) and within 1e-5 (qq + sq) on Gaussian data --
+   and timed at 2048 x 1,000,064 x 128 at k = 10 and 80 with the SM clock
+   sampled (A-int8's two forms in the same call), beside their
+   tensor-core bounds, plain versions and library yardsticks (bf16
+   torch.mm, torch._int_mm and the descale, then torch.topk);
 2. ``hnsw-main``: the reference workload -- an HNSW index of 10,000 x 128
    rows (M=16, efcon=200, native host core) built by
    ``add_batch(batch_size=2048)`` as bench.py builds it (layer-0
@@ -119,13 +121,15 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
    queries under the bf16 tier and the int8-resident tier (INT8_RESCORE 1
    and 8): qps, ms per chunk by part, table bytes and peak device memory,
    recall@10 against phase 3's exact reply, every sim the f32 direct form
-   of its row; 5b the HNSW scan path under both tiers on hnsw-main and on
-   phase 2d's 262,144-row index against their float64 oracles, the tier
+   of its row; 5b the HNSW scan path under both tiers on hnsw-main, on
+   phase 2d's 262,144-row index and on a 100-d index (whose int8 rows
+   A-int8's general form serves) against their float64 oracles, the tier
    cache rebuilt on a switch at one epoch, ids-force on the int8 tier;
    5c the capacity shape, 8,388,608 x 128 clustered rows
    (benchmarks/million.py's generator, copied) served as an int8-resident
    flat index at INT8_RESCORE 1 and 8 against the exact f32 tier over
-   the same rows. ``python3 chip_smoke.py --capacity-rows 32000000`` runs
+   the same rows; 5a-5c log A-int8's launches by form and its ms on the
+   phase's table. ``python3 chip_smoke.py --capacity-rows 32000000`` runs
    5c alone at the JAX package's capacity-demo size;
 6. the sharded index (``parallel.ShardedHNSW``), 4 shards on the one card,
    every kernel launched in this phase: 6a ``sharded-main``, phase 2's
@@ -944,8 +948,23 @@ def tier_fns(core):
     return cuda_scan.flat_topk_int8, cuda_scan.plain_flat_topk_int8
 
 
+def tier_forms(core, args):
+    """The forms a core is held in on these operands: kernel A-int8 in
+    its wgmma form where the operands take it, and in its general form
+    always; A-bf16 has one form."""
+    from redis_hnsw_tpu_torch.ops import cuda_scan
+
+    if core != "int8":
+        return [None]
+    q8, _, t8, tscale, sqm, _ = args
+    if cuda_scan.int8_form_of(q8, t8, sqm, tscale) == "wgmma":
+        return ["wgmma", "general"]
+    return ["general"]
+
+
 def compare_tier(core, args, k, lattice, label, planted=None):
-    """A core against its plain version: ids and sims bitwise for int8 on
+    """A core against its plain version (int8: in each of its forms the
+    operands take, :func:`tier_forms`): ids and sims bitwise for int8 on
     any data and for bf16 on lattice data; bf16 on Gaussian data: every
     slot's score within 1e-5 * (qq + sq) of the plain version's, and the
     ids equal at every slot whose plain score lies further than the two
@@ -954,49 +973,54 @@ def compare_tier(core, args, k, lattice, label, planted=None):
     the kernel may take in its place within the bands. Returns the max
     abs score difference."""
     fn, plain = tier_fns(core)
-    ids, sims = fn(*args, k=k)
     pids, psims = plain(*args, k=k + 1)
-    torch.cuda.synchronize()
     pnext = psims[:, k:]  # rank k + 1's score, -inf past the live rows
     next_ids = pids[:, k:]
     pids, psims = pids[:, :k], psims[:, :k]
     fin = torch.isfinite(psims)
-    check(torch.equal(fin, torch.isfinite(sims)),
-          f"{label}: kernel A-{core} fills other slots than the plain version")
-    err = (sims - psims)[fin].abs().max().item() if fin.any() else 0.0
-    if core == "int8" or lattice:
-        check(torch.equal(ids, pids), f"{label}: kernel A-{core} ids differ")
-        check(torch.equal(sims.view(torch.int32), psims.view(torch.int32)),
-              f"{label}: kernel A-{core} sims differ bitwise")
-    else:
-        sqm, qq = args[-2], args[-1]
-        all_ids = torch.cat([pids, next_ids], dim=1).clamp(min=0).long()
-        bands = 1e-5 * (qq[:, None] + sqm[all_ids])
-        bands = torch.where(torch.isfinite(bands), bands, 0.0)
-        band = bands[:, :k]
-        check(((sims - psims).abs() <= band)[fin].all().item(),
-              f"{label}: kernel A-bf16 scores off the plain version's by "
-              f"more than 1e-5 (qq + sq)")
-        scores = torch.cat([psims, pnext], dim=1)
-        gap = ((scores[:, 1:] - scores[:, :-1]).abs()
-               > bands[:, 1:] + bands[:, :-1])
-        sep = gap[:, :k].clone()  # apart from the next rank
-        sep[:, 1:] &= gap[:, : k - 1]  # and from the one before
-        bad = (sep & fin & (ids != pids)).nonzero()
-        if len(bad):
-            b, j = bad[0].tolist()
-            lo, hi = max(j - 1, 0), j + 2
-            raise CheckFailed(
-                f"{label}: kernel A-bf16 ids differ on well-separated "
-                f"slots ({len(bad)}; query {b} slot {j}: kernel ids "
-                f"{ids[b, lo:hi].tolist()} sims {sims[b, lo:hi].tolist()}, "
-                f"plain ids {all_ids[b, lo:hi].tolist()} sims "
-                f"{scores[b, lo:hi].tolist()}, bands "
-                f"{bands[b, lo:hi].tolist()})")
-    if planted is not None:
-        want = [planted - 1, planted, planted + 1][:k]
-        check(ids[0, :3].tolist() == want,
-              f"{label}: kernel A-{core} misorders equal rows at {planted}")
+    err = 0.0
+    for form in tier_forms(core, args):
+        what = f"kernel A-{core}" + (f" ({form} form)" if form else "")
+        ids, sims = fn(*args, k=k, **({"form": form} if form else {}))
+        torch.cuda.synchronize()
+        check(torch.equal(fin, torch.isfinite(sims)),
+              f"{label}: {what} fills other slots than the plain version")
+        if fin.any():
+            err = max(err, (sims - psims)[fin].abs().max().item())
+        if core == "int8" or lattice:
+            check(torch.equal(ids, pids), f"{label}: {what} ids differ")
+            check(torch.equal(sims.view(torch.int32), psims.view(torch.int32)),
+                  f"{label}: {what} sims differ bitwise")
+        else:
+            sqm, qq = args[-2], args[-1]
+            all_ids = torch.cat([pids, next_ids], dim=1).clamp(min=0).long()
+            bands = 1e-5 * (qq[:, None] + sqm[all_ids])
+            bands = torch.where(torch.isfinite(bands), bands, 0.0)
+            band = bands[:, :k]
+            check(((sims - psims).abs() <= band)[fin].all().item(),
+                  f"{label}: {what} scores off the plain version's by "
+                  f"more than 1e-5 (qq + sq)")
+            scores = torch.cat([psims, pnext], dim=1)
+            gap = ((scores[:, 1:] - scores[:, :-1]).abs()
+                   > bands[:, 1:] + bands[:, :-1])
+            sep = gap[:, :k].clone()  # apart from the next rank
+            sep[:, 1:] &= gap[:, : k - 1]  # and from the one before
+            bad = (sep & fin & (ids != pids)).nonzero()
+            if len(bad):
+                b, j = bad[0].tolist()
+                lo, hi = max(j - 1, 0), j + 2
+                raise CheckFailed(
+                    f"{label}: {what} ids differ on well-separated "
+                    f"slots ({len(bad)}; query {b} slot {j}: kernel ids "
+                    f"{ids[b, lo:hi].tolist()} sims "
+                    f"{sims[b, lo:hi].tolist()}, plain ids "
+                    f"{all_ids[b, lo:hi].tolist()} sims "
+                    f"{scores[b, lo:hi].tolist()}, bands "
+                    f"{bands[b, lo:hi].tolist()})")
+        if planted is not None:
+            want = [planted - 1, planted, planted + 1][:k]
+            check(ids[0, :3].tolist() == want,
+                  f"{label}: {what} misorders equal rows at {planted}")
     return err
 
 
@@ -1014,10 +1038,11 @@ def offset_table(core, args, offset):
 
 def phase_tier_edges(dev, core):
     """A core against its plain version (bitwise for int8 on Gaussian
-    data with tie classes planted, for bf16 on lattice data; bf16 also on
-    Gaussian data within its stated band): at the edges of its 128 x 128
-    tile (B, N at 1/127/128/129) and of its splits (as its own planner
-    cuts them), with dead rows and equal rows planted across them; at D =
+    data with tie classes planted, in each form the operands take; for
+    bf16 on lattice data; bf16 also on Gaussian data within its stated
+    band): at the edges of its 128 x 128 tile (B, N at 1/127/128/129) and
+    of its splits (as each form's planner cuts them), with dead rows and
+    equal rows planted across them; at D =
     1/15/16/17/31/33/129 (a 32-byte k-step, a 128-byte stage); at k = 1
     ... 1000, also with fewer live rows than k; with all-zero rows (int8
     scale 1); and in its 4-byte-copy form (a table 4 bytes off a 16-byte
@@ -1029,14 +1054,18 @@ def phase_tier_edges(dev, core):
     lattice = core == "bf16"
     err, cases = 0.0, 0
 
-    def plan(dev_, B, N):
-        return cuda_scan.lowp_plan(dev_, B, N, core)
-
+    # the splits' edges as each form's planner cuts them (int8: the wgmma
+    # form's wave plan, and the general form's)
+    plans = [lambda dev_, B, N: cuda_scan.lowp_plan(dev_, B, N, core)]
+    if core == "int8":
+        plans.append(lambda dev_, B, N: cuda_scan.int8_plan(dev_, B, N))
+    edges = [f"split{d:+d}/{i}" for i in range(len(plans)) for d in (-1, 0, 1)]
     for B in (1, 127, 128, 129):
-        for N in (1, 127, 128, 129, "split-1", "split+0", "split+1"):
+        for N in (1, 127, 128, 129, *edges):
             edge = 128
             if isinstance(N, str):
-                N, edge = split_edge(plan, dev, B, int(N[len("split"):]))
+                delta, i = N[len("split"):].split("/")
+                N, edge = split_edge(plans[int(i)], dev, B, int(delta))
             args = tier_case(rng, core, B, N, 128, lattice, 0.1, dev)
             planted = edge if N > edge + 2 else None
             if planted:
@@ -1128,17 +1157,33 @@ def phase_tier_kernels(dev):
     B, N, D = 2048, 1_000_064, 128
     rng = np.random.default_rng(SEED + 22)
     qt, xt, sqm, qq = make_case(rng, B, N, D, False, 0.0, dev)
+    sources = {
+        None: "redis_hnsw_tpu_torch/csrc/scan_lowp.cu",
+        "wgmma": "redis_hnsw_tpu_torch/csrc/scan_int8.cu",
+        "general": "redis_hnsw_tpu_torch/csrc/scan_lowp.cu"}
     for core in TIER_CORES:
         args = tier_operands(core, qt, xt, sqm, qq)
         fn, plain = tier_fns(core)
         err = max(compare_tier(core, args, k, False,
                                f"A-{core} main shape k={k}")
                   for k in (10, 80))
-        with ClockSampler() as clock:
-            ms = sync_ms(lambda: fn(*args, k=10), 20)
+        # each form timed in this call, the serving one (first) with the
+        # SM clock sampled
+        forms = {}
+        for form in tier_forms(core, args):
+            kw = {"form": form} if form else {}
+            with ClockSampler() as clock:  # long enough for samples
+                ms = sync_ms(lambda: fn(*args, k=10, **kw), 100)
+            forms[form] = dict(
+                ms=ms, ms_k80=sync_ms(lambda: fn(*args, k=80, **kw), 20),
+                source=sources[form],
+                splits=(cuda_scan.lowp_plan(dev, B, N, core) if form is None
+                        else cuda_scan.int8_plan(dev, B, N, form)),
+                clock=clock.summary())
+        served = forms[tier_forms(core, args)[0]]
         t = {
-            "ms": ms,
-            "ms_k80": sync_ms(lambda: fn(*args, k=80), 20),
+            "ms": served["ms"],
+            "ms_k80": served["ms_k80"],
             "plain_ms": sync_ms(lambda: plain(*args, k=10), 2),
         }
         try:
@@ -1153,14 +1198,17 @@ def phase_tier_kernels(dev):
         bound, by = bound_ms(2.0 * B * N * D, nbytes + 8.0 * B * 10, peak)
         bound80, _ = bound_ms(2.0 * B * N * D, nbytes + 8.0 * B * 80, peak)
         rows[core].update(
-            route="cuda", source="redis_hnsw_tpu_torch/csrc/scan_lowp.cu",
+            route="cuda", source=served["source"],
             replaces="redis_hnsw_tpu/ops/scan.py:157",
             max_abs_err=max(rows[core]["max_abs_err"], err),
             bound_ms=bound, bound_by=by, bound_ms_k80=bound80,
-            splits=cuda_scan.lowp_plan(dev, B, N, core),
+            splits=served["splits"],
             shape={"B": B, "N": N, "D": D, "k": 10}, **t)
-        log(f"phase 1: A-{core} at B={B} N={N} D={D} (ms; while it ran at "
-            f"k=10: {clock.summary()}): " + json.dumps(rows[core]))
+        if core == "int8":
+            rows[core]["forms"] = forms
+        log(f"phase 1: A-{core} at B={B} N={N} D={D} (ms; each form's SM "
+            f"clock while it ran at k=10 under forms): "
+            + json.dumps(rows[core]))
         del args
     del qt, xt, sqm, qq
     torch.cuda.empty_cache()
@@ -1717,15 +1765,36 @@ def _counters():
 
 
 def reset_counts():
-    from redis_hnsw_tpu_torch.ops import cuda_gather
+    from redis_hnsw_tpu_torch.ops import cuda_gather, cuda_scan
 
     for fn in _counters().values():
         fn.launches = 0
     cuda_gather.fused_block_score.forms.clear()
+    cuda_scan.flat_topk_int8.forms.clear()
+
+
+def int8_forms():
+    """Kernel A-int8's launches so far by the form that served them."""
+    from redis_hnsw_tpu_torch.ops import cuda_scan
+
+    return dict(cuda_scan.flat_topk_int8.forms)
+
+
+def forms_since(before):
+    """Kernel A-int8's launches by form since ``before`` (int8_forms())."""
+    return {f: n - before.get(f, 0) for f, n in int8_forms().items()
+            if n - before.get(f, 0)}
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in _counters().items()}
+    """Launches by kernel, and kernel A-int8's by form
+    ("scan_topk_int8/<form>")."""
+    from redis_hnsw_tpu_torch.ops import cuda_scan
+
+    counts = {name: fn.launches for name, fn in _counters().items()}
+    for form in cuda_scan.INT8_FORMS:
+        counts[f"scan_topk_int8/{form}"] = cuda_scan.flat_topk_int8.forms[form]
+    return counts
 
 
 @contextlib.contextmanager
@@ -1733,12 +1802,17 @@ def uncounted():
     """Launches made inside -- a kernel held against its plain version, a
     timing helper -- are taken back off the counters: they are not the
     main path's."""
+    from redis_hnsw_tpu_torch.ops import cuda_scan
+
     before = read_counts()
+    forms = dict(cuda_scan.flat_topk_int8.forms)
     try:
         yield
     finally:
         for name, fn in _counters().items():
             fn.launches = before[name]
+        cuda_scan.flat_topk_int8.forms.clear()
+        cuda_scan.flat_topk_int8.forms.update(forms)
 
 
 @contextlib.contextmanager
@@ -3140,6 +3214,14 @@ def compare_on_path(core, args, label):
                    for k in (10, 80))
 
 
+def kernel_ms_on(core, args, k=10):
+    """ms of kernel A-``core`` (the form the operands take) on a serving
+    path's own operands at k, off the launch counters."""
+    fn = tier_fns(core)[0]
+    with uncounted():
+        return sync_ms(lambda: fn(*args, k=k), 5)
+
+
 def serve_timed(idx, qs, k, reps=1):
     """(seconds per call, reply) of ``idx.search_batch(qs, k)`` after one
     warm-up call (which uploads or builds the tier's tables)."""
@@ -3165,6 +3247,7 @@ def phase_tier_flat(client, dev, flat_ref, kernel_ms, k=10):
         with env(SCAN_DTYPE=dtype, INT8_RESCORE=mult):
             torch.cuda.reset_peak_memory_stats()
             before = read_counts()
+            before_forms = int8_forms()
             t0 = time.perf_counter()
             idx.search_batch(qs[:2048], k, reply="columnar")
             first_s = time.perf_counter() - t0
@@ -3194,6 +3277,8 @@ def phase_tier_flat(client, dev, flat_ref, kernel_ms, k=10):
                 recall_at_10=recall_of(names, enames), ulp_gap=gap,
                 table_bytes=table.numel() * table.element_size(),
                 peak_bytes=peak, launches=launches[core])
+            if dtype == "int8":  # the form that served, by launches
+                out[label]["forms"] = forms_since(before_forms)
             check(launches[core] > 0 and launches["scan_topk"] == 0,
                   f"5a {label}: the tier's kernel never launched, or kernel "
                   f"A did: {launches}")
@@ -3209,15 +3294,21 @@ def phase_tier_flat(client, dev, flat_ref, kernel_ms, k=10):
         f"bytes; parts of a chunk: the kernel at phase 1's time x launches; "
         f"for int8 the device part's other work (the queries' upload and "
         f"quantization, the ids' copy) and the host rescore of every "
-        f"candidate, each timed alone on one chunk; the rest): "
+        f"candidate, each timed alone on one chunk; the rest; A-int8's "
+        f"launches by form): "
         f"{json.dumps(out)}")
     del vecs_t
     return read_counts()
 
 
+RAGGED, RAGGED_DIM = "hnsw-ragged100", 100
+
+
 def phase_tier_hnsw(client, dev, kept, k=10):
     """5b: the HNSW scan path under both tiers on hnsw-main (its live rows
-    after phase 2's deletes) and on phase 2d's 262,144-row index, each
+    after phase 2's deletes), on phase 2d's 262,144-row index and on a
+    3,000-row 100-d index (int8 rows of 100 bytes: A-int8's general form
+    serves it, its wgmma form the others), each
     reply checked against a float64 oracle (names distinct and live,
     nearest first, sims within 1e-5; recall@10 logged, held >= 0.9 for
     bf16 and >= 0.7 for int8, whose selection is quantized), and each
@@ -3237,13 +3328,26 @@ def phase_tier_hnsw(client, dev, kept, k=10):
                 {names[r]: j for j, r in enumerate(live_rows)})]
     if kept is not None:
         targets.append(kept)
+    # a 100-d index: its int8 rows are 100 bytes, not a multiple of 16, so
+    # A-int8's general form serves it
+    rg = np.random.default_rng(SEED + 16)
+    rdata = rg.standard_normal((3000, RAGGED_DIM), dtype=np.float32)
+    rqs = rg.standard_normal((512, RAGGED_DIM), dtype=np.float32)
+    client.create_index(RAGGED, dim=RAGGED_DIM, m=16, ef_construction=64,
+                        seed=SEED)
+    client.add_batch(RAGGED, [f"r{i}" for i in range(len(rdata))], rdata)
+    rx64 = torch.from_numpy(rdata).to(dev, torch.float64)
+    targets.append((RAGGED, rqs, ChunkedOracle(rx64, rqs, k),
+                    {f"r{i}": i for i in range(len(rdata))}))
     reset_counts()
     out = {}
     for name, tqs, oracle, row_of in targets:
         for dtype in TIER_CORES:
             with env(SCAN_DTYPE=dtype):
+                before_forms = int8_forms()
                 secs, (rn, rs) = timed(lambda: client.search_batch(
                     name, tqs, k=k, engine="scan", reply="columnar"), 1)
+                served = forms_since(before_forms)
                 recall, _, short = oracle.recall(row_of, rn, rs,
                                                  f"5b {name} {dtype}")
                 check(short == 0 and recall >= (0.9 if dtype == "bf16"
@@ -3251,12 +3355,21 @@ def phase_tier_hnsw(client, dev, kept, k=10):
                       f"5b {name} {dtype}: recall@{k} {recall}")
                 table, _, sqn, live, tscale = client.index(
                     name)._scan_cache[1]
-                err = compare_on_path(dtype, path_tier_args(
-                    table, sqn, live, tscale,
-                    torch.from_numpy(tqs).to(dev)), f"5b {name}")
+                args = path_tier_args(table, sqn, live, tscale,
+                                      torch.from_numpy(tqs).to(dev))
+                err = compare_on_path(dtype, args, f"5b {name}")
                 out[f"{name} {dtype}"] = dict(qps=len(tqs) / secs,
+                                              batch_ms=secs * 1e3,
                                               recall_at_10=recall,
                                               max_abs_err=err)
+                if dtype == "int8":  # the form that served, its ms here
+                    out[f"{name} {dtype}"].update(
+                        forms=served, kernel_ms=kernel_ms_on(dtype, args))
+    client.delete_index(RAGGED)
+    check(out[f"{RAGGED} int8"]["forms"].keys() == {"general"}
+          and out["hnsw-main int8"]["forms"].keys() == {"wgmma"},
+          f"5b: A-int8 served in other forms than its rows' widths take: "
+          f"{json.dumps(out)}")
     epoch = idx._snapshot_epoch
     keys = []
     for dtype in ("bf16", "int8"):
@@ -3282,7 +3395,10 @@ def phase_tier_hnsw(client, dev, kept, k=10):
           f"5b: a tier kernel never launched: {counts}")
     log(f"phase 5b: the HNSW scan path under the tiers, every reply within "
         f"the float64 oracle's checks, each core equal to its plain version "
-        f"on the index's own tier table (max_abs_err; int8 bitwise); the "
+        f"on the index's own tier table (max_abs_err; int8 bitwise, in both "
+        f"forms); int8: A-int8's launches by form (the general form on the "
+        f"100-d index) and its ms at k = {k} on the index's table beside the "
+        f"batch's ms; the "
         f"tier cache rebuilt on a switch at "
         f"epoch {epoch}; ids-force on the int8 tier equal to its full reply: "
         f"{json.dumps(out)}; launches {counts}")
@@ -3370,6 +3486,7 @@ def phase_capacity(client, dev, n=8_388_608, n_q=16_384, k=10):
             with env(SCAN_DTYPE="int8", INT8_RESCORE=mult):
                 torch.cuda.reset_peak_memory_stats()
                 before = read_counts()
+                before_forms = int8_forms()
                 t0 = time.perf_counter()
                 idx.search_batch(qs[:2048], k, reply="columnar")
                 first_s = time.perf_counter() - t0
@@ -3393,15 +3510,19 @@ def phase_capacity(client, dev, n=8_388_608, n_q=16_384, k=10):
                         parts["host_rescore_ms"] / (secs * 1e3 / chunks)),
                     first_call_s=first_s,
                     launches=launches["scan_topk_int8"],
+                    forms=forms_since(before_forms),
                     table_bytes=table.numel() * table.element_size(),
                     peak_bytes=torch.cuda.max_memory_allocated())
                 if mult == 1:  # the core on this table, once, after the
                     # peak is read: the plain version takes tens of GB
+                    args = path_tier_args(table, sqn, valid, tscale,
+                                          torch.from_numpy(qs[:2048]).to(dev))
                     row["max_abs_err"] = compare_on_path(
-                        "int8", path_tier_args(
-                            table, sqn, valid, tscale,
-                            torch.from_numpy(qs[:2048]).to(dev)),
-                        "5c int8-resident")
+                        "int8", args, "5c int8-resident")
+                    row["kernel_ms"] = {
+                        f"k={kk}": kernel_ms_on("int8", args, kk)
+                        for kk in (10, 80)}
+                    del args
                     torch.cuda.empty_cache()
     finally:
         client.delete_index(name)
@@ -3500,9 +3621,14 @@ def compare_on_shard(idx, qs, lattice, label, k=10):
     for core in TIER_CORES:
         with env(SCAN_DTYPE=core):
             table, _, tsqn, tlive, tscale = SC._scan_state(shard)
-        err[f"scan_topk_{core}"] = compare_on_path(
-            core, path_tier_args(table, tsqn, tlive, tscale, qd),
-            f"{label} A-{core}")
+        args = path_tier_args(table, tsqn, tlive, tscale, qd)
+        err[f"scan_topk_{core}"] = compare_on_path(core, args,
+                                                   f"{label} A-{core}")
+        if core == "int8":
+            log(f"{label}: A-int8 on shard 0's int8 table "
+                f"({int(table.shape[0])} rows, {len(qd)} queries, form "
+                f"{tier_forms(core, args)[0]}): "
+                f"{kernel_ms_on(core, args):.4f} ms at k = 10")
     return err
 
 
@@ -3973,8 +4099,10 @@ def phase_sharded(dev, build_rows=262_144):
     phase_merge(dev)
     counts = read_counts()
     for name, c in counts.items():
-        check(c > 0, f"phase 6: kernel {name} never launched: {counts}")
-    log(f"phase 6: {time.perf_counter() - t0:.1f} s; launches {counts}")
+        check(c > 0 or "/" in name,
+              f"phase 6: kernel {name} never launched: {counts}")
+    log(f"phase 6: {time.perf_counter() - t0:.1f} s; launches {counts}; "
+        f"A-int8's by form {int8_forms()}")
     return counts, errs
 
 
@@ -4031,6 +4159,26 @@ def log_tier_figures(path, card_index) -> None:
     log(f"phase 0: lowp_tile_kernel: {forms or 'no ptxas output'}; {smem} "
         f"bytes of dynamic shared memory a block; resident blocks on the "
         f"card {slots}")
+
+
+def log_int8_figures(path, card_index) -> None:
+    """One line: kernel A-int8's wgmma form (int8_tile_kernel) -- its
+    registers, spills and shared memory, at 128-byte rows, and its
+    resident blocks and query tile."""
+    import ctypes
+
+    from redis_hnsw_tpu_torch.ops import cuda_scan
+    from redis_hnsw_tpu_torch.utils import build
+
+    figs = ptxas_figures(build.build_log(path), "int8_tile_kernel")
+    lib = ctypes.CDLL(path)
+    log(f"phase 0: int8_tile_kernel (A-int8's wgmma form): "
+        + ("; ".join(", ".join(lines) for lines in figs.values())
+           or "no ptxas output")
+        + f"; {lib.scan_int8_smem_bytes(128)} bytes of dynamic shared memory "
+        f"a block at 128-byte rows; {lib.scan_int8_query_tile()} queries a "
+        f"block; {cuda_scan.int8_block_slots(card_index)} resident blocks on "
+        f"the card")
 
 
 def log_block_score_figures(path, card_index) -> None:
@@ -4142,6 +4290,7 @@ def main() -> int:
                      "select_bins_smem_bytes",
                      cuda_select.block_slots(card_index))
     log_tier_figures(paths["scan_lowp"], card_index)
+    log_int8_figures(paths["scan_int8"], card_index)
     log_block_score_figures(paths["block_score"], card_index)
 
     kernels = phase_kernels(dev)
@@ -4177,6 +4326,8 @@ def main() -> int:
     for name in kernels:
         check(launches[name] > 0,
               f"kernel {name} never launched on the main path")
+    for form, row in kernels["scan_topk_int8"]["forms"].items():
+        row["launches"] = launches[f"scan_topk_int8/{form}"]
     log(card)
     log(json.dumps({"kernels": [
         dict(name=name, launches=launches[name], **row)

@@ -45,7 +45,8 @@ partial sum is an integer below 2^24.
 
 The bf16 and int8 scan tiers select with two more cores on kernel A's
 selection (:func:`flat_topk_bf16`, :func:`flat_topk_int8`; kernels
-A-bf16 and A-int8 of ``csrc/scan_lowp.cu``), for work that the JAX
+A-bf16 of ``csrc/scan_lowp.cu``, A-int8 of ``csrc/scan_int8.cu`` with
+scan_lowp.cu's form as its general form), for work that the JAX
 package leaves to XLA; their section below gives their scores.
 
 Bound on the H100: the scoring is 2*B*N*D fp32 operations (true fp32, no
@@ -60,6 +61,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections import Counter
 
 import torch
 
@@ -379,10 +381,12 @@ flat_topk_hamming.launches = 0
 # -- kernels A-bf16 and A-int8: the bf16 and int8 scan tiers -------------------
 #
 # The JAX package scores these tiers in XLA (ops/scan.py ``_chunk_scores``:
-# a bf16 or int8 jnp.dot, then lax.top_k per chunk). Here two cores of
-# ``csrc/scan_lowp.cu`` score on the tensor cores under kernel A's
-# selection (heaps in device memory, list_merge_kernel), so every k is
-# served:
+# a bf16 or int8 jnp.dot, then lax.top_k per chunk). Here they score on the
+# tensor cores under kernel A's selection (heaps in device memory,
+# list_merge_kernel), so every k is served: A-bf16 on ``csrc/scan_lowp.cu``
+# (mma.sync), A-int8 on ``csrc/scan_int8.cu`` (warpgroup MMA on TMA-fed
+# tiles, its queries resident, a one-add-max-a-score filter before the
+# exact score) or, for rows it cannot take, scan_lowp.cu's general form:
 #
 #   bf16: score = (2 * dot - qq) - sq,            dot = bf16 q . bf16 x (f32)
 #   int8: score = (2 * (dot * (qscale * tscale)) - qq) - sq,
@@ -506,10 +510,95 @@ def _check_lowp(q, t, sq_masked, qq, k, dtype):
         raise ValueError("all operands must be on one device")
 
 
-def _launch_lowp(core, q, t, qq, qscale, sq_masked, tscale, k):
-    """Launch core ``core`` on CUDA tensors; returns (ids, sims). The
-    table's rows are already a multiple of 4 bytes (:func:`pad_lowp_rows`);
-    the queries are zero-padded to its width here."""
+# Kernel A-int8's forms (``flat_topk_int8.forms`` counts launches by form):
+# "wgmma", ``csrc/scan_int8.cu`` (warpgroup MMA on TMA-fed tiles), for rows
+# of a multiple of 16 bytes (up to INT8_WGMMA_MAX_ROW_BYTES) with the
+# queries, the table, tscale and sq on 16-byte boundaries, a tensor map's
+# terms; "general", ``csrc/scan_lowp.cu``'s lowp_tile_kernel<Int8Core>
+# (mma.sync on a cp.async ring), for the rest.
+INT8_FORMS = ("wgmma", "general")
+INT8_WGMMA_MAX_ROW_BYTES = 32768  # scan_int8.cu MAX_ROW_BYTES
+
+
+def int8_form(row_bytes: int, *ptrs: int) -> str:
+    """The form of kernel A-int8 that takes rows of ``row_bytes`` bytes
+    with its operands (queries, table, tscale, sq) at device addresses
+    ``ptrs``."""
+    if (row_bytes % 16 == 0 and row_bytes <= INT8_WGMMA_MAX_ROW_BYTES
+            and all(p % 16 == 0 for p in ptrs)):
+        return "wgmma"
+    return "general"
+
+
+def int8_form_of(q8, t8, sq_masked, tscale) -> str:
+    """The form :func:`flat_topk_int8` takes on these CUDA operands (the
+    queries are passed on as they are where the table's rows are not
+    padded, else as a fresh padded copy; non-contiguous operands as fresh
+    copies)."""
+    def ptr(x):
+        return x.data_ptr() if x.is_contiguous() else 0
+
+    qptr = ptr(q8) if q8.shape[1] == t8.shape[1] else 0
+    return int8_form(t8.shape[1], qptr, ptr(t8), ptr(sq_masked), ptr(tscale))
+
+
+def _int8_lib():
+    from ..utils.build import load_kernel
+
+    lib = load_kernel("scan_int8")
+    lib.scan_int8_launch.restype = _I
+    lib.scan_int8_launch.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                     _I, _P, _P, _P, _P, _P]
+    lib.scan_int8_slots.restype = _I
+    lib.scan_int8_slots.argtypes = []
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def int8_block_slots(device_index: int) -> int:
+    """Blocks of A-int8's wgmma form that card ``device_index`` holds at
+    once."""
+    with torch.cuda.device(device_index):
+        slots = _int8_lib().scan_int8_slots()
+    if slots <= 0:
+        raise RuntimeError("scan_int8: cannot read the card's occupancy")
+    return slots
+
+
+def int8_wave_plan(slots: int, B: int, N: int) -> tuple[int, int]:
+    """(splits, 128-row tiles per split) of A-int8's wgmma form over B
+    queries and N rows on a card holding ``slots`` of its blocks: one wave
+    -- every query tile of every split resident at once, so each row
+    range's tiles are read from device memory about once and the 128-query
+    blocks sharing it meet in L2 -- cut into as many equal splits as the
+    wave holds and the rows allow, none empty. Past ``slots`` query tiles
+    (B > 128 * slots) one split takes all the rows."""
+    tiles = max(1, -(-N // TILE))
+    q_tiles = max(1, -(-B // TILE))
+    splits = max(1, min(slots // q_tiles, tiles, 65535))
+    per = -(-tiles // splits)
+    return -(-tiles // per), per
+
+
+def int8_plan(device, B: int, N: int, form: str = "wgmma"
+              ) -> tuple[int, int]:
+    """(splits, 128-row tiles per split) of kernel A-int8 in ``form``:
+    :func:`int8_wave_plan` over the wgmma form's resident blocks, or the
+    general form's :func:`lowp_plan`."""
+    if form == "general":
+        return lowp_plan(device, B, N, "int8")
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    return int8_wave_plan(int8_block_slots(index), B, N)
+
+
+def _launch_lowp(core, q, t, qq, qscale, sq_masked, tscale, k,
+                 form="general"):
+    """Launch core ``core`` on CUDA tensors, int8 in ``form`` (None: the
+    one its operands take); returns (ids, sims, form). The table's rows
+    are already a multiple of 4 bytes (:func:`pad_lowp_rows`); the queries
+    are zero-padded to its width here."""
     esize = q.element_size()
     if t.shape[1] != q.shape[1]:
         q = torch.nn.functional.pad(q, (0, t.shape[1] - q.shape[1]))
@@ -519,28 +608,48 @@ def _launch_lowp(core, q, t, qq, qscale, sq_masked, tscale, k):
     B, Dw = q.shape
     N = t.shape[0]
     dev = q.device
+    if core == "int8":
+        takes = int8_form_of(q, t, sq_masked, tscale)
+        form = takes if form is None else form
+        if form == "wgmma" and takes != "wgmma":
+            raise ValueError(
+                "kernel A-int8's wgmma form needs rows of a multiple of 16 "
+                f"bytes (at most {INT8_WGMMA_MAX_ROW_BYTES}) with the "
+                "queries, the table, tscale and sq on 16-byte boundaries, "
+                f"got {Dw * esize}-byte rows, operands "
+                f"{[x.data_ptr() % 16 for x in (q, t, sq_masked, tscale)]} "
+                "bytes past one")
     out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
     if B == 0:
-        return out_i, out_s
-    lib = _lowp_lib()
-    splits, _ = lowp_plan(dev, B, N, core)
+        return out_i, out_s, form
+    if form == "wgmma":
+        lib = _int8_lib()
+        splits, _ = int8_plan(dev, B, N)
+        name = "scan_int8"
+    else:
+        lib = _lowp_lib()
+        splits, _ = lowp_plan(dev, B, N, core)
+        name = f"scan_lowp {core}"
     slabs = torch.empty((splits, B, _lib().scan_topk_slab_len(k), 2),
                         dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.scan_lowp_launch(
-            LOWP_CORES[core], q.data_ptr(), t.data_ptr(), qq.data_ptr(),
+    head = (q.data_ptr(), t.data_ptr(), qq.data_ptr(),
             None if qscale is None else qscale.data_ptr(),
             sq_masked.data_ptr(),
             None if tscale is None else tscale.data_ptr(), B, N,
-            Dw * esize, k, splits, slabs.data_ptr(), out_s.data_ptr(),
-            out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        )
+            Dw * esize, k, splits, slabs.data_ptr())
+    tail = (out_s.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        if form == "wgmma":
+            # the splits' shared k-th best per query (the launch zeroes it)
+            kshare = torch.empty(B, dtype=torch.int32, device=dev)
+            err = lib.scan_int8_launch(*head, kshare.data_ptr(), *tail)
+        else:
+            err = lib.scan_lowp_launch(LOWP_CORES[core], *head, *tail)
     if err != 0:
-        raise RuntimeError(
-            f"scan_lowp {core} kernel launch failed: CUDA error {err}"
-        )
-    return out_i, out_s
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return out_i, out_s, form
 
 
 def flat_topk_bf16(q16, t16, sq_masked, qq, *, k: int):
@@ -558,23 +667,30 @@ def flat_topk_bf16(q16, t16, sq_masked, qq, *, k: int):
         return plain_flat_topk_bf16(q16, t16, sq_masked, qq, k=k)
     if q16.device.type != "cuda":
         raise ValueError(f"unsupported device {q16.device}")
-    out = _launch_lowp("bf16", q16, t16, qq, None, sq_masked, None, k)
+    ids, sims, _ = _launch_lowp("bf16", q16, t16, qq, None, sq_masked,
+                                None, k)
     flat_topk_bf16.launches += 1
-    return out
+    return ids, sims
 
 
 flat_topk_bf16.launches = 0
 
 
-def flat_topk_int8(q8, qscale, t8, tscale, sq_masked, qq, *, k: int):
+def flat_topk_int8(q8, qscale, t8, tscale, sq_masked, qq, *, k: int,
+                   form: str | None = None):
     """Top-k of every query over every row by the int8 tier's score.
 
     ``q8`` [B, D] int8 with ``qscale`` [B] f32 and ``t8`` [N, D'] int8
     (D' = D padded to 4 bytes, :func:`pad_lowp_rows`) with ``tscale``
     [N] f32 (per-row symmetric quantization, ops/scan.py ``_to_int8``),
     ``sq_masked`` and ``qq`` as in :func:`flat_topk_bf16`. Same reply
-    contract. A CUDA tensor launches kernel A-int8 (or
-    raises); a CPU tensor takes the plain version."""
+    contract. A CUDA tensor launches kernel A-int8 (or raises) in the form
+    its shape takes (:func:`int8_form`); ``form`` forces one of
+    :data:`INT8_FORMS` (for tests and timing; "wgmma" raises on a shape it
+    cannot take). A CPU tensor takes the plain version."""
+    if form is not None and form not in INT8_FORMS:
+        raise ValueError(f"unknown kernel A-int8 form {form!r}, not one of "
+                         f"{INT8_FORMS}")
     _check_lowp(q8, t8, sq_masked, qq, k, torch.int8)
     for s, n in ((qscale, q8.shape[0]), (tscale, t8.shape[0])):
         if tuple(s.shape) != (n,) or s.dtype != torch.float32:
@@ -586,9 +702,12 @@ def flat_topk_int8(q8, qscale, t8, tscale, sq_masked, qq, *, k: int):
                                     k=k)
     if q8.device.type != "cuda":
         raise ValueError(f"unsupported device {q8.device}")
-    out = _launch_lowp("int8", q8, t8, qq, qscale, sq_masked, tscale, k)
+    ids, sims, form = _launch_lowp("int8", q8, t8, qq, qscale, sq_masked,
+                                   tscale, k, form)
     flat_topk_int8.launches += 1
-    return out
+    flat_topk_int8.forms[form] += 1
+    return ids, sims
 
 
 flat_topk_int8.launches = 0
+flat_topk_int8.forms = Counter()

@@ -1050,3 +1050,147 @@ def test_tier_search_on_card_matches_cpu(card, monkeypatch, dtype):
     for a, b in zip(out["cuda"], out["cpu"]):
         assert np.array_equal(a[0], b[0])
         assert np.array_equal(a[1].view(np.int32), b[1].view(np.int32))
+
+
+# -- kernel A-int8's two forms: wgmma (csrc/scan_int8.cu), general ----------
+
+def assert_int8_form(args, k, form, planted=()):
+    """Kernel A-int8 forced into ``form`` against its plain version, ids
+    and sims bitwise; the launch counted under its form. ``planted``:
+    (query, edge) pairs whose top 3 must be rows edge - 1 .. edge + 1 in
+    id order."""
+    forms = cuda_scan.flat_topk_int8.forms
+    before = forms[form]
+    ids, sims = cuda_scan.flat_topk_int8(*args, k=k, form=form)
+    pi, ps = cuda_scan.plain_flat_topk_int8(*args, k=k)
+    torch.cuda.synchronize()
+    assert forms[form] == before + 1
+    assert torch.equal(ids, pi)
+    assert torch.equal(sims.view(torch.int32), ps.view(torch.int32))
+    for q, edge in planted:
+        assert ids[q, :3].tolist() == [edge - 1, edge, edge + 1][:k]
+
+
+@pytest.mark.parametrize(
+    "B,N,dim,k,dead,live_rows,form",
+    [(64, 128, 16, 10, 0.1, None, "wgmma"),
+     (128, 64, 32, 1, 0.0, None, "wgmma"),
+     (65, 129, 64, 40, 0.3, None, "wgmma"),
+     (129, 127, 128, 10, 0.1, None, "wgmma"),
+     (64, 300, 128, 1000, 0.2, 7, "wgmma"),
+     (63, 200, 128, 257, 0.2, None, "wgmma"),
+     (1, 1, 16, 1, 0.0, None, "wgmma"),
+     (70, 3000, 256, 64, 0.2, None, "wgmma"),    # two resident chunks
+     (40, 700, 1056, 10, 0.1, None, "wgmma"),    # queries streamed
+     (129, 127, 128, 10, 0.1, None, "general"),
+     (64, 300, 128, 1000, 0.2, 7, "general"),
+     (64, 128, 24, 10, 0.1, None, "general"),
+     (65, 129, 33, 40, 0.3, None, "general"),
+     (33, 2000, 129, 80, 0.2, None, "general"),
+     (127, 129, 1, 1, 0.0, None, "general"),
+     (128, 128, 17, 300, 0.1, 5, "general")],
+)
+def test_int8_forms_ragged(card, B, N, dim, k, dead, live_rows, form):
+    """Both forms of kernel A-int8, each forced, bitwise against the plain
+    version at ragged shapes: B and N about 64 / 128, D = 16, 32, 64, 128
+    (and 256, and 1056 whose queries stream through the ring) on the
+    wgmma form, rows of 24, 36, 132, 4 and 20 bytes on the general form,
+    k from 1 to 1000 with fewer live rows than k."""
+    rng = np.random.default_rng(B * N + dim + k)
+    args = lowp_operands(rng, B, N, dim, "int8", False, dead, card,
+                         live_rows=live_rows)
+    assert_int8_form(args, k, form)
+
+
+@pytest.mark.parametrize("dim", [24, 33, 129, 64])
+def test_int8_wgmma_refuses_what_it_cannot_take(card, dim):
+    """Rows that are not a multiple of 16 bytes, or a table off a 16-byte
+    boundary, take the general form; forcing the wgmma form raises."""
+    rng = np.random.default_rng(dim)
+    args = lowp_operands(rng, 64, 500, dim, "int8", False, 0.1, card,
+                         offset=4 if dim == 64 else 0)
+    with pytest.raises(ValueError, match="wgmma"):
+        cuda_scan.flat_topk_int8(*args, k=10, form="wgmma")
+    assert_int8_form(args, 10, "general")
+
+
+def plant_query_ties(args, q, edge):
+    """Query q's own row at rows edge - 1 .. edge + 1, live, with its
+    scale and sqnorm: its top 3 are those rows in id order."""
+    q8, qs, t8, ts, sqm, qq = args
+    t8[edge - 1 : edge + 2, : q8.shape[1]] = q8[q]
+    ts[edge - 1 : edge + 2] = qs[q]
+    sqm[edge - 1 : edge + 2] = qq[q]
+
+
+@pytest.mark.parametrize("B", [129, 2049])
+@pytest.mark.parametrize("k", [3, 10, 80])
+def test_int8_wgmma_ties_across_every_edge(card, B, k):
+    """Equal rows planted across the wgmma form's edges, for queries on
+    either side of its edges: the two warpgroups' halves of a block
+    (queries 63 / 64), a warp's two query rows (g and g + 8: queries 7 /
+    8), a block's last and the next block's first (127 / 128); the rows
+    across a 128-row tile edge and across each of its split edges as its
+    own planner cuts them. Each query's ties come first in id order."""
+    rng = np.random.default_rng(B + k)
+    N = 40_000
+    args = lowp_operands(rng, B, N, 128, "int8", False, 0.05, card)
+    splits, per = cuda_scan.int8_plan(card, B, N)
+    edges = [128, 3 * 128] + [s * per * 128 for s in range(1, splits)]
+    queries = sorted({0, 7, 8, 63, 64, 127, 128, B - 1})
+    planted = []
+    for i, q in enumerate(queries):
+        edge = edges[i % len(edges)] + (0 if i < len(edges) else 640)
+        if edge + 2 < N:
+            plant_query_ties(args, q, edge)
+            planted.append((q, edge))
+    assert splits > 1
+    assert_int8_form(args, k, "wgmma", planted)
+    assert_int8_form(args, k, "general", planted)
+
+
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_int8_wgmma_bound_on_adversarial_scales(card, k):
+    """The wgmma form's dot bound on rows whose scales span six decades
+    within every tile (tiny and huge rows interleaved), with tiny rows of
+    both signs against each query -- so the key sits among rows of
+    positive and of negative dots -- and rows of every scale next to
+    them: bitwise against the plain version."""
+    from redis_hnsw_tpu_torch.ops import scan as TS
+
+    rng = np.random.default_rng(k)
+    B, N, dim = 130, 6000, 128
+    q = rng.standard_normal((B, dim)).astype(np.float32)
+    x = rng.standard_normal((N, dim)).astype(np.float32)
+    x *= (10.0 ** rng.uniform(-3, 3, N)).astype(np.float32)[:, None]
+    sign = np.where(rng.random(N) < 0.5, -1.0, 1.0).astype(np.float32)
+    near = rng.random(N) < 0.3  # tiny copies of a query, either sign
+    src = rng.integers(0, B, N)
+    x[near] = (1e-3 * sign[near, None] * q[src[near]]
+               + 1e-5 * rng.standard_normal((int(near.sum()), dim)))
+    x[::97] = 0.0  # all-zero rows: scale 1
+    qt, xt = torch.from_numpy(q).to(card), torch.from_numpy(x).to(card)
+    sq = torch.from_numpy(np.einsum("nd,nd->n", x, x)).to(card)
+    live = torch.from_numpy(rng.random(N) >= 0.05).to(card)
+    sqm = cuda_scan.euclid_sq_masked(sq, live)
+    q8, qs = TS._to_int8(qt)
+    t8, ts = TS._to_int8(xt)
+    args = [q8, qs, cuda_scan.pad_lowp_rows(t8), ts, sqm, TD.sqnorms(qt)]
+    assert_int8_form(args, k, "wgmma")
+
+
+def test_int8_forms_counted(card):
+    """flat_topk_int8.forms counts each launch by the form that served it:
+    the wgmma form where the rows are a multiple of 16 bytes on 16-byte
+    boundaries, the general form elsewhere and where it is forced."""
+    rng = np.random.default_rng(5)
+    forms = cuda_scan.flat_topk_int8.forms
+    before = dict(forms)
+    wide = lowp_operands(rng, 64, 400, 128, "int8", False, 0.1, card)
+    narrow = lowp_operands(rng, 64, 400, 24, "int8", False, 0.1, card)
+    cuda_scan.flat_topk_int8(*wide, k=10)
+    cuda_scan.flat_topk_int8(*narrow, k=10)
+    cuda_scan.flat_topk_int8(*wide, k=10, form="general")
+    torch.cuda.synchronize()
+    assert forms["wgmma"] == before.get("wgmma", 0) + 1
+    assert forms["general"] == before.get("general", 0) + 2

@@ -162,6 +162,81 @@ def test_hamming_plan(monkeypatch, B, N, want):
         assert cuda_select.plan_splits(264, -(-B // 128), tiles) > splits
 
 
+@pytest.mark.parametrize(
+    "row_bytes,offsets,want",
+    [(128, (0, 0, 0, 0), "wgmma"),      # flat-sift1m's int8 rows
+     (16, (0, 0, 0, 0), "wgmma"),
+     (1056, (0, 0, 0, 0), "wgmma"),     # queries streamed
+     (32768, (0, 0, 0, 0), "wgmma"),    # the widest row it takes
+     (32784, (0, 0, 0, 0), "general"),  # wider: |dot| past 2^29
+     (24, (0, 0, 0, 0), "general"),     # rows padded to 4 bytes only
+     (36, (0, 0, 0, 0), "general"),
+     (132, (0, 0, 0, 0), "general"),
+     (128, (4, 0, 0, 0), "general"),    # the queries off 16 bytes
+     (128, (0, 4, 0, 0), "general"),    # the table
+     (128, (0, 0, 8, 0), "general"),    # sq
+     (128, (0, 0, 0, 4), "general")],   # tscale
+)
+def test_int8_form_choice(row_bytes, offsets, want):
+    """Kernel A-int8's form by row bytes and alignment: the wgmma form
+    takes rows of a multiple of 16 bytes up to 32768 with every operand
+    on a 16-byte boundary (a tensor map's terms), the general form the
+    rest."""
+    base = 1 << 20
+    got = cuda_scan.int8_form(row_bytes, *(base + o for o in offsets))
+    assert got == want
+
+
+@pytest.mark.parametrize("B", [1, 2048, 16_384])
+@pytest.mark.parametrize("N", [1, 10_000, 1_000_064, 8_388_608])
+def test_int8_wave_plan(B, N):
+    """The wgmma form's planner on a card holding 132 of its blocks: every
+    128-row range covered by exactly one split, as the kernel cuts them
+    (ceil(tiles / splits) tiles each, none empty), and every query tile
+    of every split in one wave; past a few tiles a split, the wave full
+    to within one split's query tiles."""
+    slots = 132
+    splits, per = cuda_scan.int8_wave_plan(slots, B, N)
+    tiles = max(1, -(-N // 128))
+    q_tiles = -(-B // 128)
+    assert (splits - 1) * per < tiles <= splits * per
+    assert -(-tiles // splits) == per
+    assert q_tiles * splits <= slots
+    if tiles >= slots:
+        assert slots - q_tiles <= q_tiles * splits
+
+
+def test_int8_plan_by_form(monkeypatch):
+    """int8_plan reads the wgmma form's resident blocks for its wave plan,
+    and the general form's planner for the general form."""
+    monkeypatch.setattr(cuda_scan, "int8_block_slots", lambda index: 132)
+    monkeypatch.setattr(cuda_scan, "lowp_block_slots",
+                        lambda index, core: 264)
+    dev = torch.device("cuda", 0)
+    assert cuda_scan.int8_plan(dev, 2048, 1_000_064) == (8, 977)
+    assert cuda_scan.int8_plan(dev, 2048, 1_000_064, "general") == \
+        cuda_scan.lowp_plan(dev, 2048, 1_000_064, "int8")
+
+
+def test_int8_form_keyword(rng):
+    """flat_topk_int8's form= takes "wgmma" or "general" (on a CPU tensor
+    both are the plain version) and rejects anything else."""
+    from redis_hnsw_tpu_torch.ops import scan as TS
+
+    q, x, live, sq, qq = make(rng, 5, 300, 16, False)
+    qt, xt, sqm, qqt = torch_operands(q, x, live, sq, qq)
+    q8, qs = TS._to_int8(qt)
+    t8, ts = TS._to_int8(xt)
+    args = (q8, qs, t8, ts, sqm, qqt)
+    want = cuda_scan.plain_flat_topk_int8(*args, k=7)
+    for form in (None, *cuda_scan.INT8_FORMS):
+        got = cuda_scan.flat_topk_int8(*args, k=7, form=form)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for form in ("tma", "WGMMA", ""):
+        with pytest.raises(ValueError, match="form"):
+            cuda_scan.flat_topk_int8(*args, k=7, form=form)
+
+
 @pytest.mark.parametrize("splits", [1, 33, 100])
 def test_merge_lists_over_many_splits(rng, splits):
     """The merge of kernel A's per-split lists, more than 32 of them (one

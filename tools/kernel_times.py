@@ -17,7 +17,8 @@ over those rows and at hnsw-main's 2048 x 16,384; the bf16 and int8
 tiers' kernels A-bf16 and A-int8 on those rows' bf16 and int8 copies, at
 k = 10, and A-int8 also at k = 80, the int8-resident tier's width:
 ``a_bf16_ms``, ``a_int8_ms``, ``a_int8_k80_ms``, where the checkout has
-them); A′ at 2048 x 1,000,064 rows of
+them; A-int8's general form forced, ``a_int8_general_ms`` and
+``a_int8_general_k80_ms``, where it has forms); A′ at 2048 x 1,000,064 rows of
 8 words, k_sel = 40 and k = 10, at B = 16 over those rows and at 2048 x
 16,384 (hnsw-hamming-256b's scan), k = 10; C at B = 2048, E = 16 over a
 1,000,064 x 32 x 128 block table in f32 (``c_ms``), f16 and bf16, at B =
@@ -161,6 +162,12 @@ def main() -> int:
             t["a_int8_ms" if k == 10 else "a_int8_k80_ms"] = sync_ms(
                 lambda: cuda_scan.flat_topk_int8(q8, qs8, x8, xs8, sq, qq,
                                                  k=k), 10)
+        if hasattr(cuda_scan, "INT8_FORMS"):  # a checkout with its forms
+            for k in (10, 80):
+                t["a_int8_general_ms" if k == 10
+                  else "a_int8_general_k80_ms"] = sync_ms(
+                    lambda: cuda_scan.flat_topk_int8(
+                        q8, qs8, x8, xs8, sq, qq, k=k, form="general"), 10)
         del x8, xs8, q8, qs8
     del x, q, sq, qq
     torch.cuda.empty_cache()
