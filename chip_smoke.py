@@ -8,8 +8,9 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
 
 0. prints the card's name and power limit, the kernels' build time and,
    for kernels A, A′, B and D (the split kernels), the tier cores A-bf16
-   and A-int8 (both A-int8's forms: the wgmma form of scan_int8.cu and
-   the general form of scan_lowp.cu) and C, ptxas registers, spills,
+   and A-int8 (both forms of each: the wgmma forms of scan_bf16.cu and
+   scan_int8.cu and the general form of scan_lowp.cu) and C, ptxas
+   registers, spills,
    shared memory and resident blocks (C's at its main plans);
 1. holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at ragged edges: bitwise on integer-lattice
@@ -45,14 +46,14 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
    row) and at the flat-sift1m shape, where its best candidate per query
    must be kernel A's top-1 and its stable top-10 on every query it
    certifies kernel A's top-10, bit for bit; kernels A-bf16 and A-int8
-   (the bf16 and int8 scan tiers' select on the tensor cores; A-int8 in
+   (the bf16 and int8 scan tiers' select on the tensor cores, each in
    each of its forms the operands take) at their tile's and splits'
    edges (as each form's planner cuts them) with equal rows planted, D =
    1 ... 129, k = 1 ... 1000, fewer live rows than k, all-zero rows and
    the 4-byte-copy form -- int8 bitwise on Gaussian data, bf16 bitwise on
    lattice data (|v| <= 16) and within 1e-5 (qq + sq) on Gaussian data --
    and timed at 2048 x 1,000,064 x 128 at k = 10 and 80 with the SM clock
-   sampled (A-int8's two forms in the same call), beside their
+   sampled (each core's two forms in the same call), beside their
    tensor-core bounds, plain versions and library yardsticks (bf16
    torch.mm, torch._int_mm and the descale, then torch.topk);
 2. ``hnsw-main``: the reference workload -- an HNSW index of 10,000 x 128
@@ -122,14 +123,15 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
    and 8): qps, ms per chunk by part, table bytes and peak device memory,
    recall@10 against phase 3's exact reply, every sim the f32 direct form
    of its row; 5b the HNSW scan path under both tiers on hnsw-main, on
-   phase 2d's 262,144-row index and on a 100-d index (whose int8 rows
-   A-int8's general form serves) against their float64 oracles, the tier
+   phase 2d's 262,144-row index and on a 100-d index (whose bf16 and
+   int8 rows the general forms serve) against their float64 oracles, the
+   tier
    cache rebuilt on a switch at one epoch, ids-force on the int8 tier;
    5c the capacity shape, 8,388,608 x 128 clustered rows
    (benchmarks/million.py's generator, copied) served as an int8-resident
    flat index at INT8_RESCORE 1 and 8 against the exact f32 tier over
-   the same rows; 5a-5c log A-int8's launches by form and its ms on the
-   phase's table. ``python3 chip_smoke.py --capacity-rows 32000000`` runs
+   the same rows; 5a-5c log A-bf16's and A-int8's launches by form and
+   their ms on the phase's table. ``python3 chip_smoke.py --capacity-rows 32000000`` runs
    5c alone at the JAX package's capacity-demo size;
 6. the sharded index (``parallel.ShardedHNSW``), 4 shards on the one card,
    every kernel launched in this phase: 6a ``sharded-main``, phase 2's
@@ -160,6 +162,7 @@ are the card line, one JSON object of per-kernel numbers, and
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -174,14 +177,15 @@ os.environ["REDIS_HNSW_TPU_SCAN_CERT_AUDIT"] = "8"
 
 import torch  # noqa: E402
 
-PEAK_FP32_FLOPS = 67e12   # H100 SXM, fp32 outside the tensor cores
-PEAK_F16_FLOPS = 989e12   # H100 SXM, fp16 tensor cores, dense
-PEAK_INT8_OPS = 1979e12   # H100 SXM, int8 tensor cores, dense
+# Operations per clock per SM at compute capability 9.0, dense: the H100
+# SXM data sheet's rates (fp32 67, bf16 989.4 and int8 1,978.9 tera a
+# second) over its 132 SMs and the boost clock each assumes (fp32 1,980
+# MHz, the tensor cores 1,830 MHz); population counts from the CUDA C++
+# Programming Guide's arithmetic instruction throughput table. A peak is
+# this times the card's SM count and its maximum SM clock, read from the
+# card (:func:`peak`).
+PER_CLOCK_SM = {"fp32": 256, "bf16": 4096, "int8": 8192, "popc": 16}
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
-# Population counts per clock per SM at compute capability 9.0 (CUDA C++
-# Programming Guide, arithmetic instruction throughput table); times the
-# SM count and the card's maximum SM clock, read from the card.
-POPC_PER_CLOCK_SM = 16
 SEED = 7
 
 
@@ -291,16 +295,19 @@ def timed(fn, reps: int):
 
 
 def bound_ms(flops: float, nbytes: float,
-             peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
-    t_ops = flops / peak * 1e3
+             kind: str = "fp32") -> tuple[float, str]:
+    t_ops = flops / peak(kind) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def popc_peak(dev) -> float:
-    """The card's population-count rate, per second."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return POPC_PER_CLOCK_SM * sms * max_sm_clock_hz()
+@functools.cache
+def peak(kind: str) -> float:
+    """The current card's peak rate of ``kind`` operations (a key of
+    PER_CLOCK_SM) per second, at its maximum SM clock."""
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    return PER_CLOCK_SM[kind] * sms * max_sm_clock_hz()
 
 
 # -- phase 1: kernels against their plain versions -------------------------
@@ -841,15 +848,14 @@ def phase_hamming_kernels(dev):
     ops = 2.0 * B * N * 32 * W
     popc = float(B) * N * W
     in_bytes = 4.0 * (B * W + N * W + N) + 8.0 * B * k_sel
-    a_bound, a_by = bound_ms(ops, in_bytes, PEAK_INT8_OPS)
-    peak = popc_peak(dev)
-    popc_bound, _ = bound_ms(popc, in_bytes, peak)
+    a_bound, a_by = bound_ms(ops, in_bytes, "int8")
+    popc_bound, _ = bound_ms(popc, in_bytes, "popc")
     tc_bound, _ = bound_ms(2.0 * B * N * 32 * W, 2.0 * 32 * W * (B + N),
-                           PEAK_F16_FLOPS)
+                           "bf16")
     log(f"phase 1: hamming bounds: {ops:.4g} int8 operations at "
-        f"{PEAK_INT8_OPS:.4g}/s -> A′ {a_bound:.4f} ms ({a_by}); as "
-        f"{popc:.4g} popcounts at {peak:.4g}/s {popc_bound:.4f} ms; the f16 "
-        f"yardstick's own bound {tc_bound:.4f} ms")
+        f"{peak('int8'):.4g}/s -> A′ {a_bound:.4f} ms ({a_by}); as "
+        f"{popc:.4g} popcounts at {peak('popc'):.4g}/s {popc_bound:.4f} ms; "
+        f"the f16 yardstick's own bound {tc_bound:.4f} ms")
     del qt, xt, bias, qs16
     torch.cuda.empty_cache()
     shape = {"B": B, "N": N, "W": W}
@@ -949,17 +955,17 @@ def tier_fns(core):
 
 
 def tier_forms(core, args):
-    """The forms a core is held in on these operands: kernel A-int8 in
-    its wgmma form where the operands take it, and in its general form
-    always; A-bf16 has one form."""
+    """The forms a core is held in on these operands, the one they take
+    first: its wgmma form where the operands take it, and its general
+    form always."""
     from redis_hnsw_tpu_torch.ops import cuda_scan
 
-    if core != "int8":
-        return [None]
-    q8, _, t8, tscale, sqm, _ = args
-    if cuda_scan.int8_form_of(q8, t8, sqm, tscale) == "wgmma":
-        return ["wgmma", "general"]
-    return ["general"]
+    if core == "int8":
+        q8, _, t8, tscale, sqm, _ = args
+        takes = cuda_scan.int8_form_of(q8, t8, sqm, tscale)
+    else:
+        takes = cuda_scan.bf16_form_of(*args[:3])
+    return ["wgmma", "general"] if takes == "wgmma" else ["general"]
 
 
 def compare_tier(core, args, k, lattice, label, planted=None):
@@ -980,8 +986,8 @@ def compare_tier(core, args, k, lattice, label, planted=None):
     fin = torch.isfinite(psims)
     err = 0.0
     for form in tier_forms(core, args):
-        what = f"kernel A-{core}" + (f" ({form} form)" if form else "")
-        ids, sims = fn(*args, k=k, **({"form": form} if form else {}))
+        what = f"kernel A-{core} ({form} form)"
+        ids, sims = fn(*args, k=k, form=form)
         torch.cuda.synchronize()
         check(torch.equal(fin, torch.isfinite(sims)),
               f"{label}: {what} fills other slots than the plain version")
@@ -1054,11 +1060,10 @@ def phase_tier_edges(dev, core):
     lattice = core == "bf16"
     err, cases = 0.0, 0
 
-    # the splits' edges as each form's planner cuts them (int8: the wgmma
-    # form's wave plan, and the general form's)
-    plans = [lambda dev_, B, N: cuda_scan.lowp_plan(dev_, B, N, core)]
-    if core == "int8":
-        plans.append(lambda dev_, B, N: cuda_scan.int8_plan(dev_, B, N))
+    # the splits' edges as each form's planner cuts them (the wgmma form's
+    # wave plan, and the general form's)
+    plans = [lambda dev_, B, N: cuda_scan.lowp_plan(dev_, B, N, core),
+             lambda dev_, B, N: cuda_scan.wgmma_plan(dev_, B, N, core)]
     edges = [f"split{d:+d}/{i}" for i in range(len(plans)) for d in (-1, 0, 1)]
     for B in (1, 127, 128, 129):
         for N in (1, 127, 128, 129, *edges):
@@ -1158,9 +1163,10 @@ def phase_tier_kernels(dev):
     rng = np.random.default_rng(SEED + 22)
     qt, xt, sqm, qq = make_case(rng, B, N, D, False, 0.0, dev)
     sources = {
-        None: "redis_hnsw_tpu_torch/csrc/scan_lowp.cu",
-        "wgmma": "redis_hnsw_tpu_torch/csrc/scan_int8.cu",
-        "general": "redis_hnsw_tpu_torch/csrc/scan_lowp.cu"}
+        ("bf16", "wgmma"): "redis_hnsw_tpu_torch/csrc/scan_bf16.cu",
+        ("int8", "wgmma"): "redis_hnsw_tpu_torch/csrc/scan_int8.cu",
+        ("bf16", "general"): "redis_hnsw_tpu_torch/csrc/scan_lowp.cu",
+        ("int8", "general"): "redis_hnsw_tpu_torch/csrc/scan_lowp.cu"}
     for core in TIER_CORES:
         args = tier_operands(core, qt, xt, sqm, qq)
         fn, plain = tier_fns(core)
@@ -1171,14 +1177,12 @@ def phase_tier_kernels(dev):
         # SM clock sampled
         forms = {}
         for form in tier_forms(core, args):
-            kw = {"form": form} if form else {}
             with ClockSampler() as clock:  # long enough for samples
-                ms = sync_ms(lambda: fn(*args, k=10, **kw), 100)
+                ms = sync_ms(lambda: fn(*args, k=10, form=form), 100)
             forms[form] = dict(
-                ms=ms, ms_k80=sync_ms(lambda: fn(*args, k=80, **kw), 20),
-                source=sources[form],
-                splits=(cuda_scan.lowp_plan(dev, B, N, core) if form is None
-                        else cuda_scan.int8_plan(dev, B, N, form)),
+                ms=ms, ms_k80=sync_ms(lambda: fn(*args, k=80, form=form), 20),
+                source=sources[core, form],
+                splits=cuda_scan.wgmma_plan(dev, B, N, core, form),
                 clock=clock.summary())
         served = forms[tier_forms(core, args)[0]]
         t = {
@@ -1192,20 +1196,17 @@ def phase_tier_kernels(dev):
             log(f"phase 1: A-{core} library yardstick failed: {e}")
             t["library_ms"] = None
         elem = 2 if core == "bf16" else 1
-        peak = PEAK_F16_FLOPS if core == "bf16" else PEAK_INT8_OPS
         nbytes = (elem * (B + N) * D + 4.0 * (N + B)
                   + (4.0 * (N + B) if core == "int8" else 0.0))
-        bound, by = bound_ms(2.0 * B * N * D, nbytes + 8.0 * B * 10, peak)
-        bound80, _ = bound_ms(2.0 * B * N * D, nbytes + 8.0 * B * 80, peak)
+        bound, by = bound_ms(2.0 * B * N * D, nbytes + 8.0 * B * 10, core)
+        bound80, _ = bound_ms(2.0 * B * N * D, nbytes + 8.0 * B * 80, core)
         rows[core].update(
             route="cuda", source=served["source"],
             replaces="redis_hnsw_tpu/ops/scan.py:157",
             max_abs_err=max(rows[core]["max_abs_err"], err),
             bound_ms=bound, bound_by=by, bound_ms_k80=bound80,
-            splits=served["splits"],
+            splits=served["splits"], forms=forms,
             shape={"B": B, "N": N, "D": D, "k": 10}, **t)
-        if core == "int8":
-            rows[core]["forms"] = forms
         log(f"phase 1: A-{core} at B={B} N={N} D={D} (ms; each form's SM "
             f"clock while it ran at k=10 under forms): "
             + json.dumps(rows[core]))
@@ -1770,30 +1771,32 @@ def reset_counts():
     for fn in _counters().values():
         fn.launches = 0
     cuda_gather.fused_block_score.forms.clear()
-    cuda_scan.flat_topk_int8.forms.clear()
+    for core in TIER_CORES:
+        tier_fns(core)[0].forms.clear()
 
 
-def int8_forms():
-    """Kernel A-int8's launches so far by the form that served them."""
-    from redis_hnsw_tpu_torch.ops import cuda_scan
-
-    return dict(cuda_scan.flat_topk_int8.forms)
+def tier_form_counts(core):
+    """Kernel A-``core``'s launches so far by the form that served them."""
+    return dict(tier_fns(core)[0].forms)
 
 
-def forms_since(before):
-    """Kernel A-int8's launches by form since ``before`` (int8_forms())."""
-    return {f: n - before.get(f, 0) for f, n in int8_forms().items()
+def forms_since(before, core):
+    """Kernel A-``core``'s launches by form since ``before``
+    (tier_form_counts(core))."""
+    return {f: n - before.get(f, 0)
+            for f, n in tier_form_counts(core).items()
             if n - before.get(f, 0)}
 
 
 def read_counts():
-    """Launches by kernel, and kernel A-int8's by form
-    ("scan_topk_int8/<form>")."""
+    """Launches by kernel, and kernels A-bf16's and A-int8's by form
+    ("scan_topk_<core>/<form>")."""
     from redis_hnsw_tpu_torch.ops import cuda_scan
 
     counts = {name: fn.launches for name, fn in _counters().items()}
-    for form in cuda_scan.INT8_FORMS:
-        counts[f"scan_topk_int8/{form}"] = cuda_scan.flat_topk_int8.forms[form]
+    for core in ("bf16", "int8"):
+        for form in cuda_scan.LOWP_FORMS:
+            counts[f"scan_topk_{core}/{form}"] = tier_fns(core)[0].forms[form]
     return counts
 
 
@@ -1802,17 +1805,16 @@ def uncounted():
     """Launches made inside -- a kernel held against its plain version, a
     timing helper -- are taken back off the counters: they are not the
     main path's."""
-    from redis_hnsw_tpu_torch.ops import cuda_scan
-
     before = read_counts()
-    forms = dict(cuda_scan.flat_topk_int8.forms)
+    forms = {core: tier_form_counts(core) for core in TIER_CORES}
     try:
         yield
     finally:
         for name, fn in _counters().items():
             fn.launches = before[name]
-        cuda_scan.flat_topk_int8.forms.clear()
-        cuda_scan.flat_topk_int8.forms.update(forms)
+        for core in TIER_CORES:
+            tier_fns(core)[0].forms.clear()
+            tier_fns(core)[0].forms.update(forms[core])
 
 
 @contextlib.contextmanager
@@ -3247,7 +3249,7 @@ def phase_tier_flat(client, dev, flat_ref, kernel_ms, k=10):
         with env(SCAN_DTYPE=dtype, INT8_RESCORE=mult):
             torch.cuda.reset_peak_memory_stats()
             before = read_counts()
-            before_forms = int8_forms()
+            before_forms = tier_form_counts(dtype)
             t0 = time.perf_counter()
             idx.search_batch(qs[:2048], k, reply="columnar")
             first_s = time.perf_counter() - t0
@@ -3277,8 +3279,8 @@ def phase_tier_flat(client, dev, flat_ref, kernel_ms, k=10):
                 recall_at_10=recall_of(names, enames), ulp_gap=gap,
                 table_bytes=table.numel() * table.element_size(),
                 peak_bytes=peak, launches=launches[core])
-            if dtype == "int8":  # the form that served, by launches
-                out[label]["forms"] = forms_since(before_forms)
+            # the form that served, by launches
+            out[label]["forms"] = forms_since(before_forms, dtype)
             check(launches[core] > 0 and launches["scan_topk"] == 0,
                   f"5a {label}: the tier's kernel never launched, or kernel "
                   f"A did: {launches}")
@@ -3289,13 +3291,16 @@ def phase_tier_flat(client, dev, flat_ref, kernel_ms, k=10):
     check(out["bf16"]["recall_at_10"] >= 0.95
           and out["int8 x8"]["recall_at_10"] >= 0.95,
           f"5a: recall off: {json.dumps(out)}")
+    check(all(row["forms"].keys() == {"wgmma"} for row in out.values()),
+          f"5a: a tier kernel served flat-sift1m's 128-d rows in another "
+          f"form than its wgmma one: {json.dumps(out)}")
     log(f"phase 5a: flat-sift1m tiers ({n_q} queries, k={k}; recall@10 "
         f"against the exact tier's reply; the f32 table is {f32_bytes} "
         f"bytes; parts of a chunk: the kernel at phase 1's time x launches; "
         f"for int8 the device part's other work (the queries' upload and "
         f"quantization, the ids' copy) and the host rescore of every "
-        f"candidate, each timed alone on one chunk; the rest; A-int8's "
-        f"launches by form): "
+        f"candidate, each timed alone on one chunk; the rest; the tier "
+        f"kernel's launches by form): "
         f"{json.dumps(out)}")
     del vecs_t
     return read_counts()
@@ -3344,10 +3349,10 @@ def phase_tier_hnsw(client, dev, kept, k=10):
     for name, tqs, oracle, row_of in targets:
         for dtype in TIER_CORES:
             with env(SCAN_DTYPE=dtype):
-                before_forms = int8_forms()
+                before_forms = tier_form_counts(dtype)
                 secs, (rn, rs) = timed(lambda: client.search_batch(
                     name, tqs, k=k, engine="scan", reply="columnar"), 1)
-                served = forms_since(before_forms)
+                served = forms_since(before_forms, dtype)
                 recall, _, short = oracle.recall(row_of, rn, rs,
                                                  f"5b {name} {dtype}")
                 check(short == 0 and recall >= (0.9 if dtype == "bf16"
@@ -3361,15 +3366,16 @@ def phase_tier_hnsw(client, dev, kept, k=10):
                 out[f"{name} {dtype}"] = dict(qps=len(tqs) / secs,
                                               batch_ms=secs * 1e3,
                                               recall_at_10=recall,
-                                              max_abs_err=err)
-                if dtype == "int8":  # the form that served, its ms here
-                    out[f"{name} {dtype}"].update(
-                        forms=served, kernel_ms=kernel_ms_on(dtype, args))
+                                              max_abs_err=err,
+                                              forms=served,
+                                              kernel_ms=kernel_ms_on(dtype,
+                                                                     args))
     client.delete_index(RAGGED)
-    check(out[f"{RAGGED} int8"]["forms"].keys() == {"general"}
-          and out["hnsw-main int8"]["forms"].keys() == {"wgmma"},
-          f"5b: A-int8 served in other forms than its rows' widths take: "
-          f"{json.dumps(out)}")
+    for dtype in TIER_CORES:
+        check(out[f"{RAGGED} {dtype}"]["forms"].keys() == {"general"}
+              and out[f"hnsw-main {dtype}"]["forms"].keys() == {"wgmma"},
+              f"5b: A-{dtype} served in other forms than its rows' widths "
+              f"take: {json.dumps(out)}")
     epoch = idx._snapshot_epoch
     keys = []
     for dtype in ("bf16", "int8"):
@@ -3395,8 +3401,8 @@ def phase_tier_hnsw(client, dev, kept, k=10):
           f"5b: a tier kernel never launched: {counts}")
     log(f"phase 5b: the HNSW scan path under the tiers, every reply within "
         f"the float64 oracle's checks, each core equal to its plain version "
-        f"on the index's own tier table (max_abs_err; int8 bitwise, in both "
-        f"forms); int8: A-int8's launches by form (the general form on the "
+        f"on the index's own tier table, in both forms (max_abs_err; int8 "
+        f"bitwise); each core's launches by form (the general form on the "
         f"100-d index) and its ms at k = {k} on the index's table beside the "
         f"batch's ms; the "
         f"tier cache rebuilt on a switch at "
@@ -3486,7 +3492,7 @@ def phase_capacity(client, dev, n=8_388_608, n_q=16_384, k=10):
             with env(SCAN_DTYPE="int8", INT8_RESCORE=mult):
                 torch.cuda.reset_peak_memory_stats()
                 before = read_counts()
-                before_forms = int8_forms()
+                before_forms = tier_form_counts("int8")
                 t0 = time.perf_counter()
                 idx.search_batch(qs[:2048], k, reply="columnar")
                 first_s = time.perf_counter() - t0
@@ -3510,7 +3516,7 @@ def phase_capacity(client, dev, n=8_388_608, n_q=16_384, k=10):
                         parts["host_rescore_ms"] / (secs * 1e3 / chunks)),
                     first_call_s=first_s,
                     launches=launches["scan_topk_int8"],
-                    forms=forms_since(before_forms),
+                    forms=forms_since(before_forms, "int8"),
                     table_bytes=table.numel() * table.element_size(),
                     peak_bytes=torch.cuda.max_memory_allocated())
                 if mult == 1:  # the core on this table, once, after the
@@ -3624,11 +3630,10 @@ def compare_on_shard(idx, qs, lattice, label, k=10):
         args = path_tier_args(table, tsqn, tlive, tscale, qd)
         err[f"scan_topk_{core}"] = compare_on_path(core, args,
                                                    f"{label} A-{core}")
-        if core == "int8":
-            log(f"{label}: A-int8 on shard 0's int8 table "
-                f"({int(table.shape[0])} rows, {len(qd)} queries, form "
-                f"{tier_forms(core, args)[0]}): "
-                f"{kernel_ms_on(core, args):.4f} ms at k = 10")
+        log(f"{label}: A-{core} on shard 0's {core} table "
+            f"({int(table.shape[0])} rows, {len(qd)} queries, form "
+            f"{tier_forms(core, args)[0]}): "
+            f"{kernel_ms_on(core, args):.4f} ms at k = 10")
     return err
 
 
@@ -4102,7 +4107,8 @@ def phase_sharded(dev, build_rows=262_144):
         check(c > 0 or "/" in name,
               f"phase 6: kernel {name} never launched: {counts}")
     log(f"phase 6: {time.perf_counter() - t0:.1f} s; launches {counts}; "
-        f"A-int8's by form {int8_forms()}")
+        f"A-bf16's by form {tier_form_counts('bf16')}, A-int8's "
+        f"{tier_form_counts('int8')}")
     return counts, errs
 
 
@@ -4161,24 +4167,29 @@ def log_tier_figures(path, card_index) -> None:
         f"card {slots}")
 
 
-def log_int8_figures(path, card_index) -> None:
-    """One line: kernel A-int8's wgmma form (int8_tile_kernel) -- its
-    registers, spills and shared memory, at 128-byte rows, and its
-    resident blocks and query tile."""
+def log_wgmma_figures(path, card_index, core) -> None:
+    """One line: kernel A-``core``'s wgmma form (int8_tile_kernel of
+    scan_int8.cu, bf16_tile_kernel of scan_bf16.cu) -- its registers,
+    spills and shared memory, at D = 128 (128-byte int8 rows, 256-byte
+    bf16 rows), and its resident blocks and query tile."""
     import ctypes
 
     from redis_hnsw_tpu_torch.ops import cuda_scan
     from redis_hnsw_tpu_torch.utils import build
 
-    figs = ptxas_figures(build.build_log(path), "int8_tile_kernel")
+    kernel = f"{core}_tile_kernel"
+    row_bytes = 128 if core == "int8" else 256
+    figs = ptxas_figures(build.build_log(path), kernel)
     lib = ctypes.CDLL(path)
-    log(f"phase 0: int8_tile_kernel (A-int8's wgmma form): "
+    smem = getattr(lib, f"scan_{core}_smem_bytes")(row_bytes)
+    tile = getattr(lib, f"scan_{core}_query_tile")()
+    log(f"phase 0: {kernel} (A-{core}'s wgmma form): "
         + ("; ".join(", ".join(lines) for lines in figs.values())
            or "no ptxas output")
-        + f"; {lib.scan_int8_smem_bytes(128)} bytes of dynamic shared memory "
-        f"a block at 128-byte rows; {lib.scan_int8_query_tile()} queries a "
-        f"block; {cuda_scan.int8_block_slots(card_index)} resident blocks on "
-        f"the card")
+        + f"; {smem} bytes of dynamic shared memory a block at "
+        f"{row_bytes}-byte rows; {tile} queries a block; "
+        f"{cuda_scan.wgmma_block_slots(card_index, core)} resident blocks "
+        f"on the card")
 
 
 def log_block_score_figures(path, card_index) -> None:
@@ -4290,7 +4301,8 @@ def main() -> int:
                      "select_bins_smem_bytes",
                      cuda_select.block_slots(card_index))
     log_tier_figures(paths["scan_lowp"], card_index)
-    log_int8_figures(paths["scan_int8"], card_index)
+    log_wgmma_figures(paths["scan_int8"], card_index, "int8")
+    log_wgmma_figures(paths["scan_bf16"], card_index, "bf16")
     log_block_score_figures(paths["block_score"], card_index)
 
     kernels = phase_kernels(dev)
@@ -4326,8 +4338,9 @@ def main() -> int:
     for name in kernels:
         check(launches[name] > 0,
               f"kernel {name} never launched on the main path")
-    for form, row in kernels["scan_topk_int8"]["forms"].items():
-        row["launches"] = launches[f"scan_topk_int8/{form}"]
+    for core in TIER_CORES:
+        for form, row in kernels[f"scan_topk_{core}"]["forms"].items():
+            row["launches"] = launches[f"scan_topk_{core}/{form}"]
     log(card)
     log(json.dumps({"kernels": [
         dict(name=name, launches=launches[name], **row)

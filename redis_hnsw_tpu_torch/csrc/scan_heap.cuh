@@ -223,6 +223,30 @@ __global__ void __launch_bounds__(32 * MERGE_WARPS)
   }
 }
 
+// The splits' shared k-th best of the warpgroup-MMA forms (scan_int8.cu,
+// scan_bf16.cu): per query, the largest heap root (the k-th best score of
+// a split's rows so far, once its heap is full) any split has published,
+// as an order-keeping unsigned (0: none). The final k-th best is at least
+// that, so a split may drop any row scoring below it: no such row is
+// among the final k (rows tying it are kept, for the lowest-id rule).
+__device__ __forceinline__ unsigned key_enc(float f) {
+  const unsigned u = __float_as_uint(f);
+  return u & 0x80000000u ? ~u : u | 0x80000000u;
+}
+
+__device__ __forceinline__ float key_dec(unsigned e) {
+  if (e == 0u) return -CUDART_INF_F;
+  return __uint_as_float(e & 0x80000000u ? e & 0x7fffffffu : ~e);
+}
+
+// The admission key of a split whose heap root scores `root`, given the
+// shared k-th best `ext`: admit a row iff it scores above the root and at
+// least ext, i.e. above the larger of root and the float below ext.
+__device__ __forceinline__ float admission_key(float root, float ext) {
+  return ext > -CUDART_INF_F ? fmaxf(root, nextafterf(ext, -CUDART_INF_F))
+                             : root;
+}
+
 // The current card's SM count, or a negative value on failure.
 inline int card_sms() {
   int dev = 0, sms = 0;

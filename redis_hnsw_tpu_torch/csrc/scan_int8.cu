@@ -39,7 +39,8 @@
 //   holds queries 16w + g and 16w + g + 8 of its warpgroup against 32 rows
 //   each, so the queries' key, qq and scale live in registers. A
 //   warpgroup scores tile t while the other's MMAs run, and computes tile
-//   t's row terms and its drain vote under its own (SETS = 1). Two
+//   t's row terms and its drain vote under its own (SETS = 1;
+//   hopper_ptx.cuh Scan::tiles). Two
 //   accumulator sets (SETS = 2: tile t - 1 scored under tile t's MMAs)
 //   need more than the 168 registers a thread of a 384-thread block gets
 //   and spill; tools/lowp_core_study.cu times both.
@@ -47,15 +48,10 @@
 //   below): top = max(dot - beta(row)) per query, against alpha(query).
 //   Rows past it are scored exactly, one a lane at a time, and admitted
 //   strictly above the query's key.
-// * Selection: kernel A's heaps, drain and list_merge_kernel
-//   (scan_heap.cuh). A warpgroup's rows reach each of its queries in
-//   ascending id order within a split (both warpgroups take every tile in
-//   order), so a row tying the root ranks after it and strict admission
-//   is exact. Threads 0..63 of a warpgroup own its queries' heaps; a
-//   drain runs when an append pushed some buffer past DRAIN_AT (the
-//   appending thread votes, one barrier a tile). A full heap publishes its
-//   root to the splits' shared k-th best (kshare), which every split's key
-//   then respects.
+// * Selection: kernel A's heaps, drain vote, splits' shared k-th best
+//   and list_merge_kernel (scan_heap.cuh), in the frame both wgmma forms
+//   share (hopper_ptx.cuh Frame, Scan, Launch: the producer, the tile
+//   loop, the drains, the last sort and the launch).
 //
 // tools/lowp_core_study.cu times this form beside the general form, with
 // the exact score of every row (FILTER = false) beside the filter, and
@@ -66,42 +62,35 @@
 // cannot take, or cudaErrorNotSupported if a tensor map cannot be made),
 // scan_int8_slots, scan_int8_smem_bytes and scan_int8_query_tile.
 
-#include <cuda.h>
-
-#include "scan_heap.cuh"
+#include "hopper_ptx.cuh"
 
 namespace rht_int8 {
 
-using rht_scan::BUF_CAP;
-using rht_scan::HEAP_AT;
-using rht_scan::drain;
-using rht_scan::empty_entry;
-using rht_scan::heap_len;
-using rht_scan::sift_down;
+using namespace rht_hopper;
 
 // consumer warpgroups a block, each with its own 64 queries (the study
 // builds others with -DRHT_INT8_CWG=n)
 #ifndef RHT_INT8_CWG
 #define RHT_INT8_CWG 2
 #endif
-constexpr int CWG = RHT_INT8_CWG;
-constexpr int TILE_Q = 64 * CWG;  // queries a block
-constexpr int TILE_N = 128;      // rows a tile: the wgmma's n
-constexpr int KB = 128;          // bytes of a row a chunk: the swizzle span
-constexpr int KSTEP = 32;        // bytes of a row a wgmma k-step
-constexpr int STAGES = 4;
-constexpr int CHUNK = TILE_N * KB;   // 16 KB: a chunk of rows
-constexpr int QCHUNK = TILE_Q * KB;  // a chunk of the block's queries
-constexpr int QRES_CHUNKS = 8;      // resident queries: rows <= 1024 bytes
-constexpr int WG = 128;             // threads a warpgroup
-constexpr int THREADS = (CWG + 1) * WG;  // consumers + the producer
-// registers a thread: the producer gives its own to the consumers
-constexpr int PRODUCER_REGS = 40;
-constexpr int CONSUMER_REGS =
-    (65536 / WG - PRODUCER_REGS) / CWG / 8 * 8 > 232
-        ? 232
-        : (65536 / WG - PRODUCER_REGS) / CWG / 8 * 8;
-constexpr int ACC = TILE_N / 2;     // accumulators a thread
+// The form's own shared memory: three buffers of row terms (beta) and
+// three of the rows' tscale and sq per consumer warpgroup (a tile's stage
+// is refilled before its epilogue), then the warpgroups' reduction
+// partials.
+constexpr int BUFS = RHT_INT8_CWG * 3 * 128 * 4;  // a set of row buffers
+constexpr int RED_BYTES = RHT_INT8_CWG * 4 * 8 * 4;
+// The block's geometry (hopper_ptx.cuh Frame): two vectors a tile
+// (tscale, sq).
+using F = Frame<RHT_INT8_CWG, 4, 2, 3 * BUFS + RED_BYTES>;
+constexpr int CWG = F::CWG;
+constexpr int TILE_Q = F::TILE_Q;
+constexpr int TILE_N = F::TILE_N;
+constexpr int STAGES = F::STAGES;
+constexpr int THREADS = F::THREADS;
+constexpr int ACC = F::ACC;
+constexpr int BETA_AT = F::CORE_AT;
+constexpr int TSC_AT = BETA_AT + BUFS;  // tscale, sq copies
+constexpr int RED_AT = TSC_AT + 2 * BUFS;
 // |dot| <= 127^2 * row_bytes < 2^29: the filter's sums stay in int32
 constexpr int MAX_ROW_BYTES = 32768;
 // The selection's knobs (tools/lowp_core_study.cu times other values): a
@@ -114,112 +103,14 @@ struct Tuning {
   static constexpr int REFRESH = 64;
   static constexpr bool SCORES = true;
 };
-// shared memory: barriers; key and count per query; each stage's tscale
-// and sq; three buffers of row terms (beta) and of the rows' tscale and sq
-// per consumer warpgroup (a tile's stage is refilled before its epilogue);
-// the warpgroups' reduction partials; the operands from HDR
-constexpr int KEY_AT = 128;
-constexpr int CNT_AT = KEY_AT + TILE_Q * 4;
-constexpr int TSQ_AT = CNT_AT + TILE_Q * 4;
-constexpr int BETA_AT = TSQ_AT + STAGES * 2 * TILE_N * 4;
-constexpr int TSC_AT = BETA_AT + CWG * 3 * TILE_N * 4;  // tscale, sq copies
-constexpr int RED_AT = TSC_AT + CWG * 3 * 2 * TILE_N * 4;
-constexpr int HDR = (RED_AT + CWG * 4 * 8 * 4 + 1023) / 1024 * 1024;
 constexpr unsigned FULL = 0xffffffffu;
 
-// The kernel's parts are lambdas over its state; each is inlined, so the
-// accumulators stay in registers.
-#define RHT_INLINE __attribute__((always_inline))
-
-static_assert(BUF_CAP == 2 * TILE_N, "a buffer takes two tiles");
-static_assert(Tuning::DRAIN_AT <= BUF_CAP - TILE_N, "a tile must fit");
-
-__host__ __device__ constexpr int chunks(int row_bytes) {
-  return (row_bytes + KB - 1) / KB;
-}
-
-__host__ __device__ constexpr bool resident(int row_bytes) {
-  return chunks(row_bytes) <= QRES_CHUNKS;
-}
-
-// Dynamic shared memory of a block (1024 bytes of it for alignment).
+// Dynamic shared memory of a block.
 __host__ __device__ constexpr int smem_bytes(int row_bytes) {
-  return 1024 + HDR +
-         (resident(row_bytes) ? chunks(row_bytes) * QCHUNK + STAGES * CHUNK
-                              : STAGES * (CHUNK + QCHUNK));
+  return F::smem_bytes(row_bytes);
 }
 
-// -- PTX: mbarriers, tensor copies, warpgroup MMA, named barriers ---------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait for the phase of parity `parity` to complete; a copy that never
-// lands traps after 2^24 polls instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\t"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-        "selp.u32 %0, 1, 0, p;\n\t}"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (polls == (1u << 24)) __trap();
-  }
-}
-
-// The box of `map` at (byte x, row y) to shared dst (1024-byte aligned),
-// completing on bar's transaction count.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int x, int y, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-// The box of 1-D `map` at element x to shared dst (16-byte aligned).
-__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
-                                            int x, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2}], [%3];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// A wgmma operand descriptor: K-major rows of 128 bytes in the 128-byte
-// swizzle, 8-row groups 1024 bytes apart, starting at shared address
-// `addr` (a k-step of 32 bytes adds 32 to it).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
+// -- the wgmma instruction -------------------------------------------------
 
 // d (+)= A[64 x 32] . B[128 x 32]^T, s8 x s8 -> s32; d is overwritten
 // when scale_d is 0.
@@ -247,44 +138,6 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[ACC], uint64_t a, uint64_t b,
         "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(a), "l"(b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// After a wait: the accumulators are read only from here on.
-__device__ __forceinline__ void acc_fence(int (&d)[ACC]) {
-#pragma unroll
-  for (int i = 0; i < ACC; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// Named barrier `id` over one warpgroup; and the same barrier with an OR
-// of `pred` over its threads.
-__device__ __forceinline__ void wg_sync(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ bool wg_any(int id, bool pred) {
-  int r;
-  asm volatile(
-      "{\n\t.reg .pred p, q;\n\t"
-      "setp.ne.b32 q, %1, 0;\n\t"
-      "bar.red.or.pred p, %2, 128, q;\n\t"
-      "selp.s32 %0, 1, 0, p;\n\t}"
-      : "=r"(r)
-      : "r"((int)pred), "r"(id)
-      : "memory");
-  return r != 0;
 }
 
 // -- the score and the filter ----------------------------------------------
@@ -372,66 +225,14 @@ __device__ __forceinline__ int query_alpha(float c, float mu, bool finite,
   return floor_term(a - mag * REL - 4.f, INT_MIN);
 }
 
-// The splits' shared k-th best: per query, the largest heap root (the
-// k-th best score of a split's rows so far, once its heap is full) any
-// split has published, as an order-keeping unsigned (0: none). The final
-// k-th best is at least that, so a split may drop any row scoring below
-// it: no such row is among the final k (rows tying it are kept, for the
-// lowest-id rule).
-__device__ __forceinline__ unsigned key_enc(float f) {
-  const unsigned u = __float_as_uint(f);
-  return u & 0x80000000u ? ~u : u | 0x80000000u;
-}
-
-__device__ __forceinline__ float key_dec(unsigned e) {
-  if (e == 0u) return -CUDART_INF_F;
-  return __uint_as_float(e & 0x80000000u ? e & 0x7fffffffu : ~e);
-}
-
-// The admission key of a split whose heap root scores `root`, given the
-// shared k-th best `ext`: admit a row iff it scores above the root and at
-// least ext, i.e. above the larger of root and the float below ext.
-__device__ __forceinline__ float admission_key(float root, float ext) {
-  return ext > -CUDART_INF_F ? fmaxf(root, nextafterf(ext, -CUDART_INF_F))
-                             : root;
-}
-
-// -- cycle counters for tools/lowp_core_study.cu ----------------------------
-
-// Phases of a consumer warp, and of the producer warp.
-enum {
-  P_SETUP,
-  P_FULL_WAIT,   // waiting for a chunk's copy
-  P_BETA,        // the tile's row terms (beta)
-  P_MMA,         // issuing wgmma, waiting for the previous tile's
-  P_DRAIN,       // the drain vote and drains (and the query ranges)
-  P_COMPARE,     // alpha, one add-max a score, the warp's vote
-  P_ADMIT,       // exact scores of the rows past the filter, appends
-  P_LAST,        // the last drain and the heap sort
-  P_EMPTY_WAIT,  // producer: waiting for a free stage
-  P_ISSUE,       // producer: issuing copies
-  PHASES
-};
-
-// Counts of the study's probe: warp epilogues, those that took the exact
-// path, values past the filter, rows admitted.
-enum { C_EPILOGUES, C_SLOW, C_PASSED, C_ADMITTED, COUNTS };
-
-struct NoProbe {
-  static constexpr bool COUNTING = false;
-  __device__ void start() {}
-  __device__ void mark(int) {}
-  __device__ void count(int, int) {}
-  __device__ void finish() {}
-};
-
 // -- the kernel -------------------------------------------------------------
 
 // Block (query tile, split) selects, per query, the top k of its split's
-// rows into the (split, query) slab. FILTER: the epilogue's filter
-// (shipped); false: every score exact. SETS: accumulator sets a consumer
-// warpgroup (2: it scores tile t - 1 while tile t's MMAs run; 1: the other
-// warpgroup's MMAs run meanwhile). The study times each.
+// rows into the (split, query) slab (hopper_ptx.cuh Scan). FILTER: the
+// epilogue's filter (shipped); false: every score exact. SETS:
+// accumulator sets a consumer warpgroup (2: it scores tile t - 1 while
+// tile t's MMAs run; 1: the other warpgroup's MMAs run meanwhile). The
+// study times each.
 template <bool FILTER, int SETS, class Probe, class Tune = Tuning>
 __global__ void __launch_bounds__(THREADS, 1)
     int8_tile_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -444,114 +245,29 @@ __global__ void __launch_bounds__(THREADS, 1)
                      int slab_len, int2* __restrict__ slabs,
                      unsigned* __restrict__ kshare) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  const uint32_t raw = smem_u32(smem_raw);
-  unsigned char* const smem = smem_raw + (((raw + 1023) & ~1023u) - raw);
-  uint64_t* const full = reinterpret_cast<uint64_t*>(smem);
-  uint64_t* const empty = full + STAGES;
-  uint64_t* const qbar = empty + STAGES;
-  float* const key_s = reinterpret_cast<float*>(smem + KEY_AT);
-  int* const cnt_s = reinterpret_cast<int*>(smem + CNT_AT);
-  float* const tsq_s = reinterpret_cast<float*>(smem + TSQ_AT);
-  int* const nbeta_s = reinterpret_cast<int*>(smem + BETA_AT);
-  float* const tsc_s = reinterpret_cast<float*>(smem + TSC_AT);
-  float* const red_s = reinterpret_cast<float*>(smem + RED_AT);
-  unsigned char* const ops = smem + HDR;
-  const int kch = chunks(row_bytes);
-  const bool res = resident(row_bytes);
-  unsigned char* const qres = ops;  // resident queries, kch chunks
-  unsigned char* const ring = ops + (res ? kch * QCHUNK : 0);
-  const int stage_bytes = res ? CHUNK : CHUNK + QCHUNK;  // rows (, queries)
-
-  Probe probe;
-  probe.start();
-  const int tid = threadIdx.x;
-  const int wg = tid / WG;  // 0, 1: consumers; 2: the producer
-  const int tw = tid % WG;
-  const int q0 = blockIdx.x * TILE_Q;
-  const int split = blockIdx.y;
-  const int t_begin = split * tiles_per_split;
-  const int t_end = min(ntiles, t_begin + tiles_per_split);
-  const int total = max(0, t_end - t_begin) * kch;
-  int2* const slab0 = slabs + ((size_t)split * B + q0) * slab_len;
-  const int buf_at = heap_len(k);
-
-  // the owner of query qo: thread tw < 64 of warpgroup wg
-  const int qo = wg * 64 + tw;
-  const bool owner = wg < CWG && tw < 64;
-  const bool own_live = owner && q0 + qo < B;
-  int2* const heap = slab0 + (size_t)qo * slab_len + HEAP_AT;
-  if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full + s, 1);
-      mbar_init(empty + s, CWG);  // one arrival per consumer warpgroup
-    }
-    mbar_init(qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  if (owner) {
-    if (own_live) {
-      for (int i = 0; i < k; ++i) heap[i] = empty_entry();
-    }
-    key_s[qo] = own_live ? -CUDART_INF_F : CUDART_INF_F;
-    cnt_s[qo] = 0;
-  }
-  __syncthreads();
-
-  if (wg == CWG) {
-    // the producer: lane 0 of its first warp issues every copy of the
-    // split; the warpgroup gives its registers to the consumers
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS)
-                 : "memory");
-    if (tw != 0) return;
-    if (res && total > 0) {
-      mbar_arrive_tx(qbar, kch * QCHUNK);
-      for (int c = 0; c < kch; ++c) {
-        tma_load(qres + c * QCHUNK, &qmap, c * KB, q0, qbar);
-      }
-    }
-    probe.mark(P_ISSUE);
-    for (int u = 0; u < total; ++u) {
-      const int s = u % STAGES;
-      if (u >= STAGES) mbar_wait(empty + s, (u / STAGES - 1) & 1);
-      probe.mark(P_EMPTY_WAIT);
-      const int t = t_begin + u / kch;
-      const int c = u % kch;
-      unsigned char* const st = ring + s * stage_bytes;
-      mbar_arrive_tx(full + s, stage_bytes + (c == 0 ? 2 * TILE_N * 4 : 0));
-      tma_load(st, &xmap, c * KB, t * TILE_N, full + s);
-      if (!res) tma_load(st + CHUNK, &qmap, c * KB, q0, full + s);
-      if (c == 0) {  // the tile's tscale and sq (zeros past N)
-        float* const slot = tsq_s + s * 2 * TILE_N;
-        tma_load_1d(slot, &tsmap, t * TILE_N, full + s);
-        tma_load_1d(slot + TILE_N, &sqmap, t * TILE_N, full + s);
-      }
-      probe.mark(P_ISSUE);
-    }
-    probe.finish();
+  Scan<F, Tune, Probe> blk(smem_raw, B, N, row_bytes, k, ntiles,
+                           tiles_per_split, slab_len, slabs, kshare);
+  if (blk.wg == CWG) {
+    const CUtensorMap* const vmaps[2] = {&tsmap, &sqmap};
+    blk.produce(&qmap, &xmap, vmaps);
   } else {
-    // the consumers (one if-else: the two roles never reconverge, so the
-    // register counts set here hold)
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS)
-                 : "memory");
-
-    // a consumer: warp w of warpgroup wg, lane 4g + tig, holds queries qb[h]
-    // = 64 wg + 16 w + g + 8h against rows 8j + 2 tig + e of each tile
-    const int warp = tw / 32;
-    const int lane = tid % 32;
-    const int g = lane / 4;
-    const int tig = lane % 4;
-    const int bar_id = 1 + wg;
-    int qb[2];
-    float qn[2], qsc[2], mu[2], key[2], cq[2];
+    blk.consumer();
+    int* const nbeta_s = reinterpret_cast<int*>(blk.smem + BETA_AT);
+    float* const tsc_s = reinterpret_cast<float*>(blk.smem + TSC_AT);
+    float* const red_s = reinterpret_cast<float*>(blk.smem + RED_AT);
+    const int wg = blk.wg, tw = blk.tw, warp = blk.warp, lane = blk.lane;
+    const int tig = blk.tig, bar_id = blk.bar_id, q0 = blk.q0;
+    const int t_begin = blk.t_begin;
+    const int(&qb)[2] = blk.qb;
+    const float(&key)[2] = blk.key;
+    float qn[2], qsc[2], mu[2], cq[2];
     bool fin[2];  // mu and C finite: the filter's terms hold
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      qb[h] = wg * 64 + warp * 16 + g + 8 * h;
       const bool live = q0 + qb[h] < B;
       qn[h] = live ? qq[q0 + qb[h]] : 0.f;
       qsc[h] = live ? qscale[q0 + qb[h]] : 1.f;
       mu[h] = __frcp_rn(2.f * qsc[h]);
-      key[h] = key_s[qb[h]];
     }
     float* const red = red_s + wg * 4 * 8;  // [warp][8] partials
     // Reduce (lo, hi, top) over the warpgroup: the least of a, the largest
@@ -608,49 +324,19 @@ __global__ void __launch_bounds__(THREADS, 1)
       wg_reduce(a, b, 0.f, 3, mu_lo, mu_hi, unused);
     }
     queries_changed();
-    bool crossed = false;  // an append of mine pushed a buffer past DRAIN_AT
 
-    // If an append pushed a buffer past DRAIN_AT, every owner drains its
-    // buffer into its heap, and the keys and ranges are renewed. One
-    // barrier a tile; it also orders the row terms written before it.
-    bool drained = false;
-    unsigned* const shared_key = kshare + q0 + qo;  // owners only
-    auto drain_check = [&](int t) RHT_INLINE {
-      // every 16 tiles an owner looks for a better shared k-th best
-      bool better = false;
-      if (own_live && (t - t_begin) % Tune::REFRESH == Tune::REFRESH - 1) {
-        better = admission_key(-CUDART_INF_F, key_dec(__ldcg(shared_key))) >
-                 key_s[qo];
-      }
-      if (wg_any(bar_id, crossed || better)) {
-        if (own_live) {
-          const int n = cnt_s[qo];
-          const float root = __int_as_float(n > 0 ? drain(heap, k, n).x
-                                                  : heap[0].x);
-          // a full heap publishes its root, and every owner takes the
-          // best root published
-          const unsigned ext =
-              root > -CUDART_INF_F ? max(atomicMax(shared_key, key_enc(root)),
-                                         key_enc(root))
-                                   : __ldcg(shared_key);
-          key_s[qo] = admission_key(root, key_dec(ext));
-          cnt_s[qo] = 0;
-        }
-        wg_sync(bar_id);
-        key[0] = key_s[qb[0]];
-        key[1] = key_s[qb[1]];
-        crossed = false;
-        queries_changed();
-        drained = true;
-      }
-      probe.mark(P_DRAIN);
-    };
     int alpha[2];              // the queries' filter terms, as last computed
     float a_lo = CUDART_NAN_F;  // ... under these ranges (none yet)
     float a_hi = CUDART_NAN_F;
+    // After a drain: the keys' C and ranges, and alpha anew.
+    bool drained = false;
+    auto renew = [&]() RHT_INLINE {
+      queries_changed();
+      drained = true;
+    };
     // Score finished tile t (accumulators acc, row terms of buffer bi made
     // under ranges brg) and append every row that beats its query's key.
-    auto epilogue = [&](const int (&acc)[ACC], int t, int bi,
+    auto epilogue = [&](const int(&acc)[ACC], int t, int bi,
                         const Ranges& brg) RHT_INLINE {
       if (drained || !(brg.c_lo == a_lo && brg.c_hi == a_hi)) {
 #pragma unroll
@@ -692,10 +378,10 @@ __global__ void __launch_bounds__(THREADS, 1)
                   alpha[h];
       }
       const bool any = __any_sync(FULL, pass[0] || pass[1]);
-      probe.mark(P_COMPARE);
-      probe.count(C_EPILOGUES, lane == 0);
+      blk.probe.mark(P_COMPARE);
+      blk.probe.count(C_EPILOGUES, lane == 0);
       if (!any) return;
-      probe.count(C_SLOW, lane == 0);
+      blk.probe.count(C_SLOW, lane == 0);
       // The rows past the filter, a few a warp. Bit 2j + e of cm[h]: acc[4j
       // + 2h + e] is one. Each lane takes one of each query's at a time
       // (the accumulators are only read: a write would make the next wgmma
@@ -723,46 +409,25 @@ __global__ void __launch_bounds__(THREADS, 1)
           const bool has = cm[h] != 0;
           const int i = has ? __ffs(cm[h]) - 1 : 0;
           cm[h] &= cm[h] - 1;
-          if (Probe::COUNTING) probe.count(C_PASSED, has);
-          // acc[4 (i / 2) + 2h + i % 2], selected by i's bits
-          int l0[16], l1[8], l2[4], l3[2];
-#pragma unroll
-          for (int x = 0; x < 16; ++x) {
-            l0[x] = i & 1 ? acc[4 * x + 2 * h + 1] : acc[4 * x + 2 * h];
-          }
-#pragma unroll
-          for (int x = 0; x < 8; ++x) l1[x] = i & 2 ? l0[2 * x + 1] : l0[2 * x];
-#pragma unroll
-          for (int x = 0; x < 4; ++x) l2[x] = i & 4 ? l1[2 * x + 1] : l1[2 * x];
-#pragma unroll
-          for (int x = 0; x < 2; ++x) l3[x] = i & 8 ? l2[2 * x + 1] : l2[2 * x];
-          const int v = i & 16 ? l3[1] : l3[0];
+          if (Probe::COUNTING) blk.probe.count(C_PASSED, has);
           rl[h] = 8 * (i >> 1) + 2 * tig + (i & 1);
-          sc[h] = score(v, qn[h], qsc[h], tsc[TILE_N + rl[h]], tsc[rl[h]]);
+          sc[h] = score(acc_pick(acc, h, i), qn[h], qsc[h],
+                        tsc[TILE_N + rl[h]], tsc[rl[h]]);
           ok[h] = has && r0 + rl[h] < N && sc[h] > key[h];
         }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          if (!ok[h]) continue;
-          probe.count(C_ADMITTED, 1);
-          const int slot = atomicAdd(&cnt_s[qb[h]], 1);
-          crossed |= slot + 1 > Tune::DRAIN_AT;
-          slab0[(size_t)qb[h] * slab_len + buf_at + slot] =
-              make_int2(__float_as_int(sc[h]), r0 + rl[h]);
+          if (ok[h]) blk.append(h, sc[h], r0 + rl[h]);
         }
       }
-      probe.mark(P_ADMIT);
+      blk.probe.mark(P_ADMIT);
     };
 
-    if (res && total > 0) mbar_wait(qbar, 0);
-    probe.mark(P_SETUP);
-    int u = 0;  // units (tile, chunk) issued so far
     // Tile t's row terms into buffer (t - t_begin) % 3 (and its rows'
     // tscale and sq), from ring stage s, under the current ranges; on the
     // split's first tile, the block's reference row values first.
     auto row_terms = [&](int s, int t) RHT_INLINE {
-      const float* const slot = tsq_s + s * 2 * TILE_N;
-      const float ts = slot[tw], sqr = slot[TILE_N + tw];
+      const float ts = blk.vec(s, 0)[tw], sqr = blk.vec(s, 1)[tw];
       const bool live_row = t * TILE_N + tw < N;
       if (t == t_begin) {
         const bool ok = live_row && ts > 0.f && ts < CUDART_INF_F &&
@@ -785,49 +450,39 @@ __global__ void __launch_bounds__(THREADS, 1)
       tsc_s[bi * 2 * TILE_N + tw] = ts;
       tsc_s[(bi * 2 + 1) * TILE_N + tw] = sqr;
     };
-    // Chunk c of a tile, in ring stage s, into acc: every k-step (bytes
-    // past the row arrive as zeros), committed as one group.
-    auto issue_chunk = [&](int (&acc)[ACC], int s, int c) RHT_INLINE {
-      unsigned char* const st = ring + s * stage_bytes;
-      const uint32_t a0 =
-          smem_u32(res ? qres + c * QCHUNK : st + CHUNK) + wg * 64 * KB;
-      const uint32_t b0 = smem_u32(st);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < KB / KSTEP; ++ks) {
-        wgmma_s8(acc, desc_sw128(a0 + ks * KSTEP),
-                 desc_sw128(b0 + ks * KSTEP), c > 0 || ks > 0);
-      }
-      wgmma_commit();
-    };
+    auto mma = [](int(&d)[ACC], uint64_t a, uint64_t b,
+                  int scale_d) RHT_INLINE { wgmma_s8(d, a, b, scale_d); };
     if constexpr (SETS == 2) {
-      // Issue tile t's MMAs into cur (t < t_end) and its row terms (their
-      // ranges kept in cur_rg); once its first chunk is in flight, score
-      // tile t - 1 from prev. t == t_end only scores.
-      auto step = [&](int (&cur)[ACC], Ranges& cur_rg, int (&prev)[ACC],
+      blk.wait_queries();
+      const int t_end = blk.t_end, kch = blk.kch;
+      int u = 0;  // units (tile, chunk) issued so far
+      // Issue tile t's MMAs into cur (t < t_end) after its row terms
+      // (their ranges kept in cur_rg); once its first chunk is in flight,
+      // score tile t - 1 from prev. t == t_end only scores.
+      auto step = [&](int(&cur)[ACC], Ranges& cur_rg, int(&prev)[ACC],
                       const Ranges& prev_rg, int t) RHT_INLINE {
         const bool issue = t < t_end;
         for (int c = 0; c < kch; ++c) {
           if (issue) {
             const int s = u % STAGES;
-            mbar_wait(full + s, (u / STAGES) & 1);
-            probe.mark(P_FULL_WAIT);
+            mbar_wait(blk.full + s, (u / STAGES) & 1);
+            blk.probe.mark(P_FULL_WAIT);
             if (c == 0) {
               row_terms(s, t);
               cur_rg = rg;
-              probe.mark(P_BETA);
+              blk.probe.mark(P_ROWS);
             }
-            issue_chunk(cur, s, c);
+            blk.issue(cur, s, c, mma);
             wgmma_wait<1>();  // unit u - 1 is done: its stage is free
-            if (u > 0 && tw == 0) mbar_arrive(empty + (u - 1) % STAGES);
+            if (u > 0 && tw == 0) mbar_arrive(blk.empty + (u - 1) % STAGES);
             ++u;
           } else {
             wgmma_wait<0>();
           }
           acc_fence(prev);  // outside any branch: no warpgroup arrive
-          probe.mark(P_MMA);
+          blk.probe.mark(P_MMA);
           if (c == 0 && t > t_begin) {
-            drain_check(t - 1);
+            blk.drain_check(t - 1, renew);
             epilogue(prev, t - 1, (t - 1 - t_begin) % 3, prev_rg);
           }
           if (!issue) break;
@@ -842,116 +497,35 @@ __global__ void __launch_bounds__(THREADS, 1)
         if (t + 1 >= t_end) break;
       }
     } else {
-      // One accumulator set: a warpgroup scores tile t after its MMAs,
-      // while the other warpgroup's MMAs run; its own row terms and drain
+      // One accumulator set (Scan::tiles): the tile's row terms and drain
       // vote run under its MMAs.
+      Ranges brg;  // the ranges the current tile's row terms used
       int acc[ACC];
-      for (int t = t_begin; t < t_end; ++t) {
-        Ranges brg;
-        for (int c = 0; c < kch; ++c) {
-          const int s = u % STAGES;
-          mbar_wait(full + s, (u / STAGES) & 1);
-          probe.mark(P_FULL_WAIT);
-          issue_chunk(acc, s, c);
-          if (c == 0) {
+      blk.tiles(
+          acc,
+          [&](int s, int t) RHT_INLINE {
             row_terms(s, t);
             brg = rg;
-            probe.mark(P_BETA);
-          }
-          if (c + 1 == kch && Tune::SCORES) drain_check(t);
-          wgmma_wait<0>();
-          if (tw == 0) mbar_arrive(empty + s);
-          ++u;
-        }
-        acc_fence(acc);
-        probe.mark(P_MMA);
-        if (Tune::SCORES) epilogue(acc, t, (t - t_begin) % 3, brg);
-      }
+          },
+          mma,
+          [&](const int(&a)[ACC], int t) RHT_INLINE {
+            epilogue(a, t, (t - t_begin) % 3, brg);
+          },
+          renew);
     }
-    wg_sync(bar_id);  // the last tile's appends are in
-    if (own_live) {
-      drain(heap, k, cnt_s[qo]);
-      // heap-sort in place: the list g[0..k), best first
-      for (int m = k - 1; m >= 1; --m) {
-        const int2 last = heap[m];
-        heap[m] = heap[0];
-        heap[0] = sift_down(heap, m, 0, last);
-      }
-    }
-    probe.mark(P_LAST);
-    probe.finish();
+    blk.finish();
   }
 }
 
 // -- host side --------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// The driver's cuTensorMapEncodeTiled, found once through the runtime.
-inline EncodeTiled encoder() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult got;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &got) != cudaSuccess ||
-        got != cudaDriverEntryPointSuccess) {
-      return (EncodeTiled) nullptr;
-    }
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A tensor map of a [rows, row_bytes] byte table: 128 x 128-byte boxes in
-// the 128-byte swizzle, zeros past the table. Made per launch (the table
-// moves with each snapshot epoch, the queries with each call).
-inline bool byte_map(const void* base, int rows, int row_bytes, int box_rows,
-                     CUtensorMap* out) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)row_bytes,
-                              (cuuint64_t)(rows > 0 ? rows : 1)};
-  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)KB, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(out, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// A tensor map of an [n] float vector: 128-element boxes, zeros past it.
-inline bool float_map(const float* base, int n, CUtensorMap* out) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[1] = {(cuuint64_t)(n > 0 ? n : 1)};
-  const cuuint64_t strides[1] = {4};  // (none for one dimension)
-  const cuuint32_t box[1] = {(cuuint32_t)TILE_N};
-  const cuuint32_t unit[1] = {1};
-  return encode(out, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
-                const_cast<float*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 // Whether this form takes a shape: rows a multiple of 16 bytes and at
 // most MAX_ROW_BYTES, the queries, the table, tscale and sq on 16-byte
 // boundaries (a tensor map's terms).
 inline bool takes(const void* q, const void* x, const float* sq,
                   const float* tscale, int row_bytes) {
-  const auto off = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16;
-  };
-  return row_bytes > 0 && row_bytes % 16 == 0 &&
-         row_bytes <= MAX_ROW_BYTES && off(q) == 0 && off(x) == 0 &&
-         off(sq) == 0 && off(tscale) == 0;
+  return row_bytes <= MAX_ROW_BYTES &&
+         map_takes(row_bytes, {q, x, sq, tscale});
 }
 
 template <bool FILTER, int SETS, class Probe, class Tune = Tuning>
@@ -961,50 +535,31 @@ int launch_form(const unsigned char* q, const unsigned char* x,
                 int splits, int2* slabs, unsigned* kshare, float* out_s,
                 int* out_i, cudaStream_t stream) {
   if (B <= 0 || k <= 0) return 0;
-  const int ntiles = (N + TILE_N - 1) / TILE_N;
-  if (N < 0 || !qscale || !tscale || !takes(q, x, sq, tscale, row_bytes) ||
-      splits < 1 || splits > (ntiles > 1 ? ntiles : 1) || splits > 65535) {
+  const Launch<F> L(B, N, row_bytes, k, splits);
+  if (!qscale || !tscale || !L.takes(N, splits) ||
+      !takes(q, x, sq, tscale, row_bytes)) {
     return (int)cudaErrorInvalidValue;
   }
   CUtensorMap qmap, xmap, tsmap, sqmap;
   if (!byte_map(q, B, row_bytes, TILE_Q, &qmap) ||
       !byte_map(x, N, row_bytes, TILE_N, &xmap) ||
-      !float_map(tscale, N, &tsmap) || !float_map(sq, N, &sqmap)) {
+      !float_map(tscale, N, TILE_N, &tsmap) ||
+      !float_map(sq, N, TILE_N, &sqmap)) {
     return (int)cudaErrorNotSupported;
   }
-  const int smem = smem_bytes(row_bytes);
-  cudaError_t err = cudaFuncSetAttribute(
-      int8_tile_kernel<FILTER, SETS, Probe, Tune>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(kshare, 0, (size_t)B * sizeof(unsigned), stream);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles_per_split = (ntiles + splits - 1) / splits;
-  const int slab_len = heap_len(k) + BUF_CAP;
-  const dim3 grid((B + TILE_Q - 1) / TILE_Q, splits);
-  int8_tile_kernel<FILTER, SETS, Probe, Tune>
-      <<<grid, THREADS, smem, stream>>>(
-      qmap, xmap, tsmap, sqmap, qq, qscale, B, N, row_bytes, k, ntiles,
-      tiles_per_split, slab_len, slabs, kshare);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return rht_scan::launch_merge(slabs, slab_len, B, k, splits, out_s, out_i,
-                                stream);
+  auto* const kernel = int8_tile_kernel<FILTER, SETS, Probe, Tune>;
+  const int err = L.prepare(kernel, B, kshare, stream);
+  if (err != 0) return err;
+  kernel<<<L.grid, THREADS, L.smem, stream>>>(
+      qmap, xmap, tsmap, sqmap, qq, qscale, B, N, row_bytes, k, L.ntiles,
+      L.tiles_per_split, L.slab_len, slabs, kshare);
+  return L.finish(slabs, B, k, splits, out_s, out_i, stream);
 }
 
 template <bool FILTER, int SETS, class Probe>
 int blocks_per_sm(int row_bytes) {
-  const int smem = smem_bytes(row_bytes);
-  int n = 0;
-  if (cudaFuncSetAttribute(int8_tile_kernel<FILTER, SETS, Probe>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, int8_tile_kernel<FILTER, SETS, Probe>, THREADS, smem) !=
-          cudaSuccess) {
-    return -1;
-  }
-  return n;
+  return resident_blocks<F>(int8_tile_kernel<FILTER, SETS, Probe>,
+                            row_bytes);
 }
 
 // The accumulator sets of the shipped instance (tools/lowp_core_study.cu

@@ -45,9 +45,9 @@ partial sum is an integer below 2^24.
 
 The bf16 and int8 scan tiers select with two more cores on kernel A's
 selection (:func:`flat_topk_bf16`, :func:`flat_topk_int8`; kernels
-A-bf16 of ``csrc/scan_lowp.cu``, A-int8 of ``csrc/scan_int8.cu`` with
-scan_lowp.cu's form as its general form), for work that the JAX
-package leaves to XLA; their section below gives their scores.
+A-bf16 of ``csrc/scan_bf16.cu`` and A-int8 of ``csrc/scan_int8.cu``,
+each with scan_lowp.cu's form as its general form), for work that the
+JAX package leaves to XLA; their section below gives their scores.
 
 Bound on the H100: the scoring is 2*B*N*D fp32 operations (true fp32, no
 tensor cores) against (B + N)*D*4 bytes, so it is compute-bound at the
@@ -383,10 +383,11 @@ flat_topk_hamming.launches = 0
 # The JAX package scores these tiers in XLA (ops/scan.py ``_chunk_scores``:
 # a bf16 or int8 jnp.dot, then lax.top_k per chunk). Here they score on the
 # tensor cores under kernel A's selection (heaps in device memory,
-# list_merge_kernel), so every k is served: A-bf16 on ``csrc/scan_lowp.cu``
-# (mma.sync), A-int8 on ``csrc/scan_int8.cu`` (warpgroup MMA on TMA-fed
-# tiles, its queries resident, a one-add-max-a-score filter before the
-# exact score) or, for rows it cannot take, scan_lowp.cu's general form:
+# list_merge_kernel), so every k is served: A-bf16 on ``csrc/scan_bf16.cu``
+# (warpgroup MMA on TMA-fed tiles, its queries resident, every row's exact
+# score), A-int8 on ``csrc/scan_int8.cu`` (the same, with a
+# one-add-max-a-score filter before the exact score), or, for rows they
+# cannot take, scan_lowp.cu's general form (mma.sync on a cp.async ring):
 #
 #   bf16: score = (2 * dot - qq) - sq,            dot = bf16 q . bf16 x (f32)
 #   int8: score = (2 * (dot * (qscale * tscale)) - qq) - sq,
@@ -510,13 +511,14 @@ def _check_lowp(q, t, sq_masked, qq, k, dtype):
         raise ValueError("all operands must be on one device")
 
 
-# Kernel A-int8's forms (``flat_topk_int8.forms`` counts launches by form):
-# "wgmma", ``csrc/scan_int8.cu`` (warpgroup MMA on TMA-fed tiles), for rows
-# of a multiple of 16 bytes (up to INT8_WGMMA_MAX_ROW_BYTES) with the
-# queries, the table, tscale and sq on 16-byte boundaries, a tensor map's
-# terms; "general", ``csrc/scan_lowp.cu``'s lowp_tile_kernel<Int8Core>
+# The forms of kernels A-int8 and A-bf16 (``flat_topk_int8.forms`` and
+# ``flat_topk_bf16.forms`` count launches by form): "wgmma",
+# ``csrc/scan_int8.cu`` / ``csrc/scan_bf16.cu`` (warpgroup MMA on TMA-fed
+# tiles), for rows of a multiple of 16 bytes (int8: up to
+# INT8_WGMMA_MAX_ROW_BYTES) with every operand on a 16-byte boundary, a
+# tensor map's terms; "general", ``csrc/scan_lowp.cu``'s lowp_tile_kernel
 # (mma.sync on a cp.async ring), for the rest.
-INT8_FORMS = ("wgmma", "general")
+LOWP_FORMS = ("wgmma", "general")
 INT8_WGMMA_MAX_ROW_BYTES = 32768  # scan_int8.cu MAX_ROW_BYTES
 
 
@@ -530,16 +532,37 @@ def int8_form(row_bytes: int, *ptrs: int) -> str:
     return "general"
 
 
+def bf16_form(row_bytes: int, *ptrs: int) -> str:
+    """The form of kernel A-bf16 that takes rows of ``row_bytes`` bytes
+    (2 D') with its operands (queries, table, sq) at device addresses
+    ``ptrs``: :func:`int8_form`'s rule with no widest row (its sums are
+    f32)."""
+    if row_bytes % 16 == 0 and all(p % 16 == 0 for p in ptrs):
+        return "wgmma"
+    return "general"
+
+
+def _ptr(x) -> int:
+    """A CUDA operand's address as the launch passes it on (a
+    non-contiguous operand goes as a fresh copy: counted as unaligned)."""
+    return x.data_ptr() if x.is_contiguous() else 0
+
+
 def int8_form_of(q8, t8, sq_masked, tscale) -> str:
     """The form :func:`flat_topk_int8` takes on these CUDA operands (the
     queries are passed on as they are where the table's rows are not
     padded, else as a fresh padded copy; non-contiguous operands as fresh
     copies)."""
-    def ptr(x):
-        return x.data_ptr() if x.is_contiguous() else 0
+    qptr = _ptr(q8) if q8.shape[1] == t8.shape[1] else 0
+    return int8_form(t8.shape[1], qptr, _ptr(t8), _ptr(sq_masked),
+                     _ptr(tscale))
 
-    qptr = ptr(q8) if q8.shape[1] == t8.shape[1] else 0
-    return int8_form(t8.shape[1], qptr, ptr(t8), ptr(sq_masked), ptr(tscale))
+
+def bf16_form_of(q16, t16, sq_masked) -> str:
+    """The form :func:`flat_topk_bf16` takes on these CUDA operands (as
+    :func:`int8_form_of`)."""
+    qptr = _ptr(q16) if q16.shape[1] == t16.shape[1] else 0
+    return bf16_form(2 * t16.shape[1], qptr, _ptr(t16), _ptr(sq_masked))
 
 
 def _int8_lib():
@@ -554,25 +577,39 @@ def _int8_lib():
     return lib
 
 
+def _bf16_lib():
+    from ..utils.build import load_kernel
+
+    lib = load_kernel("scan_bf16")
+    lib.scan_bf16_launch.restype = _I
+    lib.scan_bf16_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                                     _P, _P, _P, _P]
+    lib.scan_bf16_slots.restype = _I
+    lib.scan_bf16_slots.argtypes = []
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
-def int8_block_slots(device_index: int) -> int:
-    """Blocks of A-int8's wgmma form that card ``device_index`` holds at
-    once."""
+def wgmma_block_slots(device_index: int, core: str) -> int:
+    """Blocks of core ``core``'s wgmma form ("int8": scan_int8.cu, "bf16":
+    scan_bf16.cu) that card ``device_index`` holds at once."""
     with torch.cuda.device(device_index):
-        slots = _int8_lib().scan_int8_slots()
+        slots = (_int8_lib().scan_int8_slots() if core == "int8"
+                 else _bf16_lib().scan_bf16_slots())
     if slots <= 0:
-        raise RuntimeError("scan_int8: cannot read the card's occupancy")
+        raise RuntimeError(f"scan_{core}: cannot read the card's occupancy")
     return slots
 
 
-def int8_wave_plan(slots: int, B: int, N: int) -> tuple[int, int]:
-    """(splits, 128-row tiles per split) of A-int8's wgmma form over B
-    queries and N rows on a card holding ``slots`` of its blocks: one wave
-    -- every query tile of every split resident at once, so each row
-    range's tiles are read from device memory about once and the 128-query
-    blocks sharing it meet in L2 -- cut into as many equal splits as the
-    wave holds and the rows allow, none empty. Past ``slots`` query tiles
-    (B > 128 * slots) one split takes all the rows."""
+def wave_plan(slots: int, B: int, N: int) -> tuple[int, int]:
+    """(splits, 128-row tiles per split) of a wgmma form (A-int8's or
+    A-bf16's: 128 queries a block) over B queries and N rows on a card
+    holding ``slots`` of its blocks: one wave -- every query tile of every
+    split resident at once, so each row range's tiles are read from device
+    memory about once and the 128-query blocks sharing it meet in L2 --
+    cut into as many equal splits as the wave holds and the rows allow,
+    none empty. Past ``slots`` query tiles (B > 128 * slots) one split
+    takes all the rows."""
     tiles = max(1, -(-N // TILE))
     q_tiles = max(1, -(-B // TILE))
     splits = max(1, min(slots // q_tiles, tiles, 65535))
@@ -580,25 +617,27 @@ def int8_wave_plan(slots: int, B: int, N: int) -> tuple[int, int]:
     return -(-tiles // per), per
 
 
-def int8_plan(device, B: int, N: int, form: str = "wgmma"
-              ) -> tuple[int, int]:
-    """(splits, 128-row tiles per split) of kernel A-int8 in ``form``:
-    :func:`int8_wave_plan` over the wgmma form's resident blocks, or the
-    general form's :func:`lowp_plan`."""
-    if form == "general":
-        return lowp_plan(device, B, N, "int8")
+def _card_index(device) -> int:
     index = torch.device(device).index
-    if index is None:
-        index = torch.cuda.current_device()
-    return int8_wave_plan(int8_block_slots(index), B, N)
+    return torch.cuda.current_device() if index is None else index
 
 
-def _launch_lowp(core, q, t, qq, qscale, sq_masked, tscale, k,
-                 form="general"):
-    """Launch core ``core`` on CUDA tensors, int8 in ``form`` (None: the
-    one its operands take); returns (ids, sims, form). The table's rows
-    are already a multiple of 4 bytes (:func:`pad_lowp_rows`); the queries
-    are zero-padded to its width here."""
+def wgmma_plan(device, B: int, N: int, core: str, form: str = "wgmma"
+               ) -> tuple[int, int]:
+    """(splits, 128-row tiles per split) of kernel A-``core`` ("int8"
+    or "bf16") in ``form``: :func:`wave_plan` over its wgmma form's
+    resident blocks, or the general form's :func:`lowp_plan`."""
+    if form == "general":
+        return lowp_plan(device, B, N, core)
+    return wave_plan(wgmma_block_slots(_card_index(device), core), B, N)
+
+
+def _launch_lowp(core, q, t, qq, qscale, sq_masked, tscale, k, form=None):
+    """Launch core ``core`` on CUDA tensors in ``form`` (None: the one its
+    operands take; "wgmma" raises on operands it cannot take); returns
+    (ids, sims, form). The table's rows are already a multiple of 4 bytes
+    (:func:`pad_lowp_rows`); the queries are zero-padded to its width
+    here."""
     esize = q.element_size()
     if t.shape[1] != q.shape[1]:
         q = torch.nn.functional.pad(q, (0, t.shape[1] - q.shape[1]))
@@ -610,49 +649,68 @@ def _launch_lowp(core, q, t, qq, qscale, sq_masked, tscale, k,
     dev = q.device
     if core == "int8":
         takes = int8_form_of(q, t, sq_masked, tscale)
-        form = takes if form is None else form
-        if form == "wgmma" and takes != "wgmma":
-            raise ValueError(
-                "kernel A-int8's wgmma form needs rows of a multiple of 16 "
-                f"bytes (at most {INT8_WGMMA_MAX_ROW_BYTES}) with the "
-                "queries, the table, tscale and sq on 16-byte boundaries, "
-                f"got {Dw * esize}-byte rows, operands "
-                f"{[x.data_ptr() % 16 for x in (q, t, sq_masked, tscale)]} "
-                "bytes past one")
+        operands = (q, t, sq_masked, tscale)
+        widest = f" (at most {INT8_WGMMA_MAX_ROW_BYTES})"
+    else:
+        takes = bf16_form_of(q, t, sq_masked)
+        operands = (q, t, sq_masked)
+        widest = ""
+    form = takes if form is None else form
+    if form == "wgmma" and takes != "wgmma":
+        raise ValueError(
+            f"kernel A-{core}'s wgmma form needs rows of a multiple of 16 "
+            f"bytes{widest} with every operand on a 16-byte boundary, got "
+            f"{Dw * esize}-byte rows, operands "
+            f"{[x.data_ptr() % 16 for x in operands]} bytes past one")
     out_s = torch.empty((B, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((B, k), dtype=torch.int32, device=dev)
     if B == 0:
         return out_i, out_s, form
     if form == "wgmma":
-        lib = _int8_lib()
-        splits, _ = int8_plan(dev, B, N)
-        name = "scan_int8"
+        splits, _ = wgmma_plan(dev, B, N, core)
+        name = f"scan_{core} (wgmma form)"
     else:
-        lib = _lowp_lib()
         splits, _ = lowp_plan(dev, B, N, core)
-        name = f"scan_lowp {core}"
+        name = f"scan_lowp {core} (general form)"
     slabs = torch.empty((splits, B, _lib().scan_topk_slab_len(k), 2),
                         dtype=torch.int32, device=dev)
-    head = (q.data_ptr(), t.data_ptr(), qq.data_ptr(),
-            None if qscale is None else qscale.data_ptr(),
-            sq_masked.data_ptr(),
-            None if tscale is None else tscale.data_ptr(), B, N,
-            Dw * esize, k, splits, slabs.data_ptr())
-    tail = (out_s.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tail = (out_s.data_ptr(), out_i.data_ptr(), stream)
     with torch.cuda.device(dev):
         if form == "wgmma":
             # the splits' shared k-th best per query (the launch zeroes it)
             kshare = torch.empty(B, dtype=torch.int32, device=dev)
-            err = lib.scan_int8_launch(*head, kshare.data_ptr(), *tail)
+            if core == "int8":
+                err = _int8_lib().scan_int8_launch(
+                    q.data_ptr(), t.data_ptr(), qq.data_ptr(),
+                    qscale.data_ptr(), sq_masked.data_ptr(),
+                    tscale.data_ptr(), B, N, Dw * esize, k, splits,
+                    slabs.data_ptr(), kshare.data_ptr(), *tail)
+            else:
+                err = _bf16_lib().scan_bf16_launch(
+                    q.data_ptr(), t.data_ptr(), qq.data_ptr(),
+                    sq_masked.data_ptr(), B, N, Dw * esize, k, splits,
+                    slabs.data_ptr(), kshare.data_ptr(), *tail)
         else:
-            err = lib.scan_lowp_launch(LOWP_CORES[core], *head, *tail)
+            err = _lowp_lib().scan_lowp_launch(
+                LOWP_CORES[core], q.data_ptr(), t.data_ptr(), qq.data_ptr(),
+                None if qscale is None else qscale.data_ptr(),
+                sq_masked.data_ptr(),
+                None if tscale is None else tscale.data_ptr(), B, N,
+                Dw * esize, k, splits, slabs.data_ptr(), *tail)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return out_i, out_s, form
 
 
-def flat_topk_bf16(q16, t16, sq_masked, qq, *, k: int):
+def _check_form(form, forms, core):
+    if form is not None and form not in forms:
+        raise ValueError(f"unknown kernel A-{core} form {form!r}, not one "
+                         f"of {forms}")
+
+
+def flat_topk_bf16(q16, t16, sq_masked, qq, *, k: int,
+                   form: str | None = None):
     """Top-k of every query over every row by the bf16 tier's score.
 
     ``q16`` [B, D] and ``t16`` [N, D'] bfloat16 (D' = D padded to 4
@@ -660,20 +718,25 @@ def flat_topk_bf16(q16, t16, sq_masked, qq, *, k: int):
     sqnorms, +inf on dead rows), ``qq`` [B] f32 (the f32 queries'
     sqnorms). Returns (ids [B, k] int32, sims [B, k] f32) in
     (-sim, id) order with -1/-inf padding, at any ``k``. A CUDA tensor
-    launches kernel A-bf16 (or raises); a CPU tensor takes the plain
-    version."""
+    launches kernel A-bf16 (or raises) in the form its shape takes
+    (:func:`bf16_form`); ``form`` forces one of :data:`LOWP_FORMS` (for
+    tests and timing; "wgmma" raises on a shape it cannot take). A CPU
+    tensor takes the plain version."""
+    _check_form(form, LOWP_FORMS, "bf16")
     _check_lowp(q16, t16, sq_masked, qq, k, torch.bfloat16)
     if q16.device.type == "cpu":
         return plain_flat_topk_bf16(q16, t16, sq_masked, qq, k=k)
     if q16.device.type != "cuda":
         raise ValueError(f"unsupported device {q16.device}")
-    ids, sims, _ = _launch_lowp("bf16", q16, t16, qq, None, sq_masked,
-                                None, k)
+    ids, sims, form = _launch_lowp("bf16", q16, t16, qq, None, sq_masked,
+                                   None, k, form)
     flat_topk_bf16.launches += 1
+    flat_topk_bf16.forms[form] += 1
     return ids, sims
 
 
 flat_topk_bf16.launches = 0
+flat_topk_bf16.forms = Counter()
 
 
 def flat_topk_int8(q8, qscale, t8, tscale, sq_masked, qq, *, k: int,
@@ -686,11 +749,9 @@ def flat_topk_int8(q8, qscale, t8, tscale, sq_masked, qq, *, k: int,
     ``sq_masked`` and ``qq`` as in :func:`flat_topk_bf16`. Same reply
     contract. A CUDA tensor launches kernel A-int8 (or raises) in the form
     its shape takes (:func:`int8_form`); ``form`` forces one of
-    :data:`INT8_FORMS` (for tests and timing; "wgmma" raises on a shape it
+    :data:`LOWP_FORMS` (for tests and timing; "wgmma" raises on a shape it
     cannot take). A CPU tensor takes the plain version."""
-    if form is not None and form not in INT8_FORMS:
-        raise ValueError(f"unknown kernel A-int8 form {form!r}, not one of "
-                         f"{INT8_FORMS}")
+    _check_form(form, LOWP_FORMS, "int8")
     _check_lowp(q8, t8, sq_masked, qq, k, torch.int8)
     for s, n in ((qscale, q8.shape[0]), (tscale, t8.shape[0])):
         if tuple(s.shape) != (n,) or s.dtype != torch.float32:

@@ -123,8 +123,8 @@ def start_kernel_build(name: str):
     )
 
 
-KERNELS = ("scan_topk", "scan_lowp", "scan_int8", "count_gt_eq",
-           "block_score", "select_bins")
+KERNELS = ("scan_topk", "scan_lowp", "scan_int8", "scan_bf16",
+           "count_gt_eq", "block_score", "select_bins")
 
 _loaded: dict = {}
 _load_lock = threading.Lock()

@@ -880,32 +880,36 @@ def lowp_operands(rng, B, N, dim, core, lattice, dead, device,
     return args
 
 
-def run_lowp(core, args, k, plain=False):
+def run_lowp(core, args, k, plain=False, form=None):
     if core == "bf16":
         fn = (cuda_scan.plain_flat_topk_bf16 if plain
               else cuda_scan.flat_topk_bf16)
     else:
         fn = (cuda_scan.plain_flat_topk_int8 if plain
               else cuda_scan.flat_topk_int8)
-    return fn(*args, k=k)
+    return fn(*args, k=k, **({"form": form} if form else {}))
 
 
-def assert_lowp_matches(core, args, k, lattice, planted=None):
+def assert_lowp_matches(core, args, k, lattice, planted=None, form=None):
     """A core against its plain version: bitwise (ids and sims) for int8
     on any data and for bf16 on lattice data; bf16 on Gaussian data:
     every slot's sim within 1e-5 * (qq + sq) of the plain version's and
     the ids equal at every slot whose plain score lies further than the
     two rows' bands from each neighbour's in the plain ranking, the first
-    row left out (rank k + 1) included."""
+    row left out (rank k + 1) included. ``form``: the core forced into
+    that form, its launch counted under it."""
     fn = cuda_scan.flat_topk_bf16 if core == "bf16" else \
         cuda_scan.flat_topk_int8
     before = fn.launches
-    ids, sims = run_lowp(core, args, k)
+    before_form = fn.forms[form]
+    ids, sims = run_lowp(core, args, k, form=form)
     pi, ps = run_lowp(core, args, k + 1, plain=True)
     torch.cuda.synchronize()
     next_i, next_s = pi[:, k:], ps[:, k:]
     pi, ps = pi[:, :k], ps[:, :k]
     assert fn.launches == before + 1
+    if form is not None:
+        assert fn.forms[form] == before_form + 1
     fin = torch.isfinite(ps)
     assert torch.equal(fin, torch.isfinite(sims))
     if core == "int8" or lattice:
@@ -1135,7 +1139,7 @@ def test_int8_wgmma_ties_across_every_edge(card, B, k):
     rng = np.random.default_rng(B + k)
     N = 40_000
     args = lowp_operands(rng, B, N, 128, "int8", False, 0.05, card)
-    splits, per = cuda_scan.int8_plan(card, B, N)
+    splits, per = cuda_scan.wgmma_plan(card, B, N, "int8")
     edges = [128, 3 * 128] + [s * per * 128 for s in range(1, splits)]
     queries = sorted({0, 7, 8, 63, 64, 127, 128, B - 1})
     planted = []
@@ -1147,6 +1151,36 @@ def test_int8_wgmma_ties_across_every_edge(card, B, k):
     assert splits > 1
     assert_int8_form(args, k, "wgmma", planted)
     assert_int8_form(args, k, "general", planted)
+
+
+@pytest.mark.parametrize("core", ["int8", "bf16"])
+@pytest.mark.parametrize("dim", [256, 512])
+def test_wgmma_repeats_on_wide_rows(card, core, dim):
+    """Rows of two and four 128-byte chunks (int8 D = 256, 512; bf16 D =
+    256, 512: four and eight chunks), where a tile's row terms are taken
+    out of the ring stage of its first chunk and that stage is released
+    before the tile's last chunk is in: the wgmma form, launched 30 times
+    over a full wave of blocks, equals the plain version bitwise every
+    time (int8 on Gaussian data, bf16 on lattice data). A warp that read
+    its stage after the release would now and then see the next tile's
+    sq and tscale."""
+    rng = np.random.default_rng(dim + (core == "bf16"))
+    B, N, k = 2048, 30_000, 10
+    args = lowp_operands(rng, B, N, dim, core, core == "bf16", 0.05, card)
+    fn = cuda_scan.flat_topk_int8 if core == "int8" else \
+        cuda_scan.flat_topk_bf16
+    plain = cuda_scan.plain_flat_topk_int8 if core == "int8" else \
+        cuda_scan.plain_flat_topk_bf16
+    pi, ps = plain(*args, k=k)
+    before = fn.forms["wgmma"]
+    differ = 0
+    for _ in range(30):
+        ids, sims = fn(*args, k=k, form="wgmma")
+        differ += not (torch.equal(ids, pi) and torch.equal(
+            sims.view(torch.int32), ps.view(torch.int32)))
+    torch.cuda.synchronize()
+    assert fn.forms["wgmma"] == before + 30
+    assert differ == 0
 
 
 @pytest.mark.parametrize("k", [1, 10, 100])
@@ -1191,6 +1225,141 @@ def test_int8_forms_counted(card):
     cuda_scan.flat_topk_int8(*wide, k=10)
     cuda_scan.flat_topk_int8(*narrow, k=10)
     cuda_scan.flat_topk_int8(*wide, k=10, form="general")
+    torch.cuda.synchronize()
+    assert forms["wgmma"] == before.get("wgmma", 0) + 1
+    assert forms["general"] == before.get("general", 0) + 2
+
+
+# -- kernel A-bf16's two forms: wgmma (csrc/scan_bf16.cu), general ----------
+
+@pytest.mark.parametrize("lattice", [True, False])
+@pytest.mark.parametrize(
+    "B,N,dim,k,dead,live_rows,form",
+    [(64, 128, 8, 10, 0.1, None, "wgmma"),
+     (128, 64, 16, 1, 0.0, None, "wgmma"),
+     (65, 129, 64, 40, 0.3, None, "wgmma"),     # one 128-byte chunk
+     (129, 127, 128, 10, 0.1, None, "wgmma"),   # two chunks
+     (64, 300, 128, 1000, 0.2, 7, "wgmma"),
+     (63, 200, 128, 257, 0.2, None, "wgmma"),
+     (1, 1, 8, 1, 0.0, None, "wgmma"),
+     (70, 3000, 256, 64, 0.2, None, "wgmma"),   # four resident chunks
+     (40, 700, 528, 10, 0.1, None, "wgmma"),    # queries streamed
+     (129, 127, 128, 10, 0.1, None, "general"),
+     (64, 300, 128, 1000, 0.2, 7, "general"),
+     (64, 128, 12, 10, 0.1, None, "general"),
+     (65, 129, 33, 40, 0.3, None, "general"),
+     (33, 2000, 100, 80, 0.2, None, "general"),
+     (127, 129, 1, 1, 0.0, None, "general")],
+)
+def test_bf16_forms_ragged(card, lattice, B, N, dim, k, dead, live_rows,
+                           form):
+    """Both forms of kernel A-bf16, each forced, against the plain version
+    at ragged shapes (bitwise on lattice data, within the 1e-5 (qq + sq)
+    band on Gaussian data): B and N about 64 / 128, D = 8 ... 256 on the
+    wgmma form (and 528, whose queries stream through the ring), rows of
+    24, 68, 200 and 4 bytes on the general form, k from 1 to 1000 with
+    fewer live rows than k."""
+    rng = np.random.default_rng(B * N + dim + k + lattice)
+    args = lowp_operands(rng, B, N, dim, "bf16", lattice, dead, card,
+                         live_rows=live_rows)
+    assert_lowp_matches("bf16", args, k, lattice, form=form)
+
+
+@pytest.mark.parametrize("dim", [12, 33, 100, 64])
+def test_bf16_wgmma_refuses_what_it_cannot_take(card, dim):
+    """Rows that are not a multiple of 16 bytes, or a table off a 16-byte
+    boundary, take the general form; forcing the wgmma form raises."""
+    rng = np.random.default_rng(dim)
+    args = lowp_operands(rng, 64, 500, dim, "bf16", True, 0.1, card,
+                         offset=4 if dim == 64 else 0)
+    assert cuda_scan.bf16_form_of(*args[:3]) == "general"
+    with pytest.raises(ValueError, match="wgmma"):
+        cuda_scan.flat_topk_bf16(*args, k=10, form="wgmma")
+    assert_lowp_matches("bf16", args, 10, True, form="general")
+    assert_lowp_matches("bf16", args, 10, True)
+
+
+def plant_bf16_ties(args, q, edge):
+    """Query q's own row at rows edge - 1 .. edge + 1, live, with its
+    sqnorm: its top 3 are those rows in id order."""
+    q16, t16, sqm, qq = args
+    t16[edge - 1 : edge + 2, : q16.shape[1]] = q16[q]
+    sqm[edge - 1 : edge + 2] = qq[q]
+
+
+@pytest.mark.parametrize("B", [129, 2049])
+@pytest.mark.parametrize("k", [3, 10, 80])
+def test_bf16_wgmma_ties_across_every_edge(card, B, k):
+    """Equal rows planted across the wgmma form's edges, for queries on
+    either side of them: the two warpgroups' halves of a block (queries 63
+    / 64), a warp's two query rows (g and g + 8: queries 7 / 8), a block's
+    last and the next block's first (127 / 128); the rows across a
+    128-row tile edge and across each of its split edges as its own
+    planner cuts them. Lattice data: each query's ties come first in id
+    order, and both forms equal the plain version bitwise."""
+    rng = np.random.default_rng(B + k + 1)
+    N = 40_000
+    args = lowp_operands(rng, B, N, 128, "bf16", True, 0.05, card)
+    splits, per = cuda_scan.wgmma_plan(card, B, N, "bf16")
+    edges = [128, 3 * 128] + [s * per * 128 for s in range(1, splits)]
+    queries = sorted({0, 7, 8, 63, 64, 127, 128, B - 1})
+    planted = []
+    for i, q in enumerate(queries):
+        edge = edges[i % len(edges)] + (0 if i < len(edges) else 640)
+        if edge + 2 < N:
+            plant_bf16_ties(args, q, edge)
+            planted.append((q, edge))
+    assert splits > 1
+    for form in cuda_scan.LOWP_FORMS:
+        assert_lowp_matches("bf16", args, k, True, form=form)
+        ids, _ = cuda_scan.flat_topk_bf16(*args, k=k, form=form)
+        for q, edge in planted:
+            assert ids[q, :3].tolist() == [edge - 1, edge, edge + 1][:k]
+
+
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_bf16_wgmma_sq_over_six_decades(card, k):
+    """Lattice rows scaled by powers of two so that their sq spans six
+    decades within every tile (tiny and huge rows interleaved), tiny
+    copies of a query of either sign among them, all-zero rows, dead rows:
+    every product and partial sum is exact, so both forms equal the plain
+    version bitwise."""
+    rng = np.random.default_rng(k + 40)
+    B, N, dim = 130, 6000, 128
+    q = rng.integers(-16, 17, (B, dim)).astype(np.float32)
+    x = rng.integers(-16, 17, (N, dim)).astype(np.float32)
+    x *= np.exp2(rng.integers(-5, 6, N)).astype(np.float32)[:, None]
+    near = rng.random(N) < 0.3  # copies of a query scaled down, either sign
+    sign = np.where(rng.random(N) < 0.5, -1.0, 1.0).astype(np.float32)
+    x[near] = (sign[near, None] * np.exp2(-5.0).astype(np.float32)
+               * q[rng.integers(0, B, N)[near]])
+    x[::97] = 0.0
+    qt, xt = torch.from_numpy(q).to(card), torch.from_numpy(x).to(card)
+    sq = torch.from_numpy(np.einsum("nd,nd->n", x, x)).to(card)
+    live = torch.from_numpy(rng.random(N) >= 0.05).to(card)
+    sqm = cuda_scan.euclid_sq_masked(sq, live)
+    args = [qt.to(torch.bfloat16),
+            cuda_scan.pad_lowp_rows(xt.to(torch.bfloat16)), sqm,
+            TD.sqnorms(qt)]
+    spread = sq[sq > 0]
+    assert (spread.max() / spread.min()).item() >= 1e6
+    for form in cuda_scan.LOWP_FORMS:
+        assert_lowp_matches("bf16", args, k, True, form=form)
+
+
+def test_bf16_forms_counted(card):
+    """flat_topk_bf16.forms counts each launch by the form that served it:
+    the wgmma form where the rows are a multiple of 16 bytes on 16-byte
+    boundaries (D = 128), the general form elsewhere (D = 100) and where
+    it is forced."""
+    rng = np.random.default_rng(6)
+    forms = cuda_scan.flat_topk_bf16.forms
+    before = dict(forms)
+    wide = lowp_operands(rng, 64, 400, 128, "bf16", True, 0.1, card)
+    narrow = lowp_operands(rng, 64, 400, 100, "bf16", True, 0.1, card)
+    cuda_scan.flat_topk_bf16(*wide, k=10)
+    cuda_scan.flat_topk_bf16(*narrow, k=10)
+    cuda_scan.flat_topk_bf16(*wide, k=10, form="general")
     torch.cuda.synchronize()
     assert forms["wgmma"] == before.get("wgmma", 0) + 1
     assert forms["general"] == before.get("general", 0) + 2

@@ -190,13 +190,14 @@ def test_int8_form_choice(row_bytes, offsets, want):
 @pytest.mark.parametrize("B", [1, 2048, 16_384])
 @pytest.mark.parametrize("N", [1, 10_000, 1_000_064, 8_388_608])
 def test_int8_wave_plan(B, N):
-    """The wgmma form's planner on a card holding 132 of its blocks: every
+    """The wgmma forms' planner (A-int8's and A-bf16's: 128 queries a
+    block) on a card holding 132 of a form's blocks: every
     128-row range covered by exactly one split, as the kernel cuts them
     (ceil(tiles / splits) tiles each, none empty), and every query tile
     of every split in one wave; past a few tiles a split, the wave full
     to within one split's query tiles."""
     slots = 132
-    splits, per = cuda_scan.int8_wave_plan(slots, B, N)
+    splits, per = cuda_scan.wave_plan(slots, B, N)
     tiles = max(1, -(-N // 128))
     q_tiles = -(-B // 128)
     assert (splits - 1) * per < tiles <= splits * per
@@ -207,14 +208,16 @@ def test_int8_wave_plan(B, N):
 
 
 def test_int8_plan_by_form(monkeypatch):
-    """int8_plan reads the wgmma form's resident blocks for its wave plan,
-    and the general form's planner for the general form."""
-    monkeypatch.setattr(cuda_scan, "int8_block_slots", lambda index: 132)
+    """wgmma_plan for A-int8 reads its wgmma form's resident blocks for
+    its wave plan, and the general form's planner for the general form."""
+    monkeypatch.setattr(cuda_scan, "wgmma_block_slots",
+                        lambda index, core: 132)
     monkeypatch.setattr(cuda_scan, "lowp_block_slots",
                         lambda index, core: 264)
     dev = torch.device("cuda", 0)
-    assert cuda_scan.int8_plan(dev, 2048, 1_000_064) == (8, 977)
-    assert cuda_scan.int8_plan(dev, 2048, 1_000_064, "general") == \
+    assert cuda_scan.wgmma_plan(dev, 2048, 1_000_064, "int8") == (8, 977)
+    assert cuda_scan.wgmma_plan(dev, 2048, 1_000_064, "int8",
+                                "general") == \
         cuda_scan.lowp_plan(dev, 2048, 1_000_064, "int8")
 
 
@@ -229,12 +232,81 @@ def test_int8_form_keyword(rng):
     t8, ts = TS._to_int8(xt)
     args = (q8, qs, t8, ts, sqm, qqt)
     want = cuda_scan.plain_flat_topk_int8(*args, k=7)
-    for form in (None, *cuda_scan.INT8_FORMS):
+    for form in (None, *cuda_scan.LOWP_FORMS):
         got = cuda_scan.flat_topk_int8(*args, k=7, form=form)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     for form in ("tma", "WGMMA", ""):
         with pytest.raises(ValueError, match="form"):
             cuda_scan.flat_topk_int8(*args, k=7, form=form)
+
+
+@pytest.mark.parametrize(
+    "row_bytes,offsets,want",
+    [(256, (0, 0, 0), "wgmma"),       # flat-sift1m's bf16 rows (D = 128)
+     (16, (0, 0, 0), "wgmma"),        # D = 8
+     (1024, (0, 0, 0), "wgmma"),      # the widest resident query tile
+     (2112, (0, 0, 0), "wgmma"),      # D = 1056: queries streamed
+     (65536, (0, 0, 0), "wgmma"),     # no widest row: its sums are f32
+     (200, (0, 0, 0), "general"),     # D = 100 (phase 5b's ragged index)
+     (4, (0, 0, 0), "general"),       # D = 1, padded to 4 bytes
+     (36, (0, 0, 0), "general"),
+     (264, (0, 0, 0), "general"),
+     (256, (4, 0, 0), "general"),     # the queries off 16 bytes
+     (256, (0, 8, 0), "general"),     # the table
+     (256, (0, 0, 4), "general")],    # sq
+)
+def test_bf16_form_choice(row_bytes, offsets, want):
+    """Kernel A-bf16's form by row bytes (2 D') and alignment: the wgmma
+    form takes rows of a multiple of 16 bytes with the queries, the table
+    and sq on a 16-byte boundary (a tensor map's terms), the general form
+    the rest."""
+    base = 1 << 20
+    got = cuda_scan.bf16_form(row_bytes, *(base + o for o in offsets))
+    assert got == want
+
+
+def test_bf16_plan_by_form(monkeypatch):
+    """wgmma_plan for A-bf16 reads the bf16 wgmma form's own resident
+    blocks for its wave plan (not A-int8's), and the general form's
+    planner for the general form."""
+    monkeypatch.setattr(cuda_scan, "wgmma_block_slots",
+                        lambda index, core: {"bf16": 132, "int8": 264}[core])
+    monkeypatch.setattr(cuda_scan, "lowp_block_slots",
+                        lambda index, core: 264)
+    dev = torch.device("cuda", 0)
+    assert cuda_scan.wgmma_plan(dev, 2048, 1_000_064, "bf16") == (8, 977)
+    assert cuda_scan.wgmma_plan(dev, 16_384, 1_000_064, "bf16") == (1, 7813)
+    assert cuda_scan.wgmma_plan(dev, 2048, 1_000_064, "bf16",
+                                "general") == \
+        cuda_scan.lowp_plan(dev, 2048, 1_000_064, "bf16")
+    assert cuda_scan.wgmma_plan(dev, 2048, 1_000_064, "int8") == (16, 489)
+
+
+@pytest.mark.parametrize("dim", [16, 100, 128])
+def test_bf16_form_keyword(rng, dim):
+    """flat_topk_bf16's form= takes "wgmma" or "general" (on a CPU tensor
+    both are the plain version, equal to the JAX package's bf16 scores'
+    top k on lattice data) and rejects anything else."""
+    import jax
+
+    q, x, live, sq, qq = make(rng, 5, 300, dim, True)
+    qt, xt, sqm, qqt = torch_operands(q, x, live, sq, qq)
+    args = (qt.to(torch.bfloat16),
+            cuda_scan.pad_lowp_rows(xt.to(torch.bfloat16)), sqm, qqt)
+    want = cuda_scan.plain_flat_topk_bf16(*args, k=7)
+    dots = jnp.dot(jnp.asarray(q, jnp.bfloat16), jnp.asarray(x, jnp.bfloat16).T,
+                   preferred_element_type=jnp.float32)
+    scores = 2.0 * dots - jnp.asarray(qq)[:, None] - jnp.asarray(
+        np.where(live, sq, np.inf).astype(np.float32))[None, :]
+    jsims, jids = jax.lax.top_k(scores, 7)
+    assert np.array_equal(want[0].numpy(), np.asarray(jids))
+    assert np.array_equal(want[1].numpy(), np.asarray(jsims))
+    for form in (None, *cuda_scan.LOWP_FORMS):
+        got = cuda_scan.flat_topk_bf16(*args, k=7, form=form)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for form in ("tma", "WGMMA", "int8", ""):
+        with pytest.raises(ValueError, match="form"):
+            cuda_scan.flat_topk_bf16(*args, k=7, form=form)
 
 
 @pytest.mark.parametrize("splits", [1, 33, 100])

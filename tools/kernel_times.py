@@ -15,10 +15,12 @@ Shapes: kernels A, B and D at B = 2048 queries over 1,000,064 rows of
 D = 128 (A at k = 10 and k_sel = 40; A at k = 10 and B also at B = 16
 over those rows and at hnsw-main's 2048 x 16,384; the bf16 and int8
 tiers' kernels A-bf16 and A-int8 on those rows' bf16 and int8 copies, at
-k = 10, and A-int8 also at k = 80, the int8-resident tier's width:
-``a_bf16_ms``, ``a_int8_ms``, ``a_int8_k80_ms``, where the checkout has
-them; A-int8's general form forced, ``a_int8_general_ms`` and
-``a_int8_general_k80_ms``, where it has forms); A′ at 2048 x 1,000,064 rows of
+k = 10 and k = 80, the int8-resident tier's width: ``a_bf16_ms``,
+``a_bf16_k80_ms``, ``a_int8_ms``, ``a_int8_k80_ms``, where the checkout
+has them (``a_bf16_k80_ms`` where A-bf16 has forms); each core's general
+form forced, ``a_int8_general_ms``, ``a_int8_general_k80_ms``,
+``a_bf16_general_ms`` and ``a_bf16_general_k80_ms``, where it has
+forms); A′ at 2048 x 1,000,064 rows of
 8 words, k_sel = 40 and k = 10, at B = 16 over those rows and at 2048 x
 16,384 (hnsw-hamming-256b's scan), k = 10; C at B = 2048, E = 16 over a
 1,000,064 x 32 x 128 block table in f32 (``c_ms``), f16 and bf16, at B =
@@ -156,13 +158,21 @@ def main() -> int:
         xb, qb = S._to_bf16(x), S._to_bf16(q)
         t["a_bf16_ms"] = sync_ms(
             lambda: cuda_scan.flat_topk_bf16(qb, xb, sq, qq, k=10), 10)
+        if hasattr(cuda_scan, "bf16_form"):  # a checkout with its forms
+            t["a_bf16_k80_ms"] = sync_ms(
+                lambda: cuda_scan.flat_topk_bf16(qb, xb, sq, qq, k=80), 10)
+            for k in (10, 80):
+                t["a_bf16_general_ms" if k == 10
+                  else "a_bf16_general_k80_ms"] = sync_ms(
+                    lambda: cuda_scan.flat_topk_bf16(qb, xb, sq, qq, k=k,
+                                                     form="general"), 10)
         del xb, qb
         (x8, xs8), (q8, qs8) = S._to_int8(x), S._to_int8(q)
         for k in (10, 80):
             t["a_int8_ms" if k == 10 else "a_int8_k80_ms"] = sync_ms(
                 lambda: cuda_scan.flat_topk_int8(q8, qs8, x8, xs8, sq, qq,
                                                  k=k), 10)
-        if hasattr(cuda_scan, "INT8_FORMS"):  # a checkout with its forms
+        if hasattr(cuda_scan, "int8_form"):  # a checkout with its forms
             for k in (10, 80):
                 t["a_int8_general_ms" if k == 10
                   else "a_int8_general_k80_ms"] = sync_ms(
