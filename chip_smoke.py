@@ -152,7 +152,18 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
    tier and the graph engine against a float64 oracle (``python3
    chip_smoke.py --sharded-rows 1000000`` runs 6d alone at that size); 6e
    the [S, 2048, 10] merge for S = 2, 4, 8, 16 beside one shard's exact
-   scan of 1,000,064 / S rows.
+   scan of 1,000,064 / S rows;
+P. ``pipeline``, the pipelined serving loop (ops/scan.py drain_pipelined),
+   run after phase 5 on the tables earlier phases built: flat-sift1m's
+   16,384 queries (8 chunks of 2048) on the exact tier, the one-pass
+   certified tier (also at fetch windows 1 and 8) and the int8-resident
+   tier at INT8_RESCORE 1 and 8, flat-hamming-sift256 and hnsw-main's scan
+   at 16,384 queries, and in phase 6d phase 6's 4 shards (exact and
+   one-pass certified); each serially (REDIS_HNSW_TPU_PIPELINE=0, one
+   chunk a copy) and at depth 2 in turns, two calls each, replies
+   byte-equal across every setting, with qps, ms a chunk and the device's
+   busy share of a profiled call (torch.profiler's device intervals over
+   the call's wall time).
 
 Every failed check raises, so the script exits non-zero. The last lines
 are the card line, one JSON object of per-kernel numbers, and
@@ -2567,8 +2578,7 @@ def phase_flat_hamming(client, dev):
         f"{n_q / pallas_s:.0f} qps; byte-identical to a second run, to "
         f"SCAN_CERT=1 and to use_pallas on all {n_q} queries, to a numpy "
         f"brute force on {len(sample)} ({oracle_s:.1f} s); launches {counts}")
-    client.delete_index(name)
-    return counts
+    return counts  # the index stays for the pipeline phase
 
 
 # -- phase 4: the wire and durability (4a-4e) ------------------------------
@@ -3556,6 +3566,153 @@ def phase_tiers(client, dev, flat_ref, kernel_rows, kept):
     return {key: sum(c[key] for c in counts) for key in counts[0]}
 
 
+# -- the pipeline phase: the pipelined serving loop ---------------------------
+
+PIPELINE_NQ = 16_384  # 8 chunks of 2048 lanes
+
+
+def profiled_call(fn):
+    """(wall seconds, device busy ms, result) of one call of ``fn`` under
+    torch.profiler (CUDA activity only): busy is the union of the device
+    intervals of every kernel, copy and set the call ran, None when the
+    profiler recorded no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    return wall, (busy_us / 1e3 if spans else None), out
+
+
+def pipeline_table(label, search, n_q, settings, base=None):
+    """The pipeline phase's runs on one table: ``search()`` under each
+    setting of ``settings`` ((name, env) pairs), in turns, two timed
+    calls each, then one call each under the profiler for the device's
+    busy share; every reply byte-equal to the first (and to ``base``,
+    another tier's reply that must match). Logs and keeps qps, ms per
+    2048-query chunk and busy share by setting; returns the first
+    reply."""
+    chunks = -(-n_q // 2048)
+    want = search() if base is None else base  # warm-up: tables built
+    if base is not None:
+        same_reply(search(), want, f"pipeline: {label} warm-up")
+    secs = {name: [] for name, _ in settings}
+    for _ in range(2):
+        for name, values in settings:
+            with env(**values):
+                t0 = time.perf_counter()
+                got = search()
+                secs[name].append(time.perf_counter() - t0)
+            same_reply(got, want, f"pipeline: {label} {name}")
+    out = {}
+    for name, values in settings:
+        with env(**values):
+            wall, busy_ms, got = profiled_call(search)
+        same_reply(got, want, f"pipeline: {label} {name} profiled")
+        out[name] = dict(
+            qps=[n_q / t for t in secs[name]],
+            ms_per_chunk=[t * 1e3 / chunks for t in secs[name]],
+            profiled_wall_ms=wall * 1e3, busy_ms=busy_ms,
+            busy_share=None if busy_ms is None else busy_ms / (wall * 1e3))
+    for name, values in settings:
+        out[name]["env"] = values
+    log(f"phase pipeline: {label}: {n_q} queries in {chunks} chunks, "
+        f"replies byte-equal across settings; by setting (env; qps and ms "
+        f"a chunk of two timed calls; the device's busy share of a "
+        f"profiled call): {json.dumps(out)}")
+    return want
+
+
+SERIAL = ("serial", {"PIPELINE": 0, "FETCH_WINDOW": 1})
+DEPTH2 = ("depth 2", {"PIPELINE": 2})
+
+
+def phase_pipeline(client, dev, flat_qs, k=10):
+    """The pipeline phase: the pipelined serving loop (ops/scan.py
+    drain_pipelined) on earlier phases' tables -- flat-sift1m on the exact
+    tier and the one-pass certified tier (also at fetch windows 1 and 8),
+    under the int8-resident tier at INT8_RESCORE 1 and 8, and
+    flat-hamming-sift256, with phase 3's 16,384 queries (8 chunks), and
+    hnsw-main's scan at 16,384 queries -- serially (PIPELINE 0, window 1)
+    and at depth 2 (the default window), in turns: qps, ms a chunk and the
+    device's busy share, replies byte-equal across settings. Phase 6d runs
+    the sharded table (:func:`phase_sharded_pipeline`). Returns the
+    launches."""
+    t0 = time.perf_counter()
+    reset_counts()
+    log(f"phase pipeline: {card_line()}")
+    flat = client.index("flat-sift1m")
+    n_q = len(flat_qs)
+
+    def flat_search():
+        return flat.search_batch(flat_qs, k, reply="columnar")
+
+    with env(SCAN_CERT=0):
+        exact = pipeline_table("flat-sift1m exact", flat_search, n_q,
+                               [SERIAL, DEPTH2])
+    pipeline_table(
+        "flat-sift1m certified one-pass", flat_search, n_q,
+        [SERIAL, DEPTH2, ("depth 2 window 1", {"PIPELINE": 2,
+                                                "FETCH_WINDOW": 1}),
+         ("depth 2 window 8", {"PIPELINE": 2, "FETCH_WINDOW": 8}),
+         ("depth 0 window 8", {"PIPELINE": 0, "FETCH_WINDOW": 8})],
+        base=exact)
+    for mult in (1, 8):
+        with env(SCAN_DTYPE="int8", INT8_RESCORE=mult):
+            pipeline_table(f"flat-sift1m int8-resident x{mult}", flat_search,
+                           n_q, [SERIAL, DEPTH2])
+    flat._dev = None  # the int8 table goes; the f32 one is not needed again
+    hidx = client.index("flat-hamming-sift256")
+    hqs = np.random.default_rng(SEED + 10).integers(
+        0, 2**32, (PIPELINE_NQ, 8), dtype=np.uint32)
+    pipeline_table("flat-hamming-sift256",
+                   lambda: hidx.search_batch(hqs, k, reply="columnar"),
+                   PIPELINE_NQ, [SERIAL, DEPTH2])
+    client.delete_index("flat-hamming-sift256")
+    qs = np.random.default_rng(SEED + 11).standard_normal(
+        (PIPELINE_NQ, 128), dtype=np.float32)
+    pipeline_table("hnsw-main scan", lambda: client.search_batch(
+        "hnsw-main", qs, k=k, engine="scan", reply="columnar"),
+        PIPELINE_NQ, [SERIAL, DEPTH2])
+    counts = read_counts()
+    check(counts["scan_topk"] > 0 and counts["select_bins"] > 0
+          and counts["scan_topk_int8"] > 0
+          and counts["scan_topk_hamming"] > 0,
+          f"phase pipeline: a tier's kernel never launched: {counts}")
+    log(f"phase pipeline: {time.perf_counter() - t0:.1f} s; launches "
+        f"{counts}")
+    return counts
+
+
+def phase_sharded_pipeline(idx, k=10):
+    """The pipeline phase's sharded table: phase 6d's index (4 shards on
+    the card), 16,384 queries on the exact tier and the one-pass
+    certified tier, serially and at depth 2."""
+    qs = np.random.default_rng(SEED + 12).standard_normal(
+        (PIPELINE_NQ, 128), dtype=np.float32)
+
+    def search():
+        return idx.search_batch(qs, k, engine="scan", reply="columnar")
+
+    with env(SCAN_CERT=0):
+        exact = pipeline_table("sharded-build exact", search, PIPELINE_NQ,
+                               [SERIAL, DEPTH2])
+    with env(SCAN_CERT=1, CERT_ONEPASS=1):
+        pipeline_table("sharded-build certified one-pass", search,
+                       PIPELINE_NQ, [SERIAL, DEPTH2], base=exact)
+
+
 # -- phase 6: the sharded index -----------------------------------------------
 
 SHARDS = 4
@@ -3951,7 +4108,8 @@ def phase_sharded_hamming(dev, n=10_000, n_q=2048):
     return errs
 
 
-def phase_sharded_build(dev, n=262_144, n_q=2048, gate=True):
+def phase_sharded_build(dev, n=262_144, n_q=2048, gate=True,
+                        pipeline=False):
     """6d: sharded-build -- phase 2d's rows (n x 128 seeded Gaussian,
     M=16, efcon=200) over 4 shards on the card, built by interleaved
     add_batch(batch_size=2048) with the build's phase timer on (as phase
@@ -3962,8 +4120,9 @@ def phase_sharded_build(dev, n=262_144, n_q=2048, gate=True):
     to the exact tier. ``gate``: the graph engine must reach GRAPH_RECALL,
     and at k = 5 the one-pass form must certify queries without the
     chunk's re-serve (at most a quarter uncertified), so D's own rows
-    reach the reply (both only logged at other sizes). Returns the max
-    abs differences."""
+    reach the reply (both only logged at other sizes). ``pipeline``: the
+    pipeline phase's sharded table runs on this index before it goes
+    (:func:`phase_sharded_pipeline`). Returns the max abs differences."""
     import redis_hnsw_tpu_torch as h
     from redis_hnsw_tpu_torch.ops import construct
     from redis_hnsw_tpu_torch.ops import scan as SC
@@ -4042,6 +4201,8 @@ def phase_sharded_build(dev, n=262_144, n_q=2048, gate=True):
     check(not gate or points[-1]["recall"] >= GRAPH_RECALL,
           f"{label}: the graph engine reaches recall@{k} < {GRAPH_RECALL} at "
           f"every point: {points}")
+    if pipeline:
+        phase_sharded_pipeline(idx)
     del xs64, oracle, idx
     torch.cuda.empty_cache()
     log(f"phase 6d: {label}: {n_q} queries k={k}: exact tier recall@{k} "
@@ -4098,7 +4259,7 @@ def phase_sharded(dev, build_rows=262_144):
     errs = {}
     for part in (phase_sharded_main(dev), phase_sharded_lattice(dev),
                  phase_sharded_hamming(dev),
-                 phase_sharded_build(dev, n=build_rows)):
+                 phase_sharded_build(dev, n=build_rows, pipeline=True)):
         for name, e in part.items():
             errs[name] = max(errs.get(name, 0.0), e)
     phase_merge(dev)
@@ -4323,7 +4484,8 @@ def main() -> int:
     path_counts += [build_counts, flat_counts,
                     phase_flat_hamming(client, dev),
                     phase_wire_durability(client, dev),
-                    phase_tiers(client, dev, flat_ref, kernels, kept)]
+                    phase_tiers(client, dev, flat_ref, kernels, kept),
+                    phase_pipeline(client, dev, flat_ref[0])]
     del kept, flat_ref
     client.delete_index("flat-sift1m")
     client.delete_index("hnsw-main")

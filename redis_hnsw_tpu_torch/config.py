@@ -35,7 +35,7 @@ class IndexConfig:
     fixed_capacity: refuse to grow past ``capacity`` (CapacityError)
         instead of reallocating -- pins the device memory footprint.
     seed: seed of the level sampler (numpy ``default_rng``).
-    backend: host graph engine: "native" (C++ core, native/hnsw_core.cpp),
+    backend: host graph engine: "native" (C++ core, csrc/hnsw_core.cpp),
         "py" (pure Python, identical semantics), or "auto" (native when
         the library is available or buildable, else py).
     """

@@ -281,10 +281,10 @@ class FlatIndex:
         sims) array pair."""
         from ..ops import scan as SC
         from ..ops.search import (
-            MAX_LANES,
             assemble,
             coerce_queries,
             empty_reply,
+            max_lanes_for,
             resolve_engine,
         )
 
@@ -324,34 +324,49 @@ class FlatIndex:
                 table = self._bf16_table(vecs)
             hq = None
             if tscale is not None:
+                # the host rescore's queries, copied off the card once,
+                # before the chunk loop
                 hq = host_qs if isinstance(qs, torch.Tensor) else qs
                 if hq is None:
                     hq = qs.cpu().numpy()
                 hq = np.asarray(hq, np.float32)
+            chunk = max_lanes_for(int(vecs.shape[0]))
             sink = SC.CertRerunSink()
             qd = qs
-            if n_q > MAX_LANES:
+            if n_q > chunk:
                 # one host->device copy for the whole block
                 qd = SC.pad_queries(qs, n_q, vecs.device)
-            parts = []
-            for lo in range(0, n_q, MAX_LANES):
-                part = qd[lo : lo + MAX_LANES]
+
+            def dispatch(lo):
+                part = qd[lo : lo + chunk]
                 n_part = int(part.shape[0])
                 part = SC.pad_queries(part, SC.pad_pow2(n_part), vecs.device)
                 if tscale is not None:
-                    parts.append(SC.serve_resident_int8(
+                    return SC.serve_resident_int8(
                         vecs, sqn, valid, tscale, part, self._vectors,
                         hq[lo : lo + n_part], k=k_eff, n_q=n_part,
-                    ))
-                    continue
-                parts.append(SC.serve_block(
+                    )
+                return SC.serve_block(
                     vecs, sqn, valid, part, k=k_eff, n_q=n_part,
                     metric=metric, rerun_sink=sink, approx=approx,
                     table=table,
-                ))
-            sink.flush()  # patches the parts' rows in place
-            ids = np.concatenate([p[0] for p in parts])
-            sims = np.concatenate([p[1] for p in parts])
+                )
+
+            # the pipelined drain (ops/scan.py drain_pipelined); the fetch
+            # window defaults to FETCH_WINDOW_FAST where the certified or
+            # approx tier serves, as in the JAX package
+            will_cert = (
+                tscale is None and table is None and metric == "euclidean"
+                and SC.cert_enabled(int(vecs.shape[0]), int(vecs.shape[1]))
+            )
+            id_parts, sim_parts = SC.drain_pipelined(
+                ((lo,) for lo in range(0, n_q, chunk)), dispatch, sink=sink,
+                default_window=(
+                    SC.FETCH_WINDOW_FAST if approx or will_cert else 1
+                ),
+            )
+            ids = np.concatenate(id_parts)
+            sims = np.concatenate(sim_parts)
         return assemble(self._names.names_array(), ids, sims, reply)
 
     def search_knn(self, data, k: int) -> list[SearchResult]:

@@ -88,7 +88,7 @@ class HNSWIndex:
         # reference's Vec<Vec<NodeWeak>> (core.rs:99). Unused (all None)
         # when the native backend owns the adjacency.
         self._neighbors: list[list[list[int]] | None] = [None] * cap
-        # Native host graph core (C++, native/hnsw_core.cpp); None -> the
+        # Native host graph core (C++, csrc/hnsw_core.cpp); None -> the
         # pure-Python paths below run instead, with identical semantics.
         self._native = None
         if config.backend in ("auto", "native"):
@@ -99,7 +99,7 @@ class HNSWIndex:
                 if config.backend == "native":
                     raise HNSWError(
                         "native backend requested but "
-                        "native/libhnswcore.so is unavailable"
+                        "the host core library (csrc/hnsw_core.cpp) is unavailable"
                     )
             else:
                 self._native = native_core.NativeGraph(
@@ -565,7 +565,7 @@ class HNSWIndex:
         sequential loop (the surviving graph can differ from N single
         deletes; graph invariants and recall floors are pinned by tests).
         Repair order is deterministic: layer ascending, survivor row
-        ascending -- kept in lockstep with native/hnsw_core.cpp
+        ascending -- kept in lockstep with csrc/hnsw_core.cpp
         ``delete_batch``.
         """
         names = list(names)

@@ -1,12 +1,14 @@
-"""ctypes binding of the native host-side graph core (native/hnsw_core.cpp).
+"""ctypes binding of the native host-side graph core (csrc/hnsw_core.cpp).
 
 The same C ABI as ``redis_hnsw_tpu/native_core.py`` binds. The library is
-compiled here from ``native/hnsw_core.cpp``, unchanged, with
-``g++ -O3 -std=c++17 -fPIC -shared`` into ``build/native/`` (see
-utils/build.py): this module never runs ``native/Makefile`` and never
-writes under ``native/``. ``load()`` returns None when the toolchain or
-source is missing; models/hnsw.py then raises for ``backend="native"`` and
-uses its pure-Python engine (identical semantics) for ``"auto"``.
+compiled from the port's own copy of the JAX package's host core,
+``redis_hnsw_tpu_torch/csrc/hnsw_core.cpp`` (the same code, so both
+packages build byte-identical graphs), with ``g++ -O3 -std=c++17 -fPIC
+-shared`` into ``build/native/`` (see utils/build.py). Nothing outside
+this package is read or built. ``load()`` returns None when the
+toolchain or source is missing; models/hnsw.py then raises for
+``backend="native"`` and uses its pure-Python engine (identical
+semantics) for ``"auto"``.
 """
 
 from __future__ import annotations
@@ -17,9 +19,9 @@ import threading
 
 import numpy as np
 
-from .utils.build import REPO_ROOT, start_build
+from .utils.build import CSRC_DIR, start_build
 
-_SRC = os.path.join(REPO_ROOT, "native", "hnsw_core.cpp")
+_SRC = os.path.join(CSRC_DIR, "hnsw_core.cpp")
 
 _lock = threading.Lock()
 _lib = None
@@ -187,7 +189,7 @@ class NativeGraph:
                 or up_ids.shape[1:] != (W, C) or cross.shape != (W, W)):
             raise ValueError("apply_wave: candidate arrays do not match "
                              f"the wave of {W} rows")
-        # C names ef and n_up (native/hnsw_core.cpp apply_wave): ef is the
+        # C names ef and n_up (csrc/hnsw_core.cpp apply_wave): ef is the
         # fetch width C of every candidate list, n_up the upper layers
         self._lib.hnsw_apply_wave(
             self._h, rows, levels, W,

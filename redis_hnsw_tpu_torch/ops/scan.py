@@ -65,14 +65,26 @@ The **scan-approx** tier (``approx=True``) is served on the exact tier
 euclidean reply's ids off the card and rescores its sims on the host
 (:func:`reply_ids_engaged`).
 
-The JAX package's TPU-link machinery (fetch windows, pipelined drains,
-packed int32 replies) reduces to a plain chunk loop here: the replies
-are the same.
+**The pipelined serving loop** (:func:`drain_pipelined`) serves every
+multi-chunk query block, as in the JAX package: each serving function is
+a dispatch half, which queues a chunk's kernels and registers its reply
+tensors with :func:`fetch_handle`, and returns a zero-argument finish
+half, which waits for the reply and does the host's part (the int8
+tier's rescore, the ids-only rescore, the certified verdict and its
+fallback). Up to :func:`pipeline_depth` fetch windows stay dispatched but
+unfinished, so the card runs later chunks while the host finishes
+earlier ones. A window of :func:`fetch_window` chunks shares one copy to
+the host (:class:`FetchGroup`): its replies are concatenated on the card
+as bytes and copied into pinned host memory, asynchronously, when the
+window closes. The JAX package's packed int32 replies are not ported:
+each reply tensor is its own slice of the window's copy.
 """
 
 from __future__ import annotations
 
 import os
+import threading
+from collections import deque
 
 import numpy as np
 import torch
@@ -380,21 +392,24 @@ def _exact_rows(vecs, sqn, live, qd, rows, *, k: int):
     return ids[:nb].cpu().numpy(), sims[:nb].cpu().numpy()
 
 
-def certified_finish(vecs, sqn, live, qd, result, *, k: int, n_q: int,
+def certified_finish(vecs, sqn, live, qd, fetch, *, k: int, n_q: int,
                      rerun_sink=None):
-    """Host half of the certified tier: fetch the reply and the
-    verdicts of :func:`scan_certified_l2`'s ``result``, then re-serve
-    the uncertified queries through the exact tier.
+    """Finish half of the certified tier: fetch the reply and the
+    verdicts of a :func:`scan_certified_l2` result, then re-serve the
+    uncertified queries through the exact tier.
+
+    ``fetch`` is a zero-arg getter of the result's first ``n_q`` rows,
+    ``(ids, sims, ok)`` as writable numpy arrays, ok as uint8
+    (:func:`serve_block` registers them with :func:`fetch_handle`, so a
+    drain's window copies them with its other replies).
 
     ``rerun_sink`` (a :class:`CertRerunSink`) defers the fallback rerun:
     uncertified rows are registered with the sink and patched when the
     caller flushes it, so a multi-batch loop serves them all in one
     exact batch. Audit batches and the pathological whole-batch fallback
     stay immediate."""
-    ids_d, sims_d, ok_d = result
-    ids = ids_d[:n_q].cpu().numpy()
-    sims = sims_d[:n_q].cpu().numpy()
-    okh = ok_d[:n_q].cpu().numpy()
+    ids, sims, okh = fetch()
+    okh = okh != 0
     CERT_STATS["batches"] += 1
     CERT_STATS["queries"] += n_q
     audit = (
@@ -681,14 +696,17 @@ def pad_queries(qs, n_pad: int, device):
 def serve_block(vecs, sqn, live, qd, *, k: int, n_q: int, metric: str,
                 rerun_sink=None, approx: bool = False, ids_only=False,
                 table=None, tscale=None):
-    """Serve the (padded) query block ``qd`` on the tier its table takes:
-    a hamming table the exact tier (kernel A′); a euclidean table the
-    certified tier where ``cert_enabled`` admits it and neither
-    ``approx`` nor a tier ``table`` is given, else the exact tier --
-    selecting on ``table`` (with ``tscale`` for int8) where one is given,
-    kernel A-bf16 or A-int8, and rescoring from ``vecs``. Returns the
-    ``(ids, sims)`` numpy reply of the first ``n_q`` queries;
-    ``rerun_sink`` defers the certified tier's fallback reruns.
+    """Dispatch half: queue the kernels that serve the (padded) query
+    block ``qd`` on the tier its table takes -- a hamming table the exact
+    tier (kernel A′); a euclidean table the certified tier where
+    ``cert_enabled`` admits it and neither ``approx`` nor a tier
+    ``table`` is given, else the exact tier, selecting on ``table`` (with
+    ``tscale`` for int8) where one is given, kernel A-bf16 or A-int8, and
+    rescoring from ``vecs`` -- and register the reply with
+    :func:`fetch_handle`. Returns ``finish()``, which gives the ``(ids,
+    sims)`` numpy reply of the first ``n_q`` queries; ``rerun_sink``
+    defers the certified tier's fallback reruns. Nothing here waits for
+    the card.
 
     ``approx`` is the scan-approx tier. The JAX package selects it with
     ``jax.lax.approx_max_k`` at k_sel = 4k, which is exact off the TPU;
@@ -697,52 +715,70 @@ def serve_block(vecs, sqn, live, qd, *, k: int, n_q: int, metric: str,
     recall 1.0, above APPROX_TIER_FLOOR) and equal the JAX package's CPU
     replies. Selecting 4k would only cost time.
 
-    ``ids_only`` copies only the ids off the card and returns ``(ids,
-    None)``; the caller rescores the sims on the host (the ids-reply
-    mode). On the certified tier the fallback runs at once and patches
-    the sims too, so that tier still copies them."""
+    ``ids_only`` copies only the ids off the card and finishes with
+    ``(ids, None)``; the caller rescores the sims on the host (the
+    ids-reply mode). On the certified tier the fallback runs at once and
+    patches the sims too, so that tier still copies them."""
     if metric == "hamming":
         ids, sims = scan_topk_exact_hamming(vecs, live, qd, k=k)
     elif (table is None and not approx
           and cert_enabled(int(vecs.shape[0]), int(vecs.shape[1]))):
-        result = scan_certified_l2(vecs, sqn, live, qd, k=k)
-        ids, sims = certified_finish(
-            vecs, sqn, live, qd, result, k=k, n_q=n_q,
-            rerun_sink=None if ids_only else rerun_sink,
-        )
-        return (ids, None) if ids_only else (ids, sims)
+        ids, sims, ok = scan_certified_l2(vecs, sqn, live, qd, k=k)
+        gets = [fetch_handle(t[:n_q])
+                for t in (ids, sims, ok.to(torch.uint8))]
+        sink = None if ids_only else rerun_sink
+
+        def finish_cert():
+            ids, sims = certified_finish(
+                vecs, sqn, live, qd, lambda: [g() for g in gets], k=k,
+                n_q=n_q, rerun_sink=sink,
+            )
+            return (ids, None) if ids_only else (ids, sims)
+
+        return finish_cert
     else:
         ids, sims = scan_topk_exact_l2(vecs, sqn, live, qd, k=k,
                                        table=table, tscale=tscale)
-    if ids_only:
-        return ids[:n_q].cpu().numpy(), None
-    return ids[:n_q].cpu().numpy(), sims[:n_q].cpu().numpy()
+    get_ids = fetch_handle(ids[:n_q])
+    get_sims = None if ids_only else fetch_handle(sims[:n_q])
+    return lambda: (get_ids(), None if get_sims is None else get_sims())
 
 
 def serve_resident_int8(q8, sqn, live, tscale, qd, host_vecs, host_qs, *,
                         k: int, n_q: int):
-    """The int8-resident flat tier (models/flat.py): kernel A-int8 selects
-    ``min(int8_rescore_mult() * k, N)`` candidates on the card's int8
-    table; only their ids are copied off, every candidate is rescored
-    exactly on the host from the f32 rows ``host_vecs`` against the host
-    queries ``host_qs`` [n_q, D], and the best k are kept in ``(-sim,
-    id)`` order. Returns the numpy (ids, sims) [n_q, k]."""
+    """Dispatch half of the int8-resident flat tier (models/flat.py):
+    kernel A-int8 selects ``min(int8_rescore_mult() * k, N)`` candidates
+    on the card's int8 table and only their ids are registered with
+    :func:`fetch_handle`. The returned ``finish()`` rescores every
+    candidate exactly on the host from the f32 rows ``host_vecs`` against
+    the host queries ``host_qs`` [n_q, D] and keeps the best k in
+    ``(-sim, id)`` order: the numpy (ids, sims) [n_q, k]."""
     k_dev = min(int8_rescore_mult() * k, int(q8.shape[0]))
     ids, _ = scan_topk(None, sqn, live, qd, k=k_dev, table=q8,
                        tscale=tscale)
-    ids = ids[:n_q].cpu().numpy()
-    ids, sims = sort_reply(ids, host_exact_sims(host_vecs, host_qs, ids))
-    return ids[:, :k], sims[:, :k]
+    get_ids = fetch_handle(ids[:n_q])
+
+    def finish_int8():
+        ids = get_ids()
+        ids, sims = sort_reply(ids, host_exact_sims(host_vecs, host_qs, ids))
+        return ids[:, :k], sims[:, :k]
+
+    return finish_int8
 
 
 def scan_dispatch(index, qs, k: int, approx: bool = False, host_qs=None,
                   cert_sink=None, staleness: int = 0):
-    """Serve one query batch through the scan; returns the (ids, sims)
-    numpy reply. ``approx`` serves the scan-approx tier (see
-    :func:`serve_block`). ``cert_sink`` (a :class:`CertRerunSink` the
-    caller later flushes) coalesces the certified tier's fallback reruns
-    across a chunk loop. ``staleness`` > 0 serves from the bounded-stale
-    snapshot view (models/hnsw.py device_snapshot).
+    """Queue one query batch through the scan; returns a zero-arg
+    ``finish()`` that gives the (ids, sims) numpy reply. Every kernel is
+    queued before this returns, and nothing here waits for the card when
+    ``qs`` is already on it; ``finish()`` waits for the reply's copy and
+    does the host's part. A serving loop over many batches dispatches
+    ahead and finishes in order (:func:`drain_pipelined`). ``approx``
+    serves the scan-approx tier (see :func:`serve_block`). ``cert_sink``
+    (a :class:`CertRerunSink` the caller later flushes) coalesces the
+    certified tier's fallback reruns across a chunk loop. ``staleness``
+    > 0 serves from the bounded-stale snapshot view (models/hnsw.py
+    device_snapshot).
 
     With REDIS_HNSW_TPU_REPLY=ids and the queries on the host (numpy
     ``qs``, or a ``host_qs`` mirror of a device ``qs``), a euclidean
@@ -759,12 +795,260 @@ def scan_dispatch(index, qs, k: int, approx: bool = False, host_qs=None,
     )
     n_q = qs.shape[0]
     qd = pad_queries(qs, pad_pow2(n_q), vecs.device)
-    ids, sims = serve_block(
+    fin = serve_block(
         vecs, sqn, live, qd, k=min(int(k), int(vecs.shape[0])), n_q=n_q,
         metric=metric, rerun_sink=cert_sink, approx=approx,
         ids_only=ids_mode, table=None if table is vecs else table,
         tscale=tscale,
     )
-    if ids_mode:
+    if not ids_mode:
+        return fin
+
+    def finish_ids():
+        ids, _ = fin()
         return sort_reply(ids, host_exact_sims(index._vectors, host_qs, ids))
-    return ids, sims
+
+    return finish_ids
+
+
+def scan_batch(index, qs, k: int, approx: bool = False, host_qs=None):
+    """Batched k-NN through the scan engine, the one-call form of
+    :func:`scan_dispatch`: one dispatch and its finish."""
+    return scan_dispatch(index, qs, k, approx=approx, host_qs=host_qs)()
+
+
+# -- the pipelined serving loop -----------------------------------------------
+
+def pipeline_depth() -> int:
+    """REDIS_HNSW_TPU_PIPELINE: how many fetch windows a multi-chunk
+    serving loop keeps dispatched but not finished (default 2, as in the
+    JAX package; 0 serializes every chunk, a negative value is 0, an
+    empty value takes the default). The card runs the queued chunks
+    while the host finishes earlier ones."""
+    return max(
+        0, int(os.environ.get("REDIS_HNSW_TPU_PIPELINE") or "2")
+    )
+
+
+# The JAX package's default window for the cheap-select tiers (certified
+# and approx), where it measured a win; callers pass it there and 1
+# elsewhere, and REDIS_HNSW_TPU_FETCH_WINDOW always overrides.
+FETCH_WINDOW_FAST = 8
+
+
+def fetch_window(default: int = 1) -> int:
+    """REDIS_HNSW_TPU_FETCH_WINDOW: how many chunks' replies share ONE
+    copy to the host in a multi-chunk serving loop (:class:`FetchGroup`).
+    Unset, empty or not a number: the caller's ``default``; below 1: 1."""
+    v = os.environ.get("REDIS_HNSW_TPU_FETCH_WINDOW")
+    if not v:
+        return max(1, int(default))
+    try:
+        return max(1, int(v))
+    except ValueError:
+        return max(1, int(default))
+
+
+# The ambient FetchGroup stack: drain_pipelined pushes its open window's
+# group around each dispatch call, and fetch_handle() inside a dispatch
+# half registers with the innermost group. Thread-local: api.py's
+# per-index locks let search_batch run on several indexes at once, and a
+# shared stack would let one thread's reply join another's window.
+class _ActiveGroups(threading.local):
+    def __init__(self) -> None:
+        self.stack: list = []
+
+
+_ACTIVE_GROUPS = _ActiveGroups()
+
+
+class _PinnedPool:
+    """Page-locked host buffers for the windows' copies, kept for reuse
+    by size (a power of two, at least 4 KiB): pinning costs milliseconds
+    a buffer, a copy into one overlaps the card's work. At most KEEP
+    free buffers of a size are kept (a drain at depth 2 holds three
+    windows)."""
+
+    KEEP = 4
+
+    def __init__(self) -> None:
+        self._free: dict = {}
+        self._lock = threading.Lock()
+
+    def take(self, nbytes: int):
+        size = max(1 << 12, 1 << max(nbytes - 1, 0).bit_length())
+        with self._lock:
+            free = self._free.get(size)
+            if free:
+                return free.pop()
+        return torch.empty(size, dtype=torch.uint8, pin_memory=True)
+
+    def give(self, buf) -> None:
+        with self._lock:
+            free = self._free.setdefault(buf.numel(), [])
+            if len(free) < self.KEEP:
+                free.append(buf)
+
+
+_PINNED = _PinnedPool()
+
+
+_NP_DTYPES = {
+    torch.uint8: np.uint8, torch.int8: np.int8, torch.int16: np.int16,
+    torch.int32: np.int32, torch.int64: np.int64,
+    torch.float16: np.float16, torch.float32: np.float32,
+    torch.float64: np.float64,
+}
+
+
+def _np_dtype(dtype):
+    """The numpy dtype of a torch dtype a window may carry; bool (as in
+    the JAX package) and types numpy lacks (bfloat16) are refused."""
+    if dtype == torch.bool:
+        raise TypeError("FetchGroup: bitcast of bool replies")
+    if dtype not in _NP_DTYPES:
+        raise TypeError(f"FetchGroup: no numpy type for {dtype}")
+    return _NP_DTYPES[dtype]
+
+
+class FetchGroup:
+    """Coalesces a window's reply tensors into ONE copy to the host.
+
+    Dispatch halves register their reply tensors with
+    :func:`fetch_handle` (:meth:`add`). When the window closes,
+    :meth:`launch` queues the copy: every tensor is viewed as flat bytes,
+    the views of each device are concatenated on it, the blob is copied
+    with ``non_blocking=True`` into a pinned host buffer and a CUDA
+    event is recorded behind the copy. :meth:`materialize` waits on the
+    event and hands each tensor back as a WRITABLE numpy array (the
+    certified tier splices fallback rows into its reply in place). The
+    group holds the source tensors and the blob until then, so the
+    caching allocator cannot hand their memory out while the copy is in
+    flight. On the CPU the same code runs with plain copies and no
+    event."""
+
+    def __init__(self) -> None:
+        self._parts: list = []
+        # per device once launched: (indices, host buffer, event, blob)
+        self._copies: list | None = None
+        self._host: list | None = None
+
+    def add(self, t):
+        """Register ``t``; returns a zero-arg getter of its host copy."""
+        if self._copies is not None:
+            raise RuntimeError("FetchGroup already launched")
+        _np_dtype(t.dtype)
+        i = len(self._parts)
+        self._parts.append(t)
+
+        def get():
+            self.materialize()
+            return self._host[i]
+
+        return get
+
+    def launch(self) -> None:
+        """Queue the window's copy (once); nothing here waits."""
+        if self._copies is not None:
+            return
+        self._copies = []
+        by_dev: dict = {}
+        for i, t in enumerate(self._parts):
+            by_dev.setdefault(t.device, []).append(i)
+        for dev, idx in by_dev.items():
+            flats = [self._parts[i].contiguous().view(-1).view(torch.uint8)
+                     for i in idx]
+            blob = flats[0] if len(flats) == 1 else torch.cat(flats)
+            if dev.type != "cuda":
+                self._copies.append((idx, blob, None, blob))
+                continue
+            with torch.cuda.device(dev):
+                buf = _PINNED.take(blob.numel())
+                buf[: blob.numel()].copy_(blob, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+            self._copies.append((idx, buf, event, blob))
+
+    def materialize(self) -> None:
+        """Wait for the window's copy and split it into numpy arrays."""
+        if self._host is not None:
+            return
+        self.launch()
+        host = [None] * len(self._parts)
+        for idx, buf, event, _blob in self._copies:
+            if event is not None:
+                event.synchronize()
+            raw, off = buf.numpy(), 0
+            for i in idx:
+                t = self._parts[i]
+                nb = t.numel() * t.element_size()
+                host[i] = raw[off : off + nb].view(_np_dtype(t.dtype)).reshape(
+                    tuple(t.shape)).copy()
+                off += nb
+            if event is not None:
+                _PINNED.give(buf)
+        self._host = host
+        self._parts = [None] * len(host)  # the sources and blobs may go
+        self._copies = []
+
+
+def fetch_handle(t):
+    """Register the reply tensor ``t`` for its copy to the host; returns
+    a zero-arg getter of a WRITABLE numpy copy. Inside a drain's fetch
+    window ``t`` joins the window's one copy (:class:`FetchGroup`);
+    otherwise its own copy is queued at once."""
+    stack = _ACTIVE_GROUPS.stack
+    if stack:
+        return stack[-1].add(t)
+    group = FetchGroup()
+    get = group.add(t)
+    group.launch()
+    return get
+
+
+def drain_pipelined(parts, dispatch, *, sink=None, default_window=1):
+    """The pipelined serving loop of the single-index, flat and sharded
+    engines: ``dispatch(*args)`` for each tuple in ``parts`` returns a
+    zero-arg finish; up to :func:`pipeline_depth` fetch windows stay
+    dispatched but unfinished, windows finish in order, and ``sink``
+    (deferred certified fallback reruns) is flushed BEFORE returning, so
+    callers assemble replies only from patched parts. A window holds
+    :func:`fetch_window` chunks (``default_window`` when the environment
+    does not say) whose replies share one copy, queued when the window
+    closes. Returns (id_parts, sim_parts)."""
+    depth = pipeline_depth()
+    window = fetch_window(default_window)
+    pending: deque = deque()  # (FetchGroup, [finish, ...]) per window
+    id_parts, sim_parts = [], []
+
+    def drain_window():
+        group, fins = pending.popleft()
+        group.materialize()  # the window's one copy
+        for fin in fins:
+            i_p, s_p = fin()
+            id_parts.append(i_p)
+            sim_parts.append(s_p)
+
+    def close(group, fins):
+        group.launch()
+        pending.append((group, fins))
+        while len(pending) > depth:
+            drain_window()
+
+    group, fins = FetchGroup(), []
+    for args in parts:
+        _ACTIVE_GROUPS.stack.append(group)
+        try:
+            fins.append(dispatch(*args))
+        finally:
+            _ACTIVE_GROUPS.stack.pop()
+        if len(fins) >= window:
+            close(group, fins)
+            group, fins = FetchGroup(), []
+    if fins:
+        close(group, fins)
+    while pending:
+        drain_window()
+    if sink is not None:
+        sink.flush()  # patches id_parts/sim_parts rows in place
+    return id_parts, sim_parts

@@ -467,18 +467,19 @@ def _seed_ids_for(pool, qd, seeds: int, width: int | None = None):
     return torch.where(local >= 0, ids_dev[local.clamp(min=0).long()], -1)
 
 
-def _run_search(
+def _dispatch_search(
     snap, qs, ef: int, k: int, expand: int, iters=None,
     seeds: int = 0, pool=None, ids_only: bool = False,
 ):
     """One beam call over the query block ``qs`` (numpy, or a tensor on
-    the device), padded to a power of two >= 8 lanes; returns the
-    trimmed (ids, sims) numpy reply, or ``(ids, None)`` with
-    ``ids_only`` (the ids-reply mode copies only the ids off the card).
-    The JAX package splits this into an asynchronous dispatch and a
-    fetch for its TPU link; torch queues the work itself and the copy
-    to the host is the fetch."""
-    from .scan import pad_pow2, pad_queries
+    the device), padded to a power of two >= 8 lanes, with its reply
+    registered with ops/scan.py ``fetch_handle``; returns ``finish()``,
+    which gives the trimmed (ids, sims) numpy reply, or ``(ids, None)``
+    with ``ids_only`` (the ids-reply mode copies only the ids off the
+    card). The beam reads its loop condition on the host at every step
+    (:func:`beam_search`), so this half waits for the card; only the
+    reply's copy is left to the finish."""
+    from .scan import fetch_handle, pad_pow2, pad_queries
 
     n_q = qs.shape[0]
     qd = pad_queries(qs, pad_pow2(n_q), snap.vecs.device)
@@ -491,9 +492,9 @@ def _run_search(
         expand=expand, iters=iters, nbrvec=snap.nbrvec, nbrsqn=snap.nbrsqn,
         qrows=snap.qrows, seed_ids=seed_ids,
     )
-    if ids_only:
-        return ids[:n_q].cpu().numpy(), None
-    return ids[:n_q].cpu().numpy(), sims[:n_q].cpu().numpy()
+    get_ids = fetch_handle(ids[:n_q])
+    get_sims = None if ids_only else fetch_handle(sims[:n_q])
+    return lambda: (get_ids(), None if get_sims is None else get_sims())
 
 
 def coerce_queries(queries, dtype, width: int, metric: str):
@@ -589,7 +590,15 @@ def search_batch(
     snapshot view (at most that many mutation epochs behind;
     models/hnsw.py device_snapshot).
     """
-    from .scan import CertRerunSink, pad_queries, scan_dispatch
+    from .scan import (
+        FETCH_WINDOW_FAST,
+        CertRerunSink,
+        cert_enabled,
+        drain_pipelined,
+        pad_queries,
+        scan_dispatch,
+        scan_dtype,
+    )
 
     cfg = index.config
     engine = resolve_engine(engine, recall_target)
@@ -606,41 +615,61 @@ def search_batch(
         engine == "auto" and snap.n_pad <= SCAN_MAX_ROWS.get(cfg.metric, 0)
     )
     hq = host_qs if isinstance(qs, torch.Tensor) else qs
+    approx = engine == "scan-approx"
+    chunk = max_lanes_for(snap.n_pad)
     if not use_scan:
         ids, sims = _graph_batch(index, snap, qs, k, ef_search, expand,
                                  iters, seeds, hq)
-    elif n_q > MAX_LANES:
+    elif n_q > chunk:
+        # The pipelined drain (ops/scan.py drain_pipelined): up to
+        # pipeline_depth() windows of chunks stay queued on the card while
+        # the host finishes earlier ones, and the certified tier's
+        # fallback reruns coalesce into one exact batch (CertRerunSink).
+        # The fetch window defaults to FETCH_WINDOW_FAST on the tiers the
+        # JAX package measured it on (certified, approx) and to 1 on the
+        # rest; a hamming table serves on the exact tier here.
         sink = CertRerunSink()
+        default_window = 1
+        if approx or (
+            cfg.metric == "euclidean" and scan_dtype() == "f32"
+            and cert_enabled(snap.n_pad, int(snap.vecs.shape[1]))
+        ):
+            default_window = FETCH_WINDOW_FAST
         # one host->device copy for the whole block; the chunks below
         # are then device-side slices
         qd = pad_queries(qs, n_q, index.device)
-        parts = [
-            scan_dispatch(
-                index, qd[lo : lo + MAX_LANES], k,
-                approx=engine == "scan-approx",
-                host_qs=None if hq is None else hq[lo : lo + MAX_LANES],
+
+        def dispatch(lo):
+            return scan_dispatch(
+                index, qd[lo : lo + chunk], k, approx=approx,
+                host_qs=None if hq is None else hq[lo : lo + chunk],
                 cert_sink=sink, staleness=staleness,
             )
-            for lo in range(0, n_q, MAX_LANES)
-        ]
-        sink.flush()  # patches the parts' rows in place
-        ids = np.concatenate([p[0] for p in parts])
-        sims = np.concatenate([p[1] for p in parts])
+
+        id_parts, sim_parts = drain_pipelined(
+            ((lo,) for lo in range(0, n_q, chunk)), dispatch, sink=sink,
+            default_window=default_window,
+        )
+        ids = np.concatenate(id_parts)
+        sims = np.concatenate(sim_parts)
     else:
         ids, sims = scan_dispatch(
-            index, qs, k, approx=engine == "scan-approx", host_qs=hq,
-            staleness=staleness,
-        )
+            index, qs, k, approx=approx, host_qs=hq, staleness=staleness,
+        )()
     return assemble(index._names.names_array(), ids, sims, reply)
 
 
 def _graph_batch(index, snap, qs, k, ef_search, expand, iters, seeds,
                  hq=None):
     """The graph engine's (ids, sims) numpy reply for the whole block,
-    served MAX_LANES lanes per call. With REDIS_HNSW_TPU_REPLY=ids and
-    the queries on the host (``hq``), a euclidean reply copies only its
-    ids off the card and its sims are rescored on the host."""
+    served MAX_LANES lanes per call, through the pipelined drain for
+    parity with the scan route (its beam waits for the card at every
+    step, so the drain only defers each reply's copy). With
+    REDIS_HNSW_TPU_REPLY=ids and the queries on the host (``hq``), a
+    euclidean reply copies only its ids off the card and its sims are
+    rescored on the host."""
     from .scan import (
+        drain_pipelined,
         host_exact_sims,
         pad_queries,
         reply_ids_engaged,
@@ -655,20 +684,23 @@ def _graph_batch(index, snap, qs, k, ef_search, expand, iters, seeds,
         and reply_ids_engaged(index.config.dim, snap.vecs.device)
     )
     n_q = qs.shape[0]
-    if n_q <= MAX_LANES:
-        ids, sims = _run_search(snap, qs, ef, k, expand, iters, seeds=seeds,
-                                pool=pool, ids_only=ids_only)
+    chunk = max_lanes_for(snap.n_pad)
+    if n_q <= chunk:
+        ids, sims = _dispatch_search(snap, qs, ef, k, expand, iters,
+                                     seeds=seeds, pool=pool,
+                                     ids_only=ids_only)()
     else:
         # one host->device copy for the whole block; the chunks below
         # are then device-side slices
         qd = pad_queries(qs, n_q, index.device)
-        parts = [
-            _run_search(snap, qd[lo : lo + MAX_LANES], ef, k, expand, iters,
-                        seeds=seeds, pool=pool, ids_only=ids_only)
-            for lo in range(0, n_q, MAX_LANES)
-        ]
-        ids = np.concatenate([p[0] for p in parts])
-        sims = None if ids_only else np.concatenate([p[1] for p in parts])
+        id_parts, sim_parts = drain_pipelined(
+            ((qd[lo : lo + chunk],) for lo in range(0, n_q, chunk)),
+            lambda part: _dispatch_search(
+                snap, part, ef, k, expand, iters, seeds=seeds, pool=pool,
+                ids_only=ids_only),
+        )
+        ids = np.concatenate(id_parts)
+        sims = None if ids_only else np.concatenate(sim_parts)
     if ids_only:
         # the host rescore's sums can differ from the card's by an ulp;
         # the reply is re-sorted so it stays monotonic

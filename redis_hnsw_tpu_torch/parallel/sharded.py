@@ -38,9 +38,14 @@ own ``device_snapshot()`` and its own scan tables (ops/scan.py
 
 Hamming tables are scanned as packed words by kernel A′, as on one card;
 the JAX package's certified hamming twin is not ported (its replies are
-the exact tier's). The JAX package's TPU-link machinery (packed [B, 2k+1]
-replies, ``fetch_handle``, the pipelined drain) reduces to a plain chunk
-loop here.
+the exact tier's). Query blocks larger than one chunk go through the
+single index's pipelined drain (ops/scan.py ``drain_pipelined``): each
+chunk's dispatch half queues every shard's kernels and the merge and
+registers the merged lists with ``fetch_handle``; its finish half reads
+the certified verdicts and hands the uncertified rows to a sink that
+serves them again in one exact sharded scan. The JAX package's packed
+[B, 2k+1] replies are not ported: each list is its own slice of the
+window's copy.
 """
 
 from __future__ import annotations
@@ -125,6 +130,40 @@ def resolve_mesh(mesh=None, n_shards: int | None = None, device=None) -> Mesh:
     if isinstance(mesh, Mesh):
         return mesh
     return Mesh(list(mesh), (DATA_AXIS,))
+
+
+class _ShardedCertRerunSink:
+    """The sharded certified tier's fallback reruns across a drain: each
+    chunk's finish registers its uncertified rows (host queries) and
+    its writable reply arrays; :meth:`flush` serves every registered row
+    again in ONE exact sharded scan and splices the rows back in place
+    (ops/scan.py ``CertRerunSink``'s contract)."""
+
+    def __init__(self, index, states, k: int, n_pad: int) -> None:
+        self._index = index
+        self._states = states
+        self._k = k
+        self._n_pad = n_pad
+        self._items: list = []
+
+    def add(self, part, bad, gids, sims) -> None:
+        self._items.append((part, np.asarray(bad), gids, sims))
+
+    def flush(self) -> None:
+        if not self._items:
+            return
+        rows = np.concatenate([p[b] for p, b, _, _ in self._items])
+        gb, sb, _ = self._index._scan_chunk(
+            self._states, self._index._device_queries(rows), 0, len(rows),
+            self._k, self._n_pad, cert=False)
+        gb = gb[: len(rows)].cpu().numpy()
+        sb = sb[: len(rows)].cpu().numpy()
+        lo = 0
+        for _, bad, gids, sims in self._items:
+            gids[bad] = gb[lo : lo + len(bad)]
+            sims[bad] = sb[lo : lo + len(bad)]
+            lo += len(bad)
+        self._items.clear()
 
 
 class ShardedHNSW:
@@ -309,38 +348,49 @@ class ShardedHNSW:
         merged.sort(key=lambda r: (-r.sim, r.name))
         return merged[:k]
 
-    def _merged(self, part, kk: int, k: int, n_pad: int, serve_shard,
-                want_sims: bool):
-        """Serve the host query chunk ``part`` on every shard and merge:
-        ``serve_shard(s, qd)`` gives shard s's (ids, sims) [P, kk] for the
+    def _device_queries(self, qs) -> dict:
+        """The host query block ``qs`` on each of the mesh's devices, one
+        copy a device, so the chunks below are device-side slices."""
+        from ..ops import scan as SC
+
+        out = {}
+        for dev in self.devices:
+            if dev not in out:
+                out[dev] = SC.pad_queries(qs, qs.shape[0], dev)
+        return out
+
+    def _merged(self, qds, lo: int, pn: int, kk: int, k: int, n_pad: int,
+                serve_shard):
+        """Queue rows ``lo:lo + pn`` of the query blocks ``qds`` (one a
+        device, :meth:`_device_queries`) on every shard, then their merge:
+        ``serve_shard(s, qd)`` queues shard s's (ids, sims) [P, kk] for the
         chunk padded to P = pad_pow2 rows on the shard's device (an empty
         shard gives -1 / -inf), the lists go to the first device as global
-        ids and merge to ``min(k, S * kk)`` columns. Returns numpy (gids,
-        sims or None) of the chunk's rows."""
+        ids and merge to ``min(k, S * kk)`` columns. Returns the merged
+        (gids, sims) [P, ...] device tensors; nothing here waits for the
+        card on the scan's kernels."""
         from ..ops import scan as SC
 
         dev0 = self.devices[0]
-        pn = part.shape[0]
         p_pad = SC.pad_pow2(pn)
-        lists, qds = [], {}
+        lists, parts = [], {}
         for s, (shard, dev) in enumerate(zip(self.shards, self.devices)):
             if shard.node_count == 0:
                 lists.append(_empty_block(p_pad, kk, dev0))
                 continue
-            if dev not in qds:
-                qds[dev] = SC.pad_queries(part, p_pad, dev)
+            if dev not in parts:
+                parts[dev] = SC.pad_queries(qds[dev][lo : lo + pn], p_pad,
+                                            dev)
             with _devctx(dev):
-                ids, sims = serve_shard(s, qds[dev])
+                ids, sims = serve_shard(s, parts[dev])
             lists.append((_global(ids, s, n_pad, dev0), sims.to(dev0)))
-        gids, sims = _merge_topk_over(lists, self.mesh.devices.shape, k)
-        return (gids[:pn].cpu().numpy(),
-                sims[:pn].cpu().numpy() if want_sims else None)
+        return _merge_topk_over(lists, self.mesh.devices.shape, k)
 
-    def _scan_chunk(self, states, part, k: int, n_pad: int, *, cert: bool,
-                    want_sims: bool = True):
-        """One <= MAX_LANES chunk through every shard's scan (``states``:
-        ops/scan.py ``_scan_state`` of each shard), merged: numpy (gids,
-        sims or None, verdicts or None).
+    def _scan_chunk(self, states, qds, lo: int, pn: int, k: int, n_pad: int,
+                    *, cert: bool):
+        """Queue one <= MAX_LANES chunk through every shard's scan
+        (``states``: ops/scan.py ``_scan_state`` of each shard) and the
+        merge: device (gids, sims, verdicts or None) of P rows.
 
         Each shard serves the chunk as the single index serves it: the
         exact tier (kernel A, or A′ on a hamming table), the bf16 / int8
@@ -366,20 +416,16 @@ class ShardedHNSW:
                 table=None if table is vecs else table, tscale=tscale,
             )
 
-        gids, sims = self._merged(part, k, k, n_pad, serve, want_sims or cert)
-        if not cert:
-            return gids, sims, None
-        pn = part.shape[0]
-        ok = (torch.stack(oks).all(0)[:pn].cpu().numpy() if oks
-              else np.ones(pn, bool))
-        return gids, sims, ok
+        gids, sims = self._merged(qds, lo, pn, k, k, n_pad, serve)
+        return gids, sims, torch.stack(oks).all(0) if cert else None
 
-    def _graph_chunk(self, snaps, part, k: int, n_pad: int, *, ef: int,
-                     expand: int, iters, seeds: int, frontier: bool,
-                     want_sims: bool):
+    def _graph_chunk(self, snaps, qds, lo: int, pn: int, k: int, n_pad: int,
+                     *, ef: int, expand: int, iters, seeds: int,
+                     frontier: bool):
         """One chunk through every shard's graph beam (ops/search.py
         ``search_pipeline``: the descent, seeds, kernel C's beam and the
-        exact rescore), merged: numpy (gids, sims or None)."""
+        exact rescore), merged: device (gids, sims). The beams wait for
+        the card at every step."""
         from ..ops.search import (
             PIVOT_POOL,
             _pivot_pool,
@@ -404,8 +450,7 @@ class ShardedHNSW:
                 seed_ids=seed_ids,
             )
 
-        return self._merged(part, min(int(k), ef), k, n_pad, serve,
-                            want_sims)
+        return self._merged(qds, lo, pn, min(int(k), ef), k, n_pad, serve)
 
     def search_batch(
         self, queries, k: int, ef_search: int | None = None,
@@ -456,7 +501,8 @@ class ShardedHNSW:
         )
         ids_mode = cfg.metric == "euclidean" and SC.reply_ids_engaged(
             cfg.dim, self.devices[0])
-        reruns = []  # the certified tier's (chunk, rows, gids, sims)
+        want_sims = not ids_mode
+        sink = None
         if use_scan:
             states = [SC._scan_state(s) for s in self.shards]
             k_eff = min(int(k), n_pad)
@@ -465,14 +511,48 @@ class ShardedHNSW:
                 and all(st[0] is st[1] and st[4] is None for st in states)
                 and SC.cert_enabled(n_pad, int(states[0][1].shape[1]))
             )
+            if use_cert:
+                sink = _ShardedCertRerunSink(self, states, k_eff, n_pad)
+                want_sims = True  # the reruns patch the sims too
 
-            def serve(part):
-                gids, sims, ok = self._scan_chunk(
-                    states, part, k_eff, n_pad, cert=use_cert,
-                    want_sims=not ids_mode,
-                )
-                if use_cert:
-                    pn = part.shape[0]
+            def serve(qds, lo, pn):
+                return self._scan_chunk(states, qds, lo, pn, k_eff, n_pad,
+                                        cert=use_cert)
+        else:
+            ef = max(cfg.ef_construction if ef_search is None
+                     else int(ef_search), 1)
+            seeds_eff = min(int(seeds), ef - 1) if ef > 1 else 0
+            nv = [sn.nbrvec for sn in snaps]
+            frontier = all(t is not None for t in nv) and (
+                len({t.dtype for t in nv}) == 1)
+
+            def serve(qds, lo, pn):
+                return self._graph_chunk(
+                    snaps, qds, lo, pn, k, n_pad, ef=ef, expand=expand,
+                    iters=iters, seeds=seeds_eff, frontier=frontier,
+                ) + (None,)
+
+        chunk = max_lanes_for(n_pad)
+        qds = self._device_queries(qs)
+
+        def dispatch(lo):
+            """Dispatch half of one chunk: every shard's kernels and the
+            merge queued, the merged lists (and the ANDed verdicts)
+            registered for the window's copy; the finish counts the
+            certified verdicts and hands the uncertified rows to the
+            sink."""
+            pn = min(chunk, n_q - lo)
+            gids_d, sims_d, ok_d = serve(qds, lo, pn)
+            get_gids = SC.fetch_handle(gids_d[:pn])
+            get_sims = SC.fetch_handle(sims_d[:pn]) if want_sims else None
+            get_ok = (None if ok_d is None
+                      else SC.fetch_handle(ok_d[:pn].to(torch.uint8)))
+
+            def finish():
+                gids = get_gids()
+                sims = None if get_sims is None else get_sims()
+                if get_ok is not None:
+                    ok = get_ok() != 0
                     SC.CERT_STATS["batches"] += 1
                     SC.CERT_STATS["queries"] += pn
                     if not ok.all():
@@ -482,37 +562,14 @@ class ShardedHNSW:
                             # tie-heavy / adversarial chunk: re-serve it
                             # whole (the rule of certified_finish)
                             bad = np.arange(pn)
-                        reruns.append((part, bad, gids, sims))
+                        sink.add(qs[lo : lo + pn], bad, gids, sims)
                 return gids, sims
-        else:
-            ef = max(cfg.ef_construction if ef_search is None
-                     else int(ef_search), 1)
-            seeds_eff = min(int(seeds), ef - 1) if ef > 1 else 0
-            nv = [sn.nbrvec for sn in snaps]
-            frontier = all(t is not None for t in nv) and (
-                len({t.dtype for t in nv}) == 1)
 
-            def serve(part):
-                return self._graph_chunk(
-                    snaps, part, k, n_pad, ef=ef, expand=expand, iters=iters,
-                    seeds=seeds_eff, frontier=frontier,
-                    want_sims=not ids_mode,
-                )
+            return finish
 
-        chunk = max_lanes_for(n_pad)
-        parts = [serve(qs[lo : lo + chunk]) for lo in range(0, n_q, chunk)]
-        if reruns:
-            # every chunk's uncertified rows served again in ONE exact
-            # sharded scan, spliced into the chunks' replies in place
-            gb, sb, _ = self._scan_chunk(
-                states, np.concatenate([p[b] for p, b, _, _ in reruns]),
-                k_eff, n_pad, cert=False)
-            lo = 0
-            for _, bad, gids, sims in reruns:
-                gids[bad] = gb[lo : lo + len(bad)]
-                sims[bad] = sb[lo : lo + len(bad)]
-                lo += len(bad)
-        gids = np.concatenate([p[0] for p in parts])
+        g_parts, s_parts = SC.drain_pipelined(
+            ((lo,) for lo in range(0, n_q, chunk)), dispatch, sink=sink)
+        gids = np.concatenate(g_parts)
         if ids_mode:
             # the ids-only reply: sims rescored on the host in exact direct
             # form from the shards' row tables, then the (-sim, id) order
@@ -530,7 +587,7 @@ class ShardedHNSW:
             ).astype(np.float32)
             gids, sims = SC.sort_reply(gids, sims)
         else:
-            sims = np.concatenate([p[1] for p in parts])
+            sims = np.concatenate(s_parts)
         return self._assemble(gids, sims, n_pad, reply)
 
     def _assemble(self, gids, sims, n_pad: int, reply: str):

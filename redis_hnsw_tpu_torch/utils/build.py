@@ -4,7 +4,7 @@ Two kinds of library are built into ``build/`` at the repository root
 (a directory ``.gitignore`` lists, so a fresh checkout builds them):
 
 * ``build/native/libhnswcore-<hash>.so`` -- the host graph core,
-  ``native/hnsw_core.cpp`` compiled unchanged with g++;
+  ``redis_hnsw_tpu_torch/csrc/hnsw_core.cpp`` compiled with g++;
 * ``build/kernels/lib<name>-<hash>.so`` -- each CUDA kernel source under
   ``redis_hnsw_tpu_torch/csrc/`` compiled by nvcc for ``sm_90a`` into a
   shared library with a plain C interface, loaded with ctypes.

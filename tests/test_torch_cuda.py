@@ -1363,3 +1363,151 @@ def test_bf16_forms_counted(card):
     torch.cuda.synchronize()
     assert forms["wgmma"] == before.get("wgmma", 0) + 1
     assert forms["general"] == before.get("general", 0) + 2
+
+
+# -- the pipelined serving loop (ops/scan.py drain_pipelined) ----------------
+
+
+def pipeline_indexes(card):
+    """A card HNSW index, a flat index, a hamming flat index and a
+    3-shard index on the card, over lattice rows, each searched once so
+    their snapshots and scan tables are built; and the queries."""
+    from redis_hnsw_tpu_torch.parallel import ShardedHNSW
+
+    rng = np.random.default_rng(8)
+    data = rng.integers(-3, 4, (3000, 32)).astype(np.float32)
+    qs = rng.integers(-3, 4, (300, 32)).astype(np.float32)
+    words = rng.integers(0, 2**32, (3000, 8), dtype=np.uint32)
+    hq = rng.integers(0, 2**32, (300, 8), dtype=np.uint32)
+    names = [f"n{i}" for i in range(3000)]
+    c = T.HNSW(device="cuda")
+    c.create_index("h", dim=32, m=8, ef_construction=48, seed=3)
+    c.add_batch("h", names, data)
+    c.create_index("f", dim=32, kind="flat")
+    c.add_batch("f", names, data)
+    c.create_index("w", dim=256, kind="flat", metric="hamming")
+    c.add_batch("w", names, words)
+    sh = ShardedHNSW("s", T.IndexConfig(dim=32, m=8, ef_construction=48,
+                                        seed=3), mesh=[card] * 3)
+    sh.add_batch(names, data, batch_size=1024)
+    out = dict(h=c.index("h"), f=c.index("f"), w=c.index("w"), s=sh)
+    for key, idx in out.items():
+        idx.search_batch(hq if key == "w" else qs, 10)
+    return out, qs, hq
+
+
+PIPELINE_CASES = [("h", "scan", {}), ("h", "scan", {"SCAN_CERT": "1"}),
+                  ("h", "scan", {"SCAN_DTYPE": "bf16"}),
+                  ("h", "scan", {"SCAN_DTYPE": "int8"}),
+                  ("f", None, {}), ("f", None, {"SCAN_CERT": "1"}),
+                  ("f", None, {"SCAN_DTYPE": "int8"}), ("w", None, {}),
+                  ("s", "scan", {}), ("s", "scan", {"SCAN_CERT": "1"})]
+
+
+def test_dispatch_halves_never_wait_for_the_card(card, monkeypatch):
+    """Every dispatch half queues its kernels and its reply's copy without
+    one host sync: under ``torch.cuda.set_sync_debug_mode("error")`` a
+    ``.cpu()``, ``.item()`` or blocking copy in a dispatch half raises.
+    The finish halves run after the mode is reset and give the replies
+    of the one-call forms."""
+    from redis_hnsw_tpu_torch.ops import scan as TS
+
+    idxs, qs, hq = pipeline_indexes(card)
+    qd = torch.from_numpy(qs[:64]).to(card)
+    hqd = torch.from_numpy(hq[:64].view(np.int32)).to(card)
+    cases = []
+    for env in ({}, {"SCAN_CERT": "1"}, {"SCAN_DTYPE": "bf16"},
+                {"SCAN_DTYPE": "int8"}):
+        cases.append(("scan_dispatch h", env, lambda: TS.scan_dispatch(
+            idxs["h"], qd, 10, host_qs=qs[:64])))
+    f = idxs["f"]
+    for env in ({}, {"SCAN_CERT": "1"}, {"SCAN_CERT": "1",
+                                         "CERT_ONEPASS": "0"}):
+        cases.append(("serve_block f", env, lambda: TS.serve_block(
+            *f._device()[:3], qd, k=10, n_q=64, metric="euclidean")))
+    w = idxs["w"]
+    cases.append(("serve_block w", {}, lambda: TS.serve_block(
+        *w._device()[:3], hqd, k=10, n_q=64, metric="hamming")))
+
+    def resident():
+        q8, sqn, valid, tscale = f._device()
+        return TS.serve_resident_int8(q8, sqn, valid, tscale, qd,
+                                      f._vectors, qs[:64], k=10, n_q=64)
+
+    cases.append(("serve_resident_int8 f", {"SCAN_DTYPE": "int8"}, resident))
+    sh = idxs["s"]
+    states = [TS._scan_state(s) for s in sh.shards]
+    qds = sh._device_queries(qs)
+    n_pad = max(s.device_snapshot().n_pad for s in sh.shards)
+    for cert in (False, True):
+        cases.append((f"sharded _scan_chunk cert={cert}", {},
+                      lambda cert=cert: sh._scan_chunk(
+                          states, qds, 64, 64, 10, n_pad, cert=cert)))
+    for label, env, dispatch in cases:
+        for key, value in env.items():
+            monkeypatch.setenv(f"REDIS_HNSW_TPU_{key}", value)
+        if "SCAN_DTYPE" in env:
+            dispatch()  # the tier's tables built, outside the check
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fin = dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if callable(fin):
+            ids, sims = fin()
+            assert ids.shape[0] == 64, label
+        for key in env:
+            monkeypatch.delenv(f"REDIS_HNSW_TPU_{key}")
+
+
+def test_pinned_pipeline_equals_serial_under_allocator_churn(card,
+                                                             monkeypatch):
+    """Depth 2 with pinned asynchronous copies, windows 1 and 3, gives the
+    serial loop's bytes on every route; and so it does when the caching
+    allocator is churned between each dispatch and its finish (large
+    blocks allocated and overwritten while copies are in flight), which
+    shows that a window keeps its source tensors alive until its copy
+    completes."""
+    from redis_hnsw_tpu_torch.ops import scan as TS
+    from redis_hnsw_tpu_torch.ops import search as TSE
+
+    idxs, qs, hq = pipeline_indexes(card)
+    monkeypatch.setattr(TSE, "MAX_LANES", 64)
+    real_drain = TS.drain_pipelined
+
+    def churned(parts, dispatch, **kw):
+        def churn_dispatch(*args):
+            fin = dispatch(*args)
+            for _ in range(3):
+                junk = torch.empty(1 << 24, dtype=torch.int32, device=card)
+                junk.fill_(-7)
+                del junk
+            return fin
+
+        return real_drain(parts, churn_dispatch, **kw)
+
+    for key, engine, env in PIPELINE_CASES:
+        for name, value in env.items():
+            monkeypatch.setenv(f"REDIS_HNSW_TPU_{name}", value)
+        kw = {} if engine is None else {"engine": engine}
+        q = hq if key == "w" else qs
+        monkeypatch.setenv("REDIS_HNSW_TPU_PIPELINE", "0")
+        monkeypatch.setenv("REDIS_HNSW_TPU_FETCH_WINDOW", "1")
+        want = idxs[key].search_batch(q, 10, reply="columnar", **kw)
+        for depth, window, drain in (("2", "1", real_drain),
+                                     ("2", "3", real_drain),
+                                     ("2", "1", churned),
+                                     ("4", "3", churned)):
+            monkeypatch.setenv("REDIS_HNSW_TPU_PIPELINE", depth)
+            monkeypatch.setenv("REDIS_HNSW_TPU_FETCH_WINDOW", window)
+            monkeypatch.setattr(TS, "drain_pipelined", drain)
+            got = idxs[key].search_batch(q, 10, reply="columnar", **kw)
+            label = f"{key} {env} depth {depth} window {window}"
+            assert np.array_equal(got[0], want[0]), label
+            assert np.array_equal(got[1].view(np.int32),
+                                  want[1].view(np.int32)), label
+        monkeypatch.setattr(TS, "drain_pipelined", real_drain)
+        for name in env:
+            monkeypatch.delenv(f"REDIS_HNSW_TPU_{name}")
+    assert TS._PINNED._free, "no pinned buffer was used"

@@ -63,6 +63,110 @@ def test_no_jax_imports_in_port_sources():
     assert not found
 
 
+def _outside_port(path: str) -> bool:
+    port = os.path.join(REPO, "redis_hnsw_tpu_torch") + os.sep
+    return not os.path.abspath(path).startswith(port)
+
+
+def test_builds_compile_only_the_ports_sources(monkeypatch, tmp_path):
+    """Every source the port's builds compile -- the host core and every
+    CUDA kernel, with their headers -- lies under redis_hnsw_tpu_torch/,
+    and so does every path a compiler command names: the port keeps its
+    own copy of the host core (csrc/hnsw_core.cpp) and reads nothing of
+    native/ or the JAX package."""
+    from redis_hnsw_tpu_torch import native_core
+    from redis_hnsw_tpu_torch.utils import build
+
+    started = []
+
+    def record(subdir, stem, sources, headers, cmd):
+        started.append((stem, list(sources) + list(headers), cmd("OUT")))
+        return "OUT", lambda: str(tmp_path / "none.so")
+
+    monkeypatch.setattr(build, "start_build", record)
+    monkeypatch.setattr(native_core, "start_build", record)
+    monkeypatch.setattr(build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(native_core, "_lib", None)
+    monkeypatch.setattr(native_core, "_tried", False)
+    assert native_core.load() is None  # the stub library does not load
+    for name in build.KERNELS:
+        build.start_kernel_build(name)
+    stems = {stem for stem, _, _ in started}
+    assert stems == {"libhnswcore"} | {f"lib{k}" for k in build.KERNELS}
+    for stem, inputs, cmd in started:
+        assert inputs and not [p for p in inputs if _outside_port(p)], stem
+        named = [a for a in cmd if a.endswith((".cpp", ".cu", ".cuh"))]
+        assert named and not [a for a in named if _outside_port(a)], stem
+    assert native_core._SRC == os.path.join(
+        REPO, "redis_hnsw_tpu_torch", "csrc", "hnsw_core.cpp")
+
+
+def test_port_sources_name_no_outside_path():
+    """No path the port's code builds -- a string with a slash, or a
+    component of an ``os.path.join`` -- starts under native/ or the JAX
+    package: nothing outside redis_hnsw_tpu_torch/ is opened or
+    compiled (docstrings and comments may name them)."""
+    outside = ("native", "redis_hnsw_tpu")
+    found = []
+    root = os.path.join(REPO, "redis_hnsw_tpu_torch")
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, f)
+            with open(path) as fh:
+                tree = ast.parse(fh.read(), path)
+            for node in ast.walk(tree):
+                if (isinstance(node, ast.Constant)
+                        and isinstance(node.value, str)
+                        and "/" in node.value and "\n" not in node.value
+                        and node.value.split("/")[0] in outside):
+                    found.append((path, node.value))
+                if (isinstance(node, ast.Call)
+                        and ast.unparse(node.func) == "os.path.join"):
+                    found += [
+                        (path, a.value) for a in node.args
+                        if isinstance(a, ast.Constant) and a.value in outside
+                    ]
+    assert not found
+
+
+def test_host_core_copy_builds_the_jax_packages_graph():
+    """The port's host core is a copy of the JAX package's, the same code:
+    its C entry points are the same, and the port's native and py
+    backends build the same graph on lattice rows."""
+    import re
+
+    def entry_points(path):
+        with open(path) as f:
+            return sorted(set(re.findall(r"\b(hnsw_[a-z_0-9]+)\s*\(",
+                                         f.read())))
+
+    mine = os.path.join(REPO, "redis_hnsw_tpu_torch", "csrc",
+                        "hnsw_core.cpp")
+    theirs = os.path.join(REPO, "native", "hnsw_core.cpp")
+    assert entry_points(mine) == entry_points(theirs)
+    with open(mine) as a, open(theirs) as b:
+        code = [[ln for ln in f.read().splitlines()
+                 if not ln.lstrip().startswith("//")] for f in (a, b)]
+    assert code[0] == code[1]  # only the header comment differs
+    from redis_hnsw_tpu_torch import native_core
+
+    if native_core.load() is None:
+        pytest.skip("no g++ to build the host core")
+    rng = np.random.default_rng(4)
+    data = rng.integers(-3, 4, (300, 8)).astype(np.float32)
+    graphs = []
+    for backend in ("native", "py"):
+        idx = T.HNSWIndex("c", T.IndexConfig(dim=8, m=5, seed=3,
+                                             backend=backend), device="cpu")
+        for i, row in enumerate(data):
+            idx.add_node(f"n{i}", row)
+        graphs.append([idx.get_node(f"n{i}")["neighbors"]
+                       for i in range(300)])
+    assert graphs[0] == graphs[1]
+
+
 def test_default_device_is_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = T.IndexConfig(dim=4)
