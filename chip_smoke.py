@@ -7,11 +7,11 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
 ``redis_hnsw_tpu_torch/csrc`` into ``build/``, then:
 
 0. prints the card's name and power limit, the kernels' build time and,
-   for kernels A, A′, B and D (the split kernels), the tier cores A-bf16
-   and A-int8 (both forms of each: the wgmma forms of scan_bf16.cu and
-   scan_int8.cu and the general form of scan_lowp.cu) and C, ptxas
-   registers, spills,
-   shared memory and resident blocks (C's at its main plans);
+   for kernels A, A′, B, B′ and D (the split kernels), the tier cores
+   A-bf16 and A-int8 (both forms of each: the wgmma forms of scan_bf16.cu
+   and scan_int8.cu and the general form of scan_lowp.cu) and C, ptxas
+   registers, spills, shared memory and resident blocks (C's at its main
+   plans);
 1. holds each kernel against its plain PyTorch version on the card, at
    the main path's shapes and at ragged edges: bitwise on integer-lattice
    data (every score exact in f32) and on random hamming words, to a
@@ -40,7 +40,14 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
    same kinds of edge cases, with tie classes planted, at k = 1 ... 1000
    and W = 1 ... 32 in both copy forms, and timed over 1,000,064 x
    256-bit rows (k_sel = 40 and k = 10, with the SM clock sampled), at
-   B = 16 over those rows and at 2048 x 16,384; kernel D
+   B = 16 over those rows and at 2048 x 16,384; kernel B′ (the certified
+   hamming tier's counts) bitwise at ragged B, N and W, dead rows, its
+   4-byte form, its splits' edges with tie classes planted, at t = the
+   10th score, -inf, above, below and between every score, its > counts
+   equal to kernel A′'s selection, and timed at 2048 x 1,000,064 x 8
+   words beside its bound, its plain version, a library yardstick (f16
+   torch.mm of the +-1 tables and two compare-sums) and A′ at k_sel =
+   40 and k = 10; kernel D
    (one-pass bin select) at its 128 x 128 tile's edges (B, N at
    127/128/129, D = 1/33/129, split boundaries, a dead bin, a duplicate
    row) and at the flat-sift1m shape, where its best candidate per query
@@ -80,8 +87,9 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
 2d. ``hnsw-build-sift1m-shape``: ``add_batch(batch_size=2048)`` of 262,144
    x 128 seeded Gaussian rows (SIFT1M's width, a quarter of its rows),
    M=16, efcon=200: inserts/s, the phase breakdown, one full snapshot
-   build and deltas after it, kernel A timed at the build's shape (k =
-   64); then 2048 queries on the exact tier and on the graph engine
+   build and deltas after it, every delta copying its wave's vectors on the
+   card (deltas by path and snapshot_refresh ms a wave logged), kernel A
+   timed at the build's shape (k = 64); then 2048 queries on the exact tier and on the graph engine
    against a float64 oracle computed on the card. ``python3
    chip_smoke.py --build-rows 1000000`` runs this phase alone at SIFT1M's
    size;
@@ -94,10 +102,14 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
    (kernel D): byte-identical to the exact tier on every query,
    certified share >= 0.95, and kernel D's share of the batch time;
 3b. ``flat-hamming-sift256``: a flat index of 1,000,000 x 256-bit rows
-   (the shape of ann-benchmarks' sift-256-hamming, seeded random bits)
-   served 16,384 queries on the exact hamming tier (kernel A′), which a
-   hamming table takes at every size, byte-identical to use_pallas=True
-   on every query and to a numpy brute force on a sample;
+   (the shape of ann-benchmarks' sift-256-hamming, seeded random bits, a
+   48-copy tie class planted) served 16,384 queries on the exact hamming
+   tier (kernel A′), its default, byte-identical to use_pallas=True on
+   every query and to a numpy brute force on a sample; then on the
+   certified hamming tier (SCAN_CERT=1: kernels A′ and B′), byte-identical
+   to it, its certified share (the planted class's query falls back), and
+   both tiers' qps in turns, which must keep the auto rule (hamming on
+   the exact tier) the faster;
 4. the wire and durability, in a temporary directory: 4a ``stream-deep96``,
    BASELINE.json config 4 as benchmarks/streaming1m.py drives it (96-d
    rows about 4096 centres, sigma 0.8, M=16, efcon=200; ``run_mixed`` in
@@ -146,9 +158,11 @@ another sm_90a card) and the CUDA toolkit. It builds the CUDA kernels from
    rows over 4 shards on the card and on the CPU, replies byte-equal on
    every engine and tier, then the bulk-built graphs; 6c
    ``sharded-hamming``, config5 over 4 shards, the scan byte-equal to a
-   numpy brute force and the graph sweep to tie-aware recall@10 >= 0.95;
+   numpy brute force, the certified hamming tier (SCAN_CERT=1) byte-equal
+   to it, and the graph sweep to tie-aware recall@10 >= 0.95;
    6d ``sharded-build``, phase 2d's 262,144 rows by interleaved add_batch
-   (inserts/s beside phase 2d's, the phase split), served on the exact
+   (inserts/s beside phase 2d's, the phase split, every shard's deltas by
+   the device path), served on the exact
    tier and the graph engine against a float64 oracle (``python3
    chip_smoke.py --sharded-rows 1000000`` runs 6d alone at that size); 6e
    the [S, 2048, 10] merge for S = 2, 4, 8, 16 beside one shard's exact
@@ -879,6 +893,165 @@ def phase_hamming_kernels(dev):
             ms_k10=times["a10_ms"], ms_b16=times["a_b16_ms"],
             ms_hnsw=times["a_hnsw_ms"], bound_ms_popcount=popc_bound,
             shape=dict(shape, k=k_sel),
+        ),
+    }
+
+
+def count_hamming_thresholds(qt, xt, bias, k=10):
+    """Per query kernel A′'s k-th selected score (its tie class counts as
+    ==), and on every 7th query from the 2nd -inf (dead rows count as ==),
+    from the 3rd a score above every row's, from the 4th one below every
+    row's, from the 5th one between two integers (nothing ==)."""
+    from redis_hnsw_tpu_torch.ops import cuda_scan
+
+    _, sims = cuda_scan.flat_topk_hamming(qt, xt, bias, k=k)
+    t = sims[:, k - 1].clone()
+    t[1::7] = float("-inf")
+    t[2::7] = 0.5
+    t[3::7] = -32.0 * xt.shape[1] - 1
+    t[4::7] = -7.5
+    return t.contiguous()
+
+
+def count_hamming_bitwise(case, t, label):
+    """Kernel B′'s counts equal its plain version's; returns them."""
+    from redis_hnsw_tpu_torch.ops import cuda_count_hamming
+
+    qt, xt, bias = case
+    got = cuda_count_hamming.count_hamming(qt, xt, bias, t)
+    want = cuda_count_hamming.plain_count_hamming(qt, xt, bias, t)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"{label}: kernel B′ counts differ from its plain version")
+    return got
+
+
+def count_hamming_yardstick(q16, x16, t, d_bits):
+    """Kernel B′'s library yardstick: f16 ``torch.mm`` of the +-1 tables
+    (exact for +-1 values), then the two compare-sums against the
+    thresholds in dot units, 2t + d_bits (three calls; the port never
+    calls them). Like A′'s yardstick it leaves the dead-row mask out."""
+    s = torch.mm(q16, x16.t())
+    td = (2.0 * t + d_bits).half()[:, None]
+    return (s > td).sum(1), (s == td).sum(1)
+
+
+def phase_count_hamming(dev):
+    """Kernel B′: bitwise against its plain version at ragged shapes (N not
+    a multiple of the tile, dead rows, B and N at the tile's edges, W = 1,
+    3, 8, 25, 32 and 33 in both copy forms, its splits' edges with tie
+    classes planted across the boundary) and at every kind of threshold
+    (count_hamming_thresholds: the 10th score, -inf, above and below every
+    score, between integers), its > count equal to kernel A′'s selection;
+    then at flat-hamming-sift256's shape, B = 2048 over 1,000,064 rows of
+    8 words at the certified tier's t (k = 10 of A′'s k_sel = 40), timed
+    beside its bound (int8 tensor cores; the popcount bound logged), its
+    plain version, the library yardstick and kernel A′ at k_sel = 40 and
+    k = 10, all in this call."""
+    from redis_hnsw_tpu_torch.ops import cuda_count_hamming, cuda_scan
+
+    rng = np.random.default_rng(SEED + 17)
+    cases = 0
+    shapes = [(3, 1000, 8, 0.3), (130, 5000, 3, 0.2), (5, 7, 3, 0.3),
+              (1, 129, 8, 0.1), (127, 127, 8, 0.2), (128, 128, 1, 0.0),
+              (129, 129, 32, 0.0), (2049, 3000, 8, 0.1), (37, 100_003, 25,
+                                                           0.1),
+              (130, 2049, 33, 0.5), (64, 64, 8, 0.0), (16, 400_003, 8, 0.1)]
+    for B, N, W, dead in shapes:
+        case = word_case(rng, B, N, W, dead, dev)
+        _, sims = cuda_scan.flat_topk_hamming(*case, k=10)
+        t = sims[:, 9].contiguous()
+        c_gt, _ = count_hamming_bitwise(case, t, f"B′ B={B} N={N} W={W}")
+        check(torch.equal(c_gt, (sims > t[:, None]).sum(1, dtype=torch.int32)),
+              f"B′ B={B} N={N} W={W}: > count disagrees with kernel A′")
+        count_hamming_bitwise(case, count_hamming_thresholds(*case),
+                              f"B′ B={B} N={N} W={W} thresholds")
+        cases += 2
+    for W, off in ((3, 1), (8, 1), (32, 1)):
+        qt, xt, bias = word_case(rng, 130, 3000, W, 0.1, dev)
+        x_off = torch.empty(xt.numel() + off, dtype=torch.int32,
+                            device=dev)[off:].view_as(xt)
+        x_off.copy_(xt)
+        case = (qt, x_off, bias)
+        count_hamming_bitwise(case, count_hamming_thresholds(*case),
+                              f"B′ W={W} offset={off}")
+        cases += 1
+    for B in (1, 129, 2049):
+        for delta in (-1, 0, 1):
+            N, edge = split_edge(cuda_count_hamming.plan, dev, B, delta)
+            case = word_case(rng, B, N, 8, 0.1, dev)
+            plant_word_ties(case, edge)
+            count_hamming_bitwise(case, count_hamming_thresholds(*case),
+                                  f"B′ split edge B={B} N={N}")
+            cases += 1
+    case = word_case(rng, 130, 1000, 8, 0.3, dev)
+    t = torch.full((130,), float("-inf"), device=dev)
+    c_gt, c_eq = count_hamming_bitwise(case, t, "B′ t=-inf")
+    live = int((case[2] == 0).sum())
+    check((c_gt == live).all().item() and (c_eq == 1000 - live).all().item(),
+          f"B′ t=-inf: counts {c_gt[0]}, {c_eq[0]} of {live} live rows")
+    cases += 1
+    log(f"phase 1: kernel B′ bitwise equal to its plain version in {cases} "
+        f"cases (ragged B, N and W = 1/3/8/25/32/33, dead rows, the 4-byte "
+        f"form, split edges with tie classes planted, t = the 10th score, "
+        f"-inf, above, below and between every score), its > counts equal "
+        f"to kernel A′'s selection")
+    del case
+    torch.cuda.empty_cache()
+
+    B, N, W, k, k_sel = 2048, 1_000_064, 8, 10, 40
+    qt, xt, bias = word_case(rng, B, N, W, 0.0, dev)
+    _, sims = cuda_scan.flat_topk_hamming(qt, xt, bias, k=k_sel)
+    t = sims[:, k - 1].contiguous()
+    main = count_hamming_bitwise((qt, xt, bias), t,
+                                 "B′ flat-hamming-sift256 shape")
+    s_gt = (sims > t[:, None]).sum(1, dtype=torch.int32)
+    s_eq = (sims == t[:, None]).sum(1, dtype=torch.int32)
+    check(torch.equal(main[0], s_gt),
+          "B′ flat-hamming-sift256 shape: > count disagrees with kernel A′")
+    certified = float(((main[0] == s_gt) & (main[1] == s_eq)).float().mean())
+    q16 = cuda_scan.pm1_table(qt).half()
+    x16 = cuda_scan.pm1_table(xt).half()
+    with ClockSampler() as clock:
+        b_ms = sync_ms(lambda: cuda_count_hamming.count_hamming(
+            qt, xt, bias, t), 20)
+    times = {
+        "b_ms": b_ms,
+        "a_ms": sync_ms(lambda: cuda_scan.flat_topk_hamming(
+            qt, xt, bias, k=k_sel), 20),
+        "a10_ms": sync_ms(lambda: cuda_scan.flat_topk_hamming(
+            qt, xt, bias, k=k), 20),
+        "b_plain_ms": sync_ms(lambda: cuda_count_hamming.plain_count_hamming(
+            qt, xt, bias, t), 1),
+        "b_lib_ms": sync_ms(lambda: count_hamming_yardstick(
+            q16, x16, t, 32 * W), 3),
+    }
+    del q16, x16
+    ops = 2.0 * B * N * 32 * W
+    in_bytes = 4.0 * (B * W + N * W + N + B) + 8.0 * B
+    b_bound, b_by = bound_ms(ops, in_bytes, "int8")
+    popc_bound, _ = bound_ms(float(B) * N * W, in_bytes, "popc")
+    log(f"phase 1: kernel B′ at B={B} N={N} W={W}, t = the {k}th of kernel "
+        f"A′'s k_sel={k_sel} (share of queries the deep certificate "
+        f"certifies {certified:.4f}; (splits, tiles per split) "
+        f"{cuda_count_hamming.plan(dev, B, N)}; while B′ ran: "
+        f"{clock.summary()}): {json.dumps(times)}; bound {b_bound:.4f} ms "
+        f"({b_by}; int8 tensor cores), as popcounts {popc_bound:.4f} ms; A′ "
+        f"at k_sel={k_sel} plus B′: {times['a_ms'] + b_ms:.4f} ms against A′ "
+        f"at k={k} alone {times['a10_ms']:.4f}")
+    del qt, xt, bias, sims, t
+    torch.cuda.empty_cache()
+    return {
+        "count_hamming": dict(
+            route="cuda", source="redis_hnsw_tpu_torch/csrc/count_hamming.cu",
+            replaces="redis_hnsw_tpu/ops/scan.py:897",
+            max_abs_err=0.0, ms=b_ms, plain_ms=times["b_plain_ms"],
+            bound_ms=b_bound, bound_by=b_by, library_ms=times["b_lib_ms"],
+            library_calls="f16 torch.mm of the +-1 tables, then (s > t).sum "
+                          "and (s == t).sum",
+            bound_ms_popcount=popc_bound, a_hamming_ms=times["a_ms"],
+            a_hamming_k10_ms=times["a10_ms"],
+            shape={"B": B, "N": N, "W": W, "k": k, "k_sel": k_sel},
         ),
     }
 
@@ -1762,6 +1935,7 @@ def graph_sweep(client, name, qs, oracle, k, label, start=0):
 def _counters():
     from redis_hnsw_tpu_torch.ops import (
         cuda_count,
+        cuda_count_hamming,
         cuda_gather,
         cuda_scan,
         cuda_select,
@@ -1772,6 +1946,7 @@ def _counters():
             "scan_topk_bf16": cuda_scan.flat_topk_bf16,
             "scan_topk_int8": cuda_scan.flat_topk_int8,
             "count_gt_eq": cuda_count.count_gt_eq,
+            "count_hamming": cuda_count_hamming.count_hamming,
             "block_score": cuda_gather.fused_block_score,
             "select_bins": cuda_select.select_bins}
 
@@ -2172,6 +2347,9 @@ def phase_build(client, dev, n=262_144, n_q=2048, gate=True, keep=False):
     check(idx.node_count == n, f"{name}: {idx.node_count} rows, not {n}")
     check(build["refreshes"]["full"] == 1,
           f"{name}: the snapshot was rebuilt mid-build: {build['refreshes']}")
+    check(build["refreshes"]["delta_device"] == build["refreshes"]["delta"]
+          > 0, f"{name}: a wave's delta uploaded its vectors from the host: "
+          f"{build['refreshes']}")
     check(build["launches"]["scan_topk"] > 0
           and build["launches"]["block_score"] > 0,
           f"{name}: a kernel never launched in the build: {build}")
@@ -2183,7 +2361,12 @@ def phase_build(client, dev, n=262_144, n_q=2048, gate=True, keep=False):
     log(f"phase 2d: {name}: add_batch(batch_size=2048) of {n} x {dim} rows "
         f"in {build['s']:.3f} s ({n / build['s']:.1f} inserts/s); phases "
         f"{json.dumps(build['phases'])}; snapshot refreshes "
-        f"{build['refreshes']}; build launches {build['launches']}, kernel "
+        f"{build['refreshes']} (deltas by path: device "
+        f"{build['refreshes']['delta_device']}, host "
+        f"{build['refreshes']['delta'] - build['refreshes']['delta_device']}"
+        f"; snapshot_refresh "
+        f"{build['phases'].get('snapshot_refresh', {}).get('mean_ms')} ms a "
+        f"wave); build launches {build['launches']}, kernel "
         f"C's by form {build['forms']}; max_memory_allocated {peak} bytes; "
         f"max_layer {idx.max_layer}, rows with no layer-0 link {isolated}, "
         f"frontier tier {snap.nbrvec.dtype if snap.nbrvec is not None else None}")
@@ -2530,42 +2713,91 @@ def phase_hamming_lattice(dev, n=2000, n_q=256, devices=("cuda", "cpu")):
 
 def phase_flat_hamming(client, dev):
     """3b: flat-hamming-sift256 -- 1,000,000 x 256-bit rows, the shape of
-    ann-benchmarks' sift-256-hamming (seeded random bits: no download),
-    16,384 queries, k = 10, on the exact hamming tier (kernel A′), which
-    a hamming table takes at every size and with SCAN_CERT=1 too."""
+    ann-benchmarks' sift-256-hamming (seeded random bits: no download;
+    one row planted 48 times, a tie class deeper than the certified
+    tier's 40-deep selection, and one query on it), 16,384 queries, k =
+    10. By default (SCAN_CERT auto) the exact hamming tier (kernel A′),
+    byte-identical to use_pallas=True and to a numpy brute force on a
+    sample; then the certified hamming tier forced (SCAN_CERT=1; kernels
+    A′ at k_sel = 40 and B′), byte-identical to the exact tier on every
+    query, its certified share (the planted query must fall back), and
+    both tiers' qps in turns (exact, certified, certified, exact), which
+    decide the auto rule: auto keeps hamming tables on the exact tier
+    unless the certified tier is at least as fast. Returns the launches
+    of the default run and the certified run."""
     from redis_hnsw_tpu_torch.ops import scan as S
 
     n, W, n_q, k, name = 1_000_000, 8, 16_384, 10, "flat-hamming-sift256"
     rng = np.random.default_rng(SEED + 8)
     data = rng.integers(0, 2**32, (n, W), dtype=np.uint32)
     qs = rng.integers(0, 2**32, (n_q, W), dtype=np.uint32)
+    data[-48:] = data[7]  # a tie class of 48 at distance 0 from query 5
+    qs[5] = data[7]
     names = [f"b{i}" for i in range(n)]
     idx = client.create_index(name, dim=32 * W, kind="flat", metric="hamming")
     t0 = time.perf_counter()
     client.add_batch(name, names, data)
     add_s = time.perf_counter() - t0
+    n_pad = int(idx._device()[0].shape[0])
+    check(not S.hamming_cert_ready(n_pad, W),
+          f"{name}: SCAN_CERT=auto would serve the certified hamming tier")
     before = dict(S.CERT_STATS)
     reset_counts()
     t0 = time.perf_counter()
     enames, esims = idx.search_batch(qs, k, reply="columnar")
     first_s = time.perf_counter() - t0
     counts = read_counts()
-    check(counts["scan_topk_hamming"] > 0,
-          f"{name}: kernel A′ never launched: {counts}")
+    check(counts["scan_topk_hamming"] > 0 and counts["count_hamming"] == 0
+          and S.CERT_STATS == before,
+          f"{name}: the default route is not the exact tier: {counts}")
     exact_s, (enames2, esims2) = timed(
         lambda: idx.search_batch(qs, k, reply="columnar"), 1)
-    with env(SCAN_CERT="1"):
-        cnames, csims = idx.search_batch(qs, k, reply="columnar")
-    check(S.CERT_STATS == before,
-          f"{name}: a hamming batch took the certified tier")
     pallas_s, (pnames, psims) = timed(
         lambda: idx.search_batch(qs, k, reply="columnar", use_pallas=True), 1)
+
+    with env(SCAN_CERT="1"):
+        check(S.hamming_cert_ready(n_pad, W),
+              f"{name}: SCAN_CERT=1 does not admit the table")
+        before = dict(S.CERT_STATS)
+        reset_counts()
+        cnames, csims = idx.search_batch(qs, k, reply="columnar")
+        c_counts = read_counts()
+        stats = {key: S.CERT_STATS.get(key, 0) - before.get(key, 0)
+                 for key in ("batches", "queries", "fallback_queries",
+                             "audits", "audit_mismatches")}
+    check(c_counts["count_hamming"] > 0 and c_counts["scan_topk_hamming"] > 0,
+          f"{name}: the certified tier did not launch A′ and B′: {c_counts}")
+    check(stats["queries"] == n_q and stats["audit_mismatches"] == 0
+          and 1 <= stats["fallback_queries"] < n_q // 4,
+          f"{name}: certified-tier counts {stats}")
     for label, (nm, sm) in (("a second run", (enames2, esims2)),
                             ("SCAN_CERT=1", (cnames, csims)),
                             ("use_pallas=True", (pnames, psims))):
         check(np.array_equal(enames, nm)
               and np.array_equal(esims.view(np.int32), sm.view(np.int32)),
               f"{name}: replies differ from {label}")
+    check(enames[5].tolist() == [f"b{i}" for i in (7,) + tuple(
+        range(n - 48, n - 48 + k - 1))],
+          f"{name}: the planted tie class's reply: {enames[5]}")
+    # timed at the package's audit period (256 batches), not this
+    # script's 8, so that an audit's exact re-serve does not tax one tier
+    turns, audit_every = [], S.CERT_AUDIT_EVERY
+    S.CERT_AUDIT_EVERY = 256
+    try:
+        for tier in ("exact", "certified", "certified", "exact"):
+            with env(SCAN_CERT="1" if tier == "certified" else None):
+                secs, _ = timed(
+                    lambda: idx.search_batch(qs, k, reply="columnar"), 1)
+            turns.append((tier, n_q / secs))
+    finally:
+        S.CERT_AUDIT_EVERY = audit_every
+    qps = {tier: [q for t, q in turns if t == tier]
+           for tier in ("exact", "certified")}
+    mean = {tier: sum(v) / len(v) for tier, v in qps.items()}
+    check(mean["certified"] < mean["exact"],
+          f"{name}: the certified tier ({mean['certified']:.0f} qps) is at "
+          f"least as fast as the exact tier ({mean['exact']:.0f}): auto "
+          f"should follow the JAX package's gates")
     sample = np.arange(0, n_q, n_q // 32)
     t0 = time.perf_counter()
     rows, osims = hamming_oracle(data, qs[sample], k)
@@ -2578,7 +2810,14 @@ def phase_flat_hamming(client, dev):
         f"{n_q / pallas_s:.0f} qps; byte-identical to a second run, to "
         f"SCAN_CERT=1 and to use_pallas on all {n_q} queries, to a numpy "
         f"brute force on {len(sample)} ({oracle_s:.1f} s); launches {counts}")
-    return counts  # the index stays for the pipeline phase
+    log(f"phase 3b: {name}: certified hamming tier (SCAN_CERT=1): CERT_STATS "
+        f"{json.dumps(stats)}, certified share "
+        f"{1 - stats['fallback_queries'] / stats['queries']:.6f}; launches "
+        f"{c_counts}; qps in turns {json.dumps(turns)}: exact "
+        f"{mean['exact']:.1f}, certified {mean['certified']:.1f} "
+        f"({mean['certified'] / mean['exact']:.3f}x): auto keeps hamming "
+        f"tables on the exact tier")
+    return {key: counts[key] + c_counts[key] for key in counts}
 
 
 # -- phase 4: the wire and durability (4a-4e) ------------------------------
@@ -4052,8 +4291,11 @@ def phase_sharded_hamming(dev, n=10_000, n_q=2048):
     """6c: sharded-hamming -- phase 2c's config5 rows (10,000 x 256 bits,
     M=16, efcon=200) over 4 shards, built by add_batch(batch_size=2048):
     the scan (kernel A′ per shard) byte-equal to a numpy brute force, the
-    graph engine over config5's sweep to tie-aware recall@10 >= 0.95."""
+    certified hamming tier forced (SCAN_CERT=1: kernels A′ and B′ per
+    shard, the verdicts ANDed) byte-equal to it, the graph engine over
+    config5's sweep to tie-aware recall@10 >= 0.95."""
     import redis_hnsw_tpu_torch as h
+    from redis_hnsw_tpu_torch.ops import scan as SC
     from redis_hnsw_tpu_torch.parallel import ShardedHNSW
 
     W, k, label = 8, 10, "sharded-hamming"
@@ -4076,6 +4318,16 @@ def phase_sharded_hamming(dev, n=10_000, n_q=2048):
         for nm in names])
     rows, osims = hamming_oracle(data, qs, k, rank=np.argsort(np.argsort(gid)))
     hamming_reply_check(rows, osims, names, snames, ssims, f"{label} scan")
+    with env(SCAN_CERT="1"):
+        before = dict(SC.CERT_STATS)
+        cert_s, got = timed(lambda: idx.search_batch(qs, k, reply="columnar"),
+                            1)
+        cert = {key: SC.CERT_STATS[key] - before[key]
+                for key in ("batches", "queries", "fallback_queries")}
+    same_cols(got, (snames, ssims),
+              f"{label}: the certified hamming tier against the exact tier")
+    check(cert["queries"] == 2 * n_q,
+          f"{label}: the certified hamming tier did not serve: {cert}")
     errs = compare_on_shard(idx, qs, True, f"{label} shard 0", k=k)
     kth = osims[:, -1]
     row_of = {nm: i for i, nm in enumerate(names)}
@@ -4104,7 +4356,10 @@ def phase_sharded_hamming(dev, n=10_000, n_q=2048):
         f"add_batch(batch_size=2048) {n / build_s:.1f} inserts/s; scan "
         f"{n_q} queries k={k}: {n_q / scan_s:.1f} qps, byte-identical to a "
         f"numpy brute force, kernel A′ on shard 0's words bitwise equal to "
-        f"its plain version; graph engine (expand=16) {json.dumps(seen)}")
+        f"its plain version; the certified hamming tier (SCAN_CERT=1) "
+        f"byte-identical to it, {n_q / cert_s:.1f} qps, CERT_STATS over its "
+        f"two calls {json.dumps(cert)}; graph engine (expand=16) "
+        f"{json.dumps(seen)}")
     return errs
 
 
@@ -4148,12 +4403,18 @@ def phase_sharded_build(dev, n=262_144, n_q=2048, gate=True,
     refreshes = [dict(s.snapshot_refreshes) for s in idx.shards]
     check(all(r["full"] == 1 for r in refreshes),
           f"{label}: a shard's snapshot was rebuilt mid-build: {refreshes}")
+    check(all(r["delta_device"] == r["delta"] for r in refreshes),
+          f"{label}: a wave's delta uploaded its vectors from the host: "
+          f"{refreshes}")
     single = BUILD_RATES.get(n)
     log(f"phase 6d: {label}: interleaved add_batch(batch_size=2048) of {n} x "
         f"{dim} rows over {SHARDS} shards in {build_s:.3f} s "
         f"({n / build_s:.1f} inserts/s; phase 2d's single index on the same "
         f"rows: {'%.1f' % single if single else 'not run'}); phases "
-        f"{json.dumps(timer.summary())}; snapshot refreshes {refreshes}; "
+        f"{json.dumps(timer.summary())} (snapshot_refresh "
+        f"{timer.summary().get('snapshot_refresh', {}).get('mean_ms')} ms a "
+        f"wave); snapshot refreshes {refreshes} (every delta by the device "
+        f"path); "
         f"max_memory_allocated {peak} bytes")
     xs64 = torch.from_numpy(data).to(dev, torch.float64)
     oracle = ChunkedOracle(xs64, qs, k)
@@ -4447,7 +4708,12 @@ def main() -> int:
         log(json.dumps({"build_rows": args.build_rows, "launches": counts,
                         "scan_topk_build_shape": a_row}))
         return 0
-    from redis_hnsw_tpu_torch.ops import cuda_count, cuda_scan, cuda_select
+    from redis_hnsw_tpu_torch.ops import (
+        cuda_count,
+        cuda_count_hamming,
+        cuda_scan,
+        cuda_select,
+    )
 
     card_index = torch.cuda.current_device()
     log_core_figures(paths["scan_topk"], "scan_tile_kernel",
@@ -4458,6 +4724,9 @@ def main() -> int:
     log_core_figures(paths["scan_topk"], "hamming_tile_kernel",
                      "scan_topk_hamming_smem_bytes",
                      cuda_scan.hamming_block_slots(card_index))
+    log_core_figures(paths["count_hamming"], "count_hamming_kernel",
+                     "count_hamming_smem_bytes",
+                     cuda_count_hamming.block_slots(card_index))
     log_core_figures(paths["select_bins"], "select_bins_kernel",
                      "select_bins_smem_bytes",
                      cuda_select.block_slots(card_index))
@@ -4468,6 +4737,7 @@ def main() -> int:
 
     kernels = phase_kernels(dev)
     kernels.update(phase_hamming_kernels(dev))
+    kernels.update(phase_count_hamming(dev))
     kernels.update(phase_tier_kernels(dev))
     kernels["block_score"] = phase_block_score(dev)
     kernels["select_bins"] = phase_select(dev)

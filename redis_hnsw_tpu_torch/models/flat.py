@@ -5,8 +5,9 @@ Port of ``redis_hnsw_tpu/models/flat.py``. Not present in the reference
 kind of its own -- at up to millions of rows a full scan on the card is
 exact and holds no graph. It serves through the same scan engine as the
 HNSW index (ops/scan.py serve_block): the exact tier, or for euclidean
-the certified-exact tier at >= 2^19 rows, and the scan-approx tier when
-asked; under REDIS_HNSW_TPU_SCAN_DTYPE the bf16 tier (a bf16 copy beside
+the certified-exact tier at >= 2^19 rows (for hamming the certified
+hamming tier, with REDIS_HNSW_TPU_SCAN_CERT=1), and the scan-approx tier
+when asked; under REDIS_HNSW_TPU_SCAN_DTYPE the bf16 tier (a bf16 copy beside
 the f32 table) or the int8-resident capacity tier (only an int8 copy on
 the card, candidates rescored on the host). Shares the name table and
 similarity conventions of the HNSW index.
@@ -265,7 +266,9 @@ class FlatIndex:
         (kernel A, or A′ for hamming) over the whole query block at once,
         the port of the JAX package's fused Pallas scan path;
         the default serves through the scan engine in 2048-query chunks,
-        on the certified tier at >= 2^19 euclidean rows. ``approx``, and
+        on the certified tier at >= 2^19 euclidean rows, and on the
+        certified hamming tier where REDIS_HNSW_TPU_SCAN_CERT=1 and
+        ``hamming_cert_ready`` admit a hamming table. ``approx``, and
         a ``recall_target`` at or below the approx tier's floor, ask for
         the scan-approx tier (ops/scan.py serve_block).
         REDIS_HNSW_TPU_SCAN_DTYPE=bf16 selects on a bf16 copy of the
@@ -355,9 +358,11 @@ class FlatIndex:
             # the pipelined drain (ops/scan.py drain_pipelined); the fetch
             # window defaults to FETCH_WINDOW_FAST where the certified or
             # approx tier serves, as in the JAX package
-            will_cert = (
-                tscale is None and table is None and metric == "euclidean"
-                and SC.cert_enabled(int(vecs.shape[0]), int(vecs.shape[1]))
+            n_rows, width = int(vecs.shape[0]), int(vecs.shape[1])
+            will_cert = tscale is None and table is None and (
+                (metric == "euclidean" and SC.cert_enabled(n_rows, width))
+                or (metric == "hamming"
+                    and SC.hamming_cert_ready(n_rows, width))
             )
             id_parts, sim_parts = SC.drain_pipelined(
                 ((lo,) for lo in range(0, n_q, chunk)), dispatch, sink=sink,

@@ -121,8 +121,9 @@ class HNSWIndex:
         self._snapshot = None  # lazily-built device snapshot (ops/snapshot)
         self._snapshot_epoch = -1
         # Snapshot refreshes by kind: "full" rebuilds and in-place
-        # "delta"s (ops/snapshot.py build_snapshot counts them).
-        self.snapshot_refreshes = {"full": 0, "delta": 0}
+        # "delta"s, of which "delta_device" copied a bulk-build wave's
+        # vectors on the card (ops/snapshot.py build_snapshot counts them).
+        self.snapshot_refreshes = {"full": 0, "delta": 0, "delta_device": 0}
         # Users presize via IndexConfig.capacity: device tables pad to it
         # up front so engine shapes stay stable for the expected size
         # (bulk builds and the streaming harness also raise this hint).
@@ -136,6 +137,9 @@ class HNSWIndex:
         # updates never reshuffle the adj_up table.
         self._dirty_adj: set[int] = set()
         self._dirty_vec: set[int] = set()
+        # (rows, device block) of the last bulk-build wave's vectors,
+        # which the next snapshot delta copies on the card
+        self._pending_wave_vecs = None
         self._upper_slot: dict[int, int] = {}
         self._upper_free: list[int] = []
         self._freed_slots_pending: list[int] = []
@@ -401,6 +405,11 @@ class HNSWIndex:
             self._names.free(name)  # leave the name table consistent
             raise
         self._vectors[row] = q
+        # a row written outside a wave (add_node, perhaps reusing a freed
+        # wave row) makes the last wave's device block stale: its delta
+        # goes to the host path (complete_wave sets the block again after
+        # its own allocations)
+        self._pending_wave_vecs = None
         self._levels[row] = level
         if self._native is not None:
             self._native.alloc_node(row, level)

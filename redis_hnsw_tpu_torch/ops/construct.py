@@ -29,10 +29,12 @@ Where the port departs from the JAX code: the JAX package runs a
 ``lax.scan`` over the whole padded layer stack so that one compile serves
 a build; here a Python loop runs only the layers that exist
 (``max_layer``) and fills the rest of the packed buffer as the scan's
-masked steps leave it, so the buffer is the same. The JAX package's
-device-to-device scatter of the wave's vectors into the next snapshot
-(``_pending_wave_vecs``) is not ported: the snapshot delta uploads the
-wave's rows from the host, about 1 MB a 2048 x 128 wave.
+masked steps leave it, so the buffer is the same.
+
+A wave's vectors are already on the card, as its queries: ``complete_wave``
+keeps them (``index._pending_wave_vecs``) and the next snapshot delta
+copies them into the table on the card instead of uploading the rows
+again (ops/snapshot.py ``_delta_snapshot``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -396,7 +398,7 @@ class InFlightWave:
     work is queued; ``complete_wave`` fetches and applies it."""
 
     __slots__ = (
-        "names", "qs", "levels", "flat", "cross",
+        "names", "qs", "qs_dev", "levels", "flat", "cross",
         "w_pad", "fetch_c", "fetch_l", "n_up_used", "l_max",
         "up_sel", "w_up",
     )
@@ -489,7 +491,7 @@ def dispatch_wave(index, names, data, ef: int) -> InFlightWave:
         with _phase("host_cross"):
             cross = _host_cross(qs)
     w = InFlightWave()
-    w.names, w.qs, w.levels = names, qs, levels
+    w.names, w.qs, w.qs_dev, w.levels = names, qs, qs_dev, levels
     w.flat, w.cross, w.w_pad = flat, cross, w_pad
     w.fetch_c, w.fetch_l, w.n_up_used, w.l_max = (
         fetch_c, fetch_l, n_up_used, l_max
@@ -547,6 +549,9 @@ def complete_wave(index, wave: InFlightWave) -> None:
                 rows[i] = index._alloc_row(
                     names[i], qs[i], level=int(levels[i])
                 )
+            # the wave's vectors are already on the card (its queries):
+            # the next snapshot delta copies them from there
+            index._pending_wave_vecs = (rows.copy(), wave.qs_dev[:W])
             index._native.apply_wave(
                 rows, levels, up_ids, up_sims, l0_ids, l0_sims, cross, l_max,
             )
@@ -591,4 +596,5 @@ def complete_wave(index, wave: InFlightWave) -> None:
                     _shrink_over_cap(index, e_row, lc, m_cap)
 
             index._finish_insert(row, lv)
+        index._pending_wave_vecs = (rows.copy(), wave.qs_dev[:W])
         index._bump(W)

@@ -1,8 +1,7 @@
 """Exact scan engine: brute-force k-NN over the index snapshot.
 
-Port of ``redis_hnsw_tpu/ops/scan.py``, its certified hamming tier and
-its TPU-link machinery aside (parallel/sharded.py serves each shard with
-the functions here). Below ``ops/search.py``
+Port of ``redis_hnsw_tpu/ops/scan.py``, its TPU-link machinery aside
+(parallel/sharded.py serves each shard with the functions here). Below ``ops/search.py``
 SCAN_MAX_ROWS the scan serves ``search_batch``: it is
 exact (recall 1.0), and a whole query batch against the whole table is
 one dense pass that a GPU runs well.
@@ -44,14 +43,25 @@ Two tiers, chosen per table by :func:`cert_enabled`:
   whenever the largest second-best of any bin, m2, is below its k-th
   score.
 
-**Hamming** tables are packed bit rows, int32 words, served on the exact
-tier alone at every size: kernel A′ (:func:`scan_topk_exact_hamming`)
-selects by integer scores, exact in f32, so its top k needs no rescore
-and no certificate; like kernel A, it serves every k. (The JAX
-package's certified hamming tier buys its approximate select back to
-exactness; on the H100 a second pass only halves the throughput,
-PERF.md.) Replies carry ``-distance`` with a zero
-distance as -0.0, as the JAX package's word-packed reply decodes it.
+**Hamming** tables are packed bit rows, int32 words. Their exact tier is
+kernel A′ (:func:`scan_topk_exact_hamming`): it selects by integer
+scores, exact in f32, so its top k needs no rescore; like kernel A, it
+serves every k. Their **certified tier** is the JAX package's
+(:func:`scan_certified_hamming`): kernel A′ selects ``k_sel = oversample
+* k``, kernel B′ (ops/cuda_count_hamming.py) counts the rows above and
+at the k-th score t, and the deep certificate is checked against the
+WHOLE selection, so a tie class straddling k certifies when it fits in
+it; :func:`certified_finish_hamming` serves the uncertified queries
+again on the exact tier. :func:`hamming_cert_ready` says where it runs:
+REDIS_HNSW_TPU_SCAN_CERT=1 serves it wherever the JAX package's two
+gates admit the table (the 31-bit word pack and ``cert_enabled`` at
+16 * words dims), 0 never. Under ``auto`` (the default) a hamming table
+stays on the exact tier, where the JAX package's gates would certify
+from 2^19 rows: on the H100 the certified tier served
+flat-hamming-sift256 slower than the exact tier (both measured in one
+chip_smoke.py call, phase 3b; the numbers are in ROADMAP.md section 3).
+Replies carry ``-distance`` with a zero distance as -0.0, as the JAX
+package's word-packed reply decodes it.
 
 The **bf16 and int8 tiers** (:func:`scan_dtype`, opt-in) select on a
 low-precision copy of the table -- kernel A-bf16 or A-int8
@@ -82,6 +92,7 @@ each reply tensor is its own slice of the window's copy.
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
 from collections import deque
@@ -91,7 +102,9 @@ import torch
 
 from . import distance as D
 from .cuda_count import count_gt_eq
+from .cuda_count_hamming import count_hamming
 from .cuda_scan import (
+    CHUNK_N,
     euclid_sq_masked,
     flat_topk,
     flat_topk_bf16,
@@ -293,6 +306,36 @@ def cert_enabled(n_rows: int, dim: int = 0) -> bool:
     raise ValueError(f"REDIS_HNSW_TPU_SCAN_CERT={v!r}")
 
 
+def hamming_cert_enabled(n_rows: int, words: int) -> bool:
+    """Should the certified hamming tier serve an ``n_rows`` table of
+    ``words`` packed 32-bit words? REDIS_HNSW_TPU_SCAN_CERT=1 and 0 as
+    :func:`cert_enabled` at the JAX package's dim gate, ``16 * words``
+    (the count pass's int8 product). ``auto`` never: on the H100 the
+    certified tier loses to the exact tier where the JAX package's gates
+    would engage it (module docstring), so a hamming table stays on the
+    exact tier by default. The sharded index uses this gate alone (its
+    reply is not word-packed, as in the JAX package)."""
+    if os.environ.get("REDIS_HNSW_TPU_SCAN_CERT", "auto") == "auto":
+        return False
+    return cert_enabled(int(n_rows), 16 * int(words))
+
+
+def hamming_cert_ready(n_rows: int, words: int) -> bool:
+    """True iff the certified hamming tier will serve an ``n_rows`` table
+    of ``words`` packed 32-bit words on one index (the scan route and the
+    flat index): the JAX package's two gates -- its word-packed reply
+    ``(dist << id_bits) | id`` must fit 31 bits, and
+    :func:`hamming_cert_enabled`. The port packs no words, but keeps the
+    pack gate so that the same tables take the same tier. The fetch
+    window's default follows it (FETCH_WINDOW_FAST only where the tier
+    really runs)."""
+    d_bits = 32 * int(words)
+    id_bits = max((int(n_rows) - 1).bit_length(), 1)
+    if d_bits.bit_length() + id_bits > 31:
+        return False
+    return hamming_cert_enabled(n_rows, words)
+
+
 def _cert_verify(vecs, sqn, live, queries, ids, sims):
     """Certificate + exact rescore over a selection. Returns ``(ids,
     sims, ok)``: the rescored ``(-sim, id)``-ordered reply and the [B]
@@ -381,25 +424,28 @@ CERT_AUDIT_EVERY = int(
 )
 
 
-def _exact_rows(vecs, sqn, live, qd, rows, *, k: int):
-    """Exact-tier reply of the query rows ``rows`` of ``qd``, served in
-    one pow2-padded batch (numpy ids, sims)."""
+def _exact_rows(exact, qd, rows, *, k: int):
+    """Exact-tier reply of the query rows ``rows`` of ``qd``, served by
+    ``exact`` (see :func:`certified_finish`) in one pow2-padded batch
+    (numpy ids, sims)."""
     nb = len(rows)
     sel = np.zeros(pad_pow2(nb), np.int64)
     sel[:nb] = rows
-    q_bad = qd[torch.from_numpy(sel).to(qd.device)]
-    ids, sims = scan_topk_exact_l2(vecs, sqn, live, q_bad, k=k)
+    ids, sims = exact(qd[torch.from_numpy(sel).to(qd.device)], k=k)
     return ids[:nb].cpu().numpy(), sims[:nb].cpu().numpy()
 
 
-def certified_finish(vecs, sqn, live, qd, fetch, *, k: int, n_q: int,
+def certified_finish(exact, qd, fetch, *, k: int, n_q: int,
                      rerun_sink=None):
-    """Finish half of the certified tier: fetch the reply and the
-    verdicts of a :func:`scan_certified_l2` result, then re-serve the
-    uncertified queries through the exact tier.
+    """Finish half of a certified tier: fetch the reply and the verdicts
+    of a :func:`scan_certified_l2` (or :func:`scan_certified_hamming`)
+    result, then re-serve the uncertified queries through the exact tier.
 
-    ``fetch`` is a zero-arg getter of the result's first ``n_q`` rows,
-    ``(ids, sims, ok)`` as writable numpy arrays, ok as uint8
+    ``exact(q, k=k) -> (ids, sims)`` is the table's exact tier on a
+    device query block (:func:`serve_block` binds
+    :func:`scan_topk_exact_l2` or :func:`scan_topk_exact_hamming` to the
+    table). ``fetch`` is a zero-arg getter of the result's first ``n_q``
+    rows, ``(ids, sims, ok)`` as writable numpy arrays, ok as uint8
     (:func:`serve_block` registers them with :func:`fetch_handle`, so a
     drain's window copies them with its other replies).
 
@@ -416,14 +462,13 @@ def certified_finish(vecs, sqn, live, qd, fetch, *, k: int, n_q: int,
         CERT_AUDIT_EVERY > 0
         and CERT_STATS["batches"] % CERT_AUDIT_EVERY == 0
     )
-    deferred_bad = None
     if not okh.all() or audit:
         bad = np.flatnonzero(~okh)
         CERT_STATS["fallback_queries"] += len(bad)
         if audit or len(bad) * 4 > n_q:
             # audit pass, or pathological (tie-heavy / adversarial) data
             # where the whole batch beats many small reruns
-            f_ids, f_sims = scan_topk_exact_l2(vecs, sqn, live, qd, k=k)
+            f_ids, f_sims = exact(qd, k=k)
             f_ids = f_ids[:n_q].cpu().numpy()
             f_sims = f_sims[:n_q].cpu().numpy()
             if audit:
@@ -439,11 +484,9 @@ def certified_finish(vecs, sqn, live, qd, fetch, *, k: int, n_q: int,
                     )
             ids, sims = f_ids, f_sims
         elif rerun_sink is not None and len(bad):
-            deferred_bad = bad
+            rerun_sink.add(exact, qd, bad, ids, sims, k)
         elif len(bad):
-            ids[bad], sims[bad] = _exact_rows(vecs, sqn, live, qd, bad, k=k)
-    if deferred_bad is not None:
-        rerun_sink.add((vecs, sqn, live), qd, deferred_bad, ids, sims, k)
+            ids[bad], sims[bad] = _exact_rows(exact, qd, bad, k=k)
     return ids, sims
 
 
@@ -457,12 +500,15 @@ class CertRerunSink:
     loop, before assembly)."""
 
     def __init__(self) -> None:
-        self._tables = None
+        self._exact = None
         self._items: list = []
 
-    def add(self, tables, qd, bad, ids, sims, k: int) -> None:
-        if self._tables is None:
-            self._tables = tables
+    def add(self, exact, qd, bad, ids, sims, k: int) -> None:
+        """Register ``bad`` rows of ``qd``; ``exact`` is the table's exact
+        tier (:func:`certified_finish`). One sink serves one table, so the
+        first registration's ``exact`` serves the flush."""
+        if self._exact is None:
+            self._exact = exact
         self._items.append((qd, np.asarray(bad), ids, sims, int(k)))
 
     def flush(self) -> None:
@@ -473,9 +519,8 @@ class CertRerunSink:
             qd[torch.from_numpy(bad).to(qd.device)]
             for qd, bad, _ids, _sims, _k in self._items
         ])
-        vecs, sqn, live = self._tables
         all_ids, all_sims = _exact_rows(
-            vecs, sqn, live, q_bad, np.arange(len(q_bad)), k=k
+            self._exact, q_bad, np.arange(len(q_bad)), k=k
         )
         lo = 0
         for _qd, bad, ids, sims, kk in self._items:
@@ -484,7 +529,66 @@ class CertRerunSink:
             sims[bad] = all_sims[lo : lo + nb, :kk]
             lo += nb
         self._items.clear()
-        self._tables = None
+        self._exact = None
+
+
+# -- certified-exact hamming (deep certificate) --------------------------------
+#
+# The euclidean certificate's counting proof, with the JAX package's two
+# hamming twists: the tie counts are checked against the ENTIRE oversampled
+# selection (integer distances tie so heavily that the k-th tie class
+# almost always straddles k; the deep check certifies whenever the class
+# fits in the selection), and the scores are small integers, exact in
+# f32, so the select (kernel A′) and the count (kernel B′) agree by
+# arithmetic. Kernel A′'s selection is exact where the JAX package's is
+# ``approx_max_k``: here the certificate refuses only tie classes larger
+# than the selection, and the port's verdicts equal the JAX package's on
+# the CPU, where its select is exact too.
+
+
+def scan_certified_hamming(words, live, queries, *, k: int):
+    """Kernel A′'s selection at the JAX package's ``k_sel =
+    min(scan_oversample() * k, n_chunk)`` (n_chunk = min(CHUNK_N, N)),
+    kept whole and (-sim, id)-sorted, then the deep certificate: with t
+    the k-th selected score, kernel B′ counts c_gt and c_eq over the whole
+    table, s_gt and s_eq count the selection, and
+
+        ok = (c_gt == s_gt) & ((t == -inf) | (c_eq == s_eq))
+
+    (at t = -inf, c_gt == s_gt asserts every live row was selected; the
+    tie count is escaped there, where c_eq counts dead rows). Returns
+    ``(ids, sims, ok)`` device tensors: the selection's first k with the
+    reply's sims (:func:`hamming_reply_sims`) and the [B] verdicts --
+    True means the first k are the exact tier's reply, tie membership
+    included. ``scan_topk`` is looked up at call time so tests can
+    truncate the selection."""
+    N = int(words.shape[0])
+    k_sel = min(scan_oversample() * k, min(CHUNK_N, N))
+    sel_ids, sel_sims = scan_topk(words, None, live, queries, k=k_sel,
+                                  metric="hamming")
+    t = sel_sims[:, k - 1].contiguous()
+    s_gt = (sel_sims > t[:, None]).sum(dim=1, dtype=torch.int32)
+    s_eq = (sel_sims == t[:, None]).sum(dim=1, dtype=torch.int32)
+    c_gt, c_eq = count_hamming(queries, words, hamming_bias(live), t)
+    ok = (c_gt == s_gt) & ((t == NEG_INF) | (c_eq == s_eq))
+    return sel_ids[:, :k], hamming_reply_sims(sel_sims[:, :k]), ok
+
+
+def certified_finish_hamming(words, live, qd, fetch, *, k: int, n_q: int,
+                             rerun_sink=None):
+    """Finish half of the certified hamming tier, with every rule of the
+    JAX package's: :func:`certified_finish` with the table's exact
+    hamming tier (kernel A′) as its ``exact``. It counts the batch in
+    CERT_STATS and serves the uncertified queries again on the exact
+    tier: the whole batch when more than a quarter are uncertified or on
+    every CERT_AUDIT_EVERY-th batch (which is also byte-compared: the
+    integer scores leave no rounding to audit, so it audits the
+    plumbing), else deferred to ``rerun_sink``, else at once in one
+    pow2-padded batch."""
+    return certified_finish(
+        functools.partial(scan_topk_exact_hamming, words, live), qd, fetch,
+        k=k, n_q=n_q, rerun_sink=rerun_sink,
+    )
 
 
 # -- ids-only replies (host exact rescore) ------------------------------------
@@ -697,8 +801,10 @@ def serve_block(vecs, sqn, live, qd, *, k: int, n_q: int, metric: str,
                 rerun_sink=None, approx: bool = False, ids_only=False,
                 table=None, tscale=None):
     """Dispatch half: queue the kernels that serve the (padded) query
-    block ``qd`` on the tier its table takes -- a hamming table the exact
-    tier (kernel A′); a euclidean table the certified tier where
+    block ``qd`` on the tier its table takes -- a hamming table the
+    certified hamming tier (kernels A′ and B′) where
+    :func:`hamming_cert_ready` admits it and ``approx`` is not asked, else
+    its exact tier (kernel A′); a euclidean table the certified tier where
     ``cert_enabled`` admits it and neither ``approx`` nor a tier
     ``table`` is given, else the exact tier, selecting on ``table`` (with
     ``tscale`` for int8) where one is given, kernel A-bf16 or A-int8, and
@@ -720,6 +826,19 @@ def serve_block(vecs, sqn, live, qd, *, k: int, n_q: int, metric: str,
     ids-reply mode). On the certified tier the fallback runs at once and
     patches the sims too, so that tier still copies them."""
     if metric == "hamming":
+        if not approx and hamming_cert_ready(int(vecs.shape[0]),
+                                             int(vecs.shape[1])):
+            ids, sims, ok = scan_certified_hamming(vecs, live, qd, k=k)
+            gets = [fetch_handle(t[:n_q])
+                    for t in (ids, sims, ok.to(torch.uint8))]
+
+            def finish_hamming_cert():
+                return certified_finish_hamming(
+                    vecs, live, qd, lambda: [g() for g in gets], k=k,
+                    n_q=n_q, rerun_sink=rerun_sink,
+                )
+
+            return finish_hamming_cert
         ids, sims = scan_topk_exact_hamming(vecs, live, qd, k=k)
     elif (table is None and not approx
           and cert_enabled(int(vecs.shape[0]), int(vecs.shape[1]))):
@@ -730,8 +849,8 @@ def serve_block(vecs, sqn, live, qd, *, k: int, n_q: int, metric: str,
 
         def finish_cert():
             ids, sims = certified_finish(
-                vecs, sqn, live, qd, lambda: [g() for g in gets], k=k,
-                n_q=n_q, rerun_sink=sink,
+                functools.partial(scan_topk_exact_l2, vecs, sqn, live), qd,
+                lambda: [g() for g in gets], k=k, n_q=n_q, rerun_sink=sink,
             )
             return (ids, None) if ids_only else (ids, sims)
 

@@ -595,6 +595,7 @@ def search_batch(
         CertRerunSink,
         cert_enabled,
         drain_pipelined,
+        hamming_cert_ready,
         pad_queries,
         scan_dispatch,
         scan_dtype,
@@ -627,12 +628,16 @@ def search_batch(
         # fallback reruns coalesce into one exact batch (CertRerunSink).
         # The fetch window defaults to FETCH_WINDOW_FAST on the tiers the
         # JAX package measured it on (certified, approx) and to 1 on the
-        # rest; a hamming table serves on the exact tier here.
+        # rest; a hamming table takes it exactly where its certified tier
+        # really runs (hamming_cert_ready).
         sink = CertRerunSink()
         default_window = 1
         if approx or (
             cfg.metric == "euclidean" and scan_dtype() == "f32"
             and cert_enabled(snap.n_pad, int(snap.vecs.shape[1]))
+        ) or (
+            cfg.metric == "hamming"
+            and hamming_cert_ready(snap.n_pad, int(snap.vecs.shape[1]))
         ):
             default_window = FETCH_WINDOW_FAST
         # one host->device copy for the whole block; the chunks below

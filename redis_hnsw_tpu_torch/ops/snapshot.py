@@ -40,7 +40,11 @@ package's own tier rule (:func:`_use_quant`, :func:`_nbrvec_dtype`):
 Refresh strategy: a full rebuild uploads everything. When the padded
 shapes are unchanged, ``build_snapshot(prev=...)`` applies a **dirty-row
 delta** instead: only rows whose adjacency or vector changed since the
-last snapshot are copied into the previous tensors, in place.
+last snapshot are copied into the previous tensors, in place. When the
+new vectors are exactly a bulk-build wave's rows, they are copied from
+the wave's query block, already on the card (ops/construct.py
+``complete_wave``), instead of uploaded (``snapshot_refreshes``
+counts these deltas as ``delta_device``).
 """
 
 from __future__ import annotations
@@ -330,6 +334,7 @@ def build_snapshot(index, prev: Snapshot | None = None) -> Snapshot:
     index.drain_dirty()
     index._dirty_vec.clear()
     index._freed_slots_pending = []
+    index._pending_wave_vecs = None
 
     vecs = np.zeros((n_pad, index._vectors.shape[1]), index._vectors.dtype)
     vecs[:n_rows] = index._vectors[:n_rows]
@@ -383,6 +388,7 @@ def _apply_delta(prev: Snapshot, vrows, vec_data, sq_data, arows,
     """Apply a whole dirty-row delta to ``prev``'s tensors, IN PLACE
     (row copies; no table is reallocated -- the JAX package gets the
     same effect by donating the buffers to its update program).
+    ``vec_data`` is a host array, or the device block of a wave's rows.
 
     Ordering invariant: the freed-slot wipe runs BEFORE the upper-row
     copy (a freed slot reallocated to a dirty row must keep the fresh
@@ -398,9 +404,10 @@ def _apply_delta(prev: Snapshot, vrows, vec_data, sq_data, arows,
     dev = prev.vecs.device
     if len(vrows):
         idx = torch.from_numpy(vrows).to(dev)
-        vec_d = to_device(vec_data, dev)
+        vec_d = (vec_data if isinstance(vec_data, torch.Tensor)
+                 else to_device(vec_data, dev))
         sq_d = to_device(sq_data, dev)
-        prev.vecs[idx] = vec_d
+        prev.vecs.index_copy_(0, idx, vec_d)
         prev.sqnorms[idx] = sq_d
         if prev.qrows is not None:
             prev.qrows[idx] = _quantize_rows(vec_d, sq_d)
@@ -437,10 +444,21 @@ def _delta_snapshot(index, prev: Snapshot) -> Snapshot:
     u_pad = prev.adj_up.shape[1]
 
     # -- vector updates ------------------------------------------------
-    vrows = np.fromiter(sorted(vec_new), np.int64, len(vec_new))
-    vec_data = index._vectors[vrows]
+    pending = getattr(index, "_pending_wave_vecs", None)
+    index._pending_wave_vecs = None
+    if pending is not None and vec_new == {int(r) for r in pending[0]}:
+        # the new vectors are exactly a wave's rows, already on the card
+        # as its queries (ops/construct.py complete_wave), and no row was
+        # allocated since (models/hnsw.py _alloc_row drops the block):
+        # copy them from there, in wave order
+        vrows = pending[0].astype(np.int64)
+        vec_data = pending[1]
+        index.snapshot_refreshes["delta_device"] += 1
+    else:
+        vrows = np.fromiter(sorted(vec_new), np.int64, len(vec_new))
+        vec_data = index._vectors[vrows]
     # sqnorms host-side so they are bit-identical to a full rebuild's
-    sq_data = _sqnorms_np(index, vec_data)
+    sq_data = _sqnorms_np(index, index._vectors[vrows])
 
     # -- layer-0 adjacency + slot map over dirty rows --------------------
     arows = dirty.astype(np.int32)

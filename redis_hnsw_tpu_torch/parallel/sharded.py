@@ -36,9 +36,11 @@ Nothing is stacked or padded into one array: each shard serves from its
 own ``device_snapshot()`` and its own scan tables (ops/scan.py
 ``_scan_state``, cached per shard by (snapshot epoch, tier)).
 
-Hamming tables are scanned as packed words by kernel A′, as on one card;
-the JAX package's certified hamming twin is not ported (its replies are
-the exact tier's). Query blocks larger than one chunk go through the
+Hamming tables are scanned as packed words by kernel A′, as on one card,
+and with REDIS_HNSW_TPU_SCAN_CERT=1 on the certified hamming tier (the
+JAX package's sharded twin: per shard kernel A′ at the oversampled width,
+kernel B′'s counts and the deep verdict, ANDed across shards, then the
+same merge). Query blocks larger than one chunk go through the
 single index's pipelined drain (ops/scan.py ``drain_pipelined``): each
 chunk's dispatch half queues every shard's kernels and the merge and
 registers the merged lists with ``fetch_handle``; its finish half reads
@@ -396,21 +398,28 @@ class ShardedHNSW:
         exact tier (kernel A, or A′ on a hamming table), the bf16 / int8
         tier's select (kernels A-bf16 / A-int8) with an exact rescore, or
         with ``cert`` the certified tier (``scan_certified_l2``: kernel D
-        in one pass, or kernels A and B), whose per-shard verdicts are
-        ANDed. scan-approx is the exact select, as on one index."""
+        in one pass, or kernels A and B; on a hamming table
+        ``scan_certified_hamming``: kernels A′ and B′), whose per-shard
+        verdicts are ANDed. scan-approx is the exact select, as on one
+        index."""
         from ..ops import scan as SC
 
         oks = []
+        hamming = self.config.metric == "hamming"
 
         def serve(s, qd):
             table, vecs, sqn, live, tscale = states[s]
-            if self.config.metric == "hamming":
-                return SC.scan_topk_exact_hamming(vecs, live, qd, k=k)
             if cert:
-                ids, sims, ok = SC.scan_certified_l2(vecs, sqn, live, qd,
-                                                     k=k)
+                if hamming:
+                    ids, sims, ok = SC.scan_certified_hamming(vecs, live, qd,
+                                                              k=k)
+                else:
+                    ids, sims, ok = SC.scan_certified_l2(vecs, sqn, live, qd,
+                                                         k=k)
                 oks.append(ok.to(self.devices[0]))
                 return ids, sims
+            if hamming:
+                return SC.scan_topk_exact_hamming(vecs, live, qd, k=k)
             return SC.scan_topk_exact_l2(
                 vecs, sqn, live, qd, k=k,
                 table=None if table is vecs else table, tscale=tscale,
@@ -463,7 +472,9 @@ class ShardedHNSW:
         on the largest shard's padded rows: "auto" serves every shard's
         exact scan up to SCAN_MAX_ROWS and every shard's graph beam above
         it; "scan-approx" is the approx tier. The f32 euclidean scan takes
-        the certified tier where ``cert_enabled`` admits it: a query is
+        the certified tier where ``cert_enabled`` admits it, a hamming scan
+        the certified hamming tier where ``hamming_cert_enabled`` does
+        (REDIS_HNSW_TPU_SCAN_CERT=1): a query is
         certified when every shard certifies it, and the rest are served
         again through the exact sharded scan (a chunk with more than a
         quarter uncertified, whole), so replies equal the exact tier's.
@@ -506,10 +517,15 @@ class ShardedHNSW:
         if use_scan:
             states = [SC._scan_state(s) for s in self.shards]
             k_eff = min(int(k), n_pad)
-            use_cert = (
-                engine != "scan-approx" and cfg.metric == "euclidean"
-                and all(st[0] is st[1] and st[4] is None for st in states)
-                and SC.cert_enabled(n_pad, int(states[0][1].shape[1]))
+            width = int(states[0][1].shape[1])
+            use_cert = engine != "scan-approx" and (
+                (cfg.metric == "euclidean"
+                 and all(st[0] is st[1] and st[4] is None for st in states)
+                 and SC.cert_enabled(n_pad, width))
+                # the JAX package's gate: cert_enabled at d_bits / 2 (no
+                # word pack here), with the H100's auto rule
+                or (cfg.metric == "hamming"
+                    and SC.hamming_cert_enabled(n_pad, width))
             )
             if use_cert:
                 sink = _ShardedCertRerunSink(self, states, k_eff, n_pad)

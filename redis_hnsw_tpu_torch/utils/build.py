@@ -124,7 +124,7 @@ def start_kernel_build(name: str):
 
 
 KERNELS = ("scan_topk", "scan_lowp", "scan_int8", "scan_bf16",
-           "count_gt_eq", "block_score", "select_bins")
+           "count_gt_eq", "count_hamming", "block_score", "select_bins")
 
 _loaded: dict = {}
 _load_lock = threading.Lock()

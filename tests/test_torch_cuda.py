@@ -21,6 +21,7 @@ import torch
 import redis_hnsw_tpu_torch as T
 from redis_hnsw_tpu_torch.ops import (
     cuda_count,
+    cuda_count_hamming,
     cuda_gather,
     cuda_scan,
     cuda_select,
@@ -670,6 +671,109 @@ def test_hamming_word_widths(card, W, offset):
     assert_hamming_bitwise(qt, x_off, bias, 40, 128)
 
 
+def hamming_thresholds(qt, xt, bias):
+    """Per query the 10th selected score (tie classes planted there count
+    as ==), and on some queries -inf (every dead row ==), a score above
+    every row's, one below every row's and one between two integers."""
+    _, sims = cuda_scan.flat_topk_hamming(qt, xt, bias, k=10)
+    t = sims[:, 9].clone()
+    t[1::7] = float("-inf")
+    t[2::7] = 0.5
+    t[3::7] = -32.0 * xt.shape[1] - 1
+    t[4::7] = -7.5
+    return t.contiguous()
+
+
+def assert_count_hamming_bitwise(qt, xt, bias, t=None):
+    t = hamming_thresholds(qt, xt, bias) if t is None else t
+    before = cuda_count_hamming.count_hamming.launches
+    got = cuda_count_hamming.count_hamming(qt, xt, bias, t)
+    want = cuda_count_hamming.plain_count_hamming(qt, xt, bias, t)
+    torch.cuda.synchronize()
+    assert cuda_count_hamming.count_hamming.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return got
+
+
+@pytest.mark.parametrize(
+    "B,N,W,dead",
+    [(3, 1000, 8, 0.15), (70, 3001, 1, 0.15), (5, 7, 3, 0.3),
+     (130, 2049, 25, 0.5), (64, 64, 8, 0.0), (9, 5000, 33, 0.15),
+     (1, 129, 8, 0.1), (127, 127, 8, 0.2), (129, 129, 32, 0.0),
+     (2049, 3000, 8, 0.1)],
+)
+def test_count_hamming_bitwise(card, B, N, W, dead):
+    """Kernel B′ against its plain version, bitwise, at ragged shapes (B
+    and N at the tile's edges, W within and past one 8-word stage), and
+    its > count against kernel A′'s selection at the 10th score."""
+    rng = np.random.default_rng(B * N + W + 5)
+    qt, xt, bias = word_operands(rng, B, N, W, dead, card)
+    _, sims = cuda_scan.flat_topk_hamming(qt, xt, bias, k=10)
+    t = sims[:, 9].contiguous()
+    c_gt, _ = assert_count_hamming_bitwise(qt, xt, bias, t)
+    assert torch.equal(c_gt, (sims > t[:, None]).sum(1, dtype=torch.int32))
+    assert_count_hamming_bitwise(qt, xt, bias)
+
+
+@pytest.mark.parametrize("B", [1, 129, 2049])
+@pytest.mark.parametrize("N", ["split-1", "split+0", "split+1"])
+def test_count_hamming_split_edges(card, B, N):
+    """At its splits' edges as its own planner cuts them, with tie classes
+    planted across the first boundary."""
+    N, edge = split_edge(cuda_count_hamming.plan, card, B,
+                         int(N[len("split"):]))
+    rng = np.random.default_rng(B + N)
+    qt, xt, bias = word_operands(rng, B, N, 8, 0.1, card)
+    plant_word_ties(qt, xt, bias, edge)
+    assert_count_hamming_bitwise(qt, xt, bias)
+
+
+@pytest.mark.parametrize("W", [3, 8, 32])
+def test_count_hamming_four_byte_form(card, W):
+    """A table 4 bytes off a 16-byte boundary takes the 4-byte copies."""
+    rng = np.random.default_rng(W + 77)
+    qt, xt, bias = word_operands(rng, 130, 3000, W, 0.1, card)
+    x_off = torch.empty(xt.numel() + 1, dtype=torch.int32,
+                        device=card)[1:].view_as(xt)
+    x_off.copy_(xt)
+    assert x_off.data_ptr() % 16
+    assert_count_hamming_bitwise(qt, x_off, bias)
+
+
+def test_certified_hamming_tier_on_card(card, monkeypatch):
+    """The certified hamming tier on the card (kernels A′ and B′) against
+    the exact tier on the card, byte for byte, on the flat index and the
+    HNSW scan route: tie classes of 8 that straddle k certify, a class of
+    48 at distance 0 falls back."""
+    from redis_hnsw_tpu_torch.ops import scan as SC
+
+    rng = np.random.default_rng(12)
+    data = np.repeat(rng.integers(0, 2**32, (200, 8), dtype=np.uint32), 8,
+                     axis=0)
+    data[:48] = data[0]
+    qs = rng.integers(0, 2**32, (64, 8), dtype=np.uint32)
+    qs[:3] = data[0]
+    names = [f"n{i}" for i in range(len(data))]
+    c = T.HNSW(device="cuda")
+    c.create_index("f", dim=256, kind="flat", metric="hamming")
+    c.add_batch("f", names, data)
+    c.create_index("h", dim=256, m=8, ef_construction=48, metric="hamming")
+    c.add_batch("h", names, data)
+    for idx, kw in ((c.index("f"), {}), (c.index("h"), dict(engine="scan"))):
+        monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", "0")
+        exact = idx.search_batch(qs, 10, reply="columnar", **kw)
+        monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", "1")
+        before = dict(SC.CERT_STATS)
+        b_launches = cuda_count_hamming.count_hamming.launches
+        cert = idx.search_batch(qs, 10, reply="columnar", **kw)
+        assert cuda_count_hamming.count_hamming.launches == b_launches + 1
+        assert SC.CERT_STATS["queries"] == before["queries"] + 64
+        assert SC.CERT_STATS["fallback_queries"] >= (
+            before["fallback_queries"] + 3)
+        assert np.array_equal(cert[0], exact[0])
+        assert np.array_equal(cert[1].view(np.int32), exact[1].view(np.int32))
+
+
 @pytest.mark.parametrize(
     "B,N,dim,dead",
     [(3, 1000, 128, 0.3), (70, 3001, 128, 0.0), (5, 7, 24, 0.3),
@@ -765,8 +869,8 @@ def test_select_bins_certified_top10_is_kernel_a(card):
 @pytest.mark.parametrize("tier", ["f32", "off"])
 def test_hamming_search_on_card_matches_cpu(card, monkeypatch, tier):
     """Hamming replies on the card equal the CPU's byte for byte: the
-    scan (with SCAN_CERT auto and 1: a hamming table takes the exact tier
-    either way), the graph engine (expand 1 and 16, seeds 0 and 4) and
+    scan (with SCAN_CERT auto, the exact tier, and 1, the certified
+    hamming tier), the graph engine (expand 1 and 16, seeds 0 and 4) and
     the flat kind with use_pallas, and at k = 300 (through kernel A′ on
     the card)."""
     monkeypatch.setenv("REDIS_HNSW_TPU_NBRVEC_DTYPE", tier)

@@ -4,8 +4,9 @@ Packed bit rows (random uint32 words, high bit included) go through
 ``redis_hnsw_tpu`` and ``redis_hnsw_tpu_torch``: the distance functions,
 kernel A′'s plain version (against the Pallas kernel in interpret mode),
 ``search_batch`` on the scan and graph engines and on the flat kind, and
-the port's exact tier against the JAX package's certified hamming tier
-(the port serves hamming on its exact tier alone). Hamming scores are
+both packages' certified hamming tiers under SCAN_CERT=1 (their replies,
+and their CERT_STATS counts; tests/test_torch_cert_hamming.py holds the
+rest of that tier). Hamming scores are
 integers, exact in f32 on any data, so every comparison is exact: ids and
 names equal, sims equal. Where both packages encode a zero distance the
 same way the sims are compared byte for byte; the JAX package's flat
@@ -227,7 +228,14 @@ def test_flat_matches_jax(rng, monkeypatch, cert):
     assert [r.name for r in objs[0]] == got[0][0, :4].tolist()
 
 
-# -- SCAN_CERT=1: the JAX package's certified hamming tier ------------------------
+# -- SCAN_CERT=1: both packages' certified hamming tiers --------------------------
+
+CERT_KEYS = ("batches", "queries", "fallback_queries")
+
+
+def cert_delta(stats, before):
+    return {key: stats[key] - before[key] for key in CERT_KEYS}
+
 
 def cert_pair(data):
     names = [f"n{i}" for i in range(len(data))]
@@ -240,16 +248,17 @@ def cert_pair(data):
 
 
 def test_certified_hamming_matches_exact_and_jax(rng, monkeypatch):
-    """SCAN_CERT=1: the JAX package serves its certified hamming tier,
-    the port its exact tier (no certified batch is counted); the replies
-    are equal byte for byte, on the flat kind and the HNSW scan route."""
+    """SCAN_CERT=1: both packages serve their certified hamming tiers,
+    replies equal to the exact tier's byte for byte, on the flat kind and
+    the HNSW scan route (recall_target=1.0 too), and each batch counted
+    in CERT_STATS as the JAX package counts it."""
     a, b = cert_pair(words(rng, 600, 8))
     hidx = hnsw_pair(words(rng, 300, 8))
     qs = words(rng, 32, 8)
     want = b.search_batch(qs, 10, reply="columnar")
     hwant = hidx[1].search_batch(qs, 10, engine="scan", reply="columnar")
     monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", "1")
-    before = dict(TS.CERT_STATS)
+    tb, jb = dict(TS.CERT_STATS), dict(JS.CERT_STATS)
     got = b.search_batch(qs, 10, reply="columnar")
     same(got, want)
     same(a.search_batch(qs, 10, reply="columnar"), got)
@@ -258,19 +267,27 @@ def test_certified_hamming_matches_exact_and_jax(rng, monkeypatch):
     same(hidx[0].search_batch(qs, 10, engine="scan", reply="columnar"), hgot)
     rt = hidx[1].search_batch(qs, 10, recall_target=1.0, reply="columnar")
     same(rt, hwant)
-    assert TS.CERT_STATS == before
+    same(hidx[0].search_batch(qs, 10, recall_target=1.0, reply="columnar"),
+         rt)
+    delta = cert_delta(TS.CERT_STATS, tb)
+    assert delta == cert_delta(JS.CERT_STATS, jb)
+    assert delta["batches"] == 3 and delta["queries"] == 96
 
 
 def test_certified_hamming_straddling_ties_certify(rng, monkeypatch):
     """Every row duplicated 8x, k = 10: the tie class at the 10th
-    distance straddles the k boundary but fits in the JAX package's 4k
-    selection, so its certified tier certifies every query; the port's
-    exact tier gives the same reply, lowest ids of the class first."""
+    distance straddles the k boundary but fits in the 4k selection, so
+    both packages' certified tiers certify every query; the replies are
+    equal, lowest ids of the class first."""
     a, b = cert_pair(np.repeat(words(rng, 60, 8), 8, axis=0))
     qs = words(rng, 16, 8)
     monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", "1")
+    tb, jb = dict(TS.CERT_STATS), dict(JS.CERT_STATS)
     got = b.search_batch(qs, 10, reply="columnar")
     same(a.search_batch(qs, 10, reply="columnar"), got)
+    delta = cert_delta(TS.CERT_STATS, tb)
+    assert delta == cert_delta(JS.CERT_STATS, jb)
+    assert delta["queries"] == 16 and delta["fallback_queries"] == 0
     rows = np.vectorize(lambda nm: int(nm[1:]))(got[0])
     d = -got[1]
     for r, dist in zip(rows, d):
@@ -279,24 +296,29 @@ def test_certified_hamming_straddling_ties_certify(rng, monkeypatch):
 
 
 def test_certified_hamming_oversized_tie_falls_back(rng, monkeypatch):
-    """A tie class of 48 copies at distance 0, larger than the JAX
-    package's 40-deep selection: its certified tier falls back for every
-    query; both packages serve the lowest ids of the class."""
+    """A tie class of 48 copies at distance 0, larger than the 40-deep
+    selection: both packages' certified tiers fall back for every query
+    and serve the lowest ids of the class."""
     base = words(rng, 12, 8)
     a, b = cert_pair(np.repeat(base, 48, axis=0))
     qs = base[:8].copy()
     want = b.search_batch(qs, 10, reply="columnar")
     monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", "1")
+    tb, jb = dict(TS.CERT_STATS), dict(JS.CERT_STATS)
     got = b.search_batch(qs, 10, reply="columnar")
     same(got, want)
     same(a.search_batch(qs, 10, reply="columnar"), got)
+    delta = cert_delta(TS.CERT_STATS, tb)
+    assert delta == cert_delta(JS.CERT_STATS, jb)
+    assert delta["fallback_queries"] == 8
     assert got[0][1].tolist() == [f"n{48 + i}" for i in range(10)]
 
 
 def test_certified_hamming_deletes_and_edges(rng, monkeypatch):
     """Deletes stay masked; k above the live rows; oversized tie classes
-    across 8-query chunks: equal to the JAX package's certified tier, and
-    the port defers nothing to the certified tier's rerun sink."""
+    across 8-query chunks: equal to the JAX package's certified tier, the
+    one uncertified query of each chunk deferred to the rerun sink with
+    the exact hamming tier as its rerun, as in the JAX package."""
     monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", "1")
     data = words(rng, 300, 8)
     a, b = cert_pair(data)
@@ -321,14 +343,23 @@ def test_certified_hamming_deletes_and_edges(rng, monkeypatch):
     want = c.search_batch(qs, 10, reply="columnar")
     monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", "1")
     monkeypatch.setattr(TSearch, "MAX_LANES", 8)
+    added = []
+    real_add = TS.CertRerunSink.add
 
-    def refuse(*args):
-        raise AssertionError("a hamming fallback reached the rerun sink")
+    def add(self, exact, qd, bad, *rest):
+        added.append((len(bad), exact.func is TS.scan_topk_exact_hamming))
+        return real_add(self, exact, qd, bad, *rest)
 
-    monkeypatch.setattr(TS.CertRerunSink, "add", refuse)
+    monkeypatch.setattr(TS.CertRerunSink, "add", add)
     got = c.search_batch(qs, 10, reply="columnar")
     same(got, want)
+    jb = dict(JS.CERT_STATS)
     same(ja.search_batch(qs, 10, reply="columnar"), got)
+    # every chunk holds an oversized tie class: each defers its
+    # uncertified rows (a quarter or fewer) for the exact hamming tier
+    assert len(added) == 3 and all(ham for _, ham in added)
+    assert sum(n for n, _ in added) == cert_delta(JS.CERT_STATS, jb)[
+        "fallback_queries"]
 
 
 # -- the two repairs --------------------------------------------------------------

@@ -385,9 +385,9 @@ def test_certified_reruns_coalesce(rng, monkeypatch, depth, window):
     reruns = []
     real_rows = TS._exact_rows
 
-    def counting(vecs, sqn, live, qd, rows, *, k):
+    def counting(exact, qd, rows, *, k):
         reruns.append(len(rows))
-        return real_rows(vecs, sqn, live, qd, rows, k=k)
+        return real_rows(exact, qd, rows, k=k)
 
     monkeypatch.setattr(TS, "_exact_rows", counting)
     before = dict(TS.CERT_STATS)

@@ -145,9 +145,9 @@ def test_certified_rerun_sink_across_chunks(rng, monkeypatch):
     deferred = []
     add = TS.CertRerunSink.add
 
-    def spy(self, tables, qd, bad, *rest):
+    def spy(self, exact, qd, bad, *rest):
         deferred.extend(bad)
-        return add(self, tables, qd, bad, *rest)
+        return add(self, exact, qd, bad, *rest)
 
     monkeypatch.setattr(TS.CertRerunSink, "add", spy)
     before = TS.CERT_STATS["fallback_queries"]
