@@ -209,7 +209,8 @@ import torch  # noqa: E402
 # Programming Guide's arithmetic instruction throughput table. A peak is
 # this times the card's SM count and its maximum SM clock, read from the
 # card (:func:`peak`).
-PER_CLOCK_SM = {"fp32": 256, "bf16": 4096, "int8": 8192, "popc": 16}
+PER_CLOCK_SM = {"fp32": 256, "bf16": 4096, "int8": 8192, "popc": 16,
+                "int32": 64}
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 SEED = 7
 
@@ -913,6 +914,22 @@ def count_hamming_thresholds(qt, xt, bias, k=10):
     return t.contiguous()
 
 
+def count_hamming_specials(rng, qt, xt):
+    """In every 16-query tile t = -inf, +inf, NaN, non-integers, 0 and the
+    scores above and below every row's; elsewhere t exactly at one of the
+    query's own rows' scores (that row and its ties count as ==)."""
+    from redis_hnsw_tpu_torch.ops import distance as Dm
+
+    B, W = qt.shape
+    cols = torch.from_numpy(rng.integers(0, xt.shape[0], B)).to(qt.device)
+    t = Dm.pairwise_hamming(qt, xt[cols]).diagonal().clone()
+    specials = [float("-inf"), float("inf"), float("nan"), -7.5, 0.5, 0.0,
+                -32.0 * W - 1, -32.0 * W]
+    for i, v in enumerate(specials):
+        t[i::16] = v
+    return t.contiguous()
+
+
 def count_hamming_bitwise(case, t, label):
     """Kernel B′'s counts equal its plain version's; returns them."""
     from redis_hnsw_tpu_torch.ops import cuda_count_hamming
@@ -936,18 +953,83 @@ def count_hamming_yardstick(q16, x16, t, d_bits):
     return (s > td).sum(1), (s == td).sum(1)
 
 
+def count_hamming_b1_edges(rng, dev):
+    """Kernel B′'s b1 design's own edges, bitwise against its plain
+    version: widths off its 256-bit product (7, 9, 17) and past 64 words
+    (65: 8-row stages), in both copy forms; N at the edges of a warp's
+    64-row stage and of a block's round of four; t = +inf, NaN, 0 and
+    exactly at a row's score in every 16-query tile; all-dead stages and
+    an all-dead table; and a lane's two queries (g and g + 8 of a tile)
+    with rows that pass the filter for one and not the other. Returns the
+    number of cases."""
+    from redis_hnsw_tpu_torch.ops import cuda_scan
+
+    cases = 0
+    for W in (7, 9, 17, 65):
+        for off in (0, 1):
+            qt, xt, bias = word_case(rng, 130, 3000, W, 0.1, dev)
+            x_off = torch.empty(xt.numel() + off, dtype=torch.int32,
+                                device=dev)[off:].view_as(xt)
+            x_off.copy_(xt)
+            case = (qt, x_off, bias)
+            plant_word_ties(case, 128)
+            count_hamming_bitwise(case, count_hamming_thresholds(*case),
+                                  f"B′ W={W} offset={off}")
+            count_hamming_bitwise(case, count_hamming_specials(rng, qt, x_off),
+                                  f"B′ W={W} offset={off} special t")
+            cases += 2
+    for B in (1, 129):
+        for N in (63, 64, 65, 255, 256, 257):
+            case = word_case(rng, B, N, 8, 0.1, dev)
+            if N > 70:
+                plant_word_ties(case, 64)
+            count_hamming_bitwise(case, count_hamming_thresholds(*case),
+                                  f"B′ stage edge B={B} N={N}")
+            cases += 1
+    for dead in (300, 3000):
+        qt, xt, bias = word_case(rng, 130, 3000, 8, 0.0, dev)
+        bias[:dead] = float("-inf")
+        case = (qt, xt, bias)
+        count_hamming_bitwise(case, count_hamming_thresholds(*case),
+                              f"B′ {dead} dead rows")
+        t = torch.full((130,), float("-inf"), device=dev)
+        c_gt, c_eq = count_hamming_bitwise(case, t, f"B′ {dead} dead, -inf")
+        check((c_gt == 3000 - dead).all().item()
+              and (c_eq == dead).all().item(),
+              f"B′ {dead} dead rows at t=-inf: counts {c_gt[0]}, {c_eq[0]}")
+        cases += 2
+    qt, xt, bias = word_case(rng, 16, 4096, 8, 0.0, dev)
+    xt[10:14] = qt[0]
+    xt[20:23] = qt[0]
+    xt[20:23, 0] ^= 1
+    xt[270:273] = qt[8]
+    xt[280:285] = qt[8]
+    xt[280:285, 0] ^= 2
+    _, sims = cuda_scan.flat_topk_hamming(qt, xt, bias, k=10)
+    t = sims[:, 9].clone()
+    t[0] = t[8] = -1.0
+    c_gt, c_eq = count_hamming_bitwise((qt, xt, bias), t.contiguous(),
+                                       "B′ one query of a lane")
+    check((c_gt[0].item(), c_gt[8].item(), c_eq[0].item(), c_eq[8].item())
+          == (6, 3, 3, 5), f"B′ one query of a lane: {c_gt[:9]}, {c_eq[:9]}")
+    return cases + 1
+
+
 def phase_count_hamming(dev):
     """Kernel B′: bitwise against its plain version at ragged shapes (N not
     a multiple of the tile, dead rows, B and N at the tile's edges, W = 1,
     3, 8, 25, 32 and 33 in both copy forms, its splits' edges with tie
     classes planted across the boundary) and at every kind of threshold
     (count_hamming_thresholds: the 10th score, -inf, above and below every
-    score, between integers), its > count equal to kernel A′'s selection;
-    then at flat-hamming-sift256's shape, B = 2048 over 1,000,064 rows of
-    8 words at the certified tier's t (k = 10 of A′'s k_sel = 40), timed
-    beside its bound (int8 tensor cores; the popcount bound logged), its
-    plain version, the library yardstick and kernel A′ at k_sel = 40 and
-    k = 10, all in this call."""
+    score, between integers), its > count equal to kernel A′'s selection,
+    and at its b1 design's own edges (count_hamming_b1_edges); then at
+    flat-hamming-sift256's shape, B = 2048 over 1,000,064 rows of 8 words
+    at the certified tier's t (k = 10 of A′'s k_sel = 40), timed beside
+    its bound (its b1 products at the int8 products' rate; the int8 and
+    popcount forms' bounds and the filter's one-op-a-score floor logged),
+    its plain version, the library yardstick and kernel A′ at k_sel = 40
+    and k = 10, all in this call; also timed, and held bitwise, at B = 16
+    over those rows and at 2048 x 16,384."""
     from redis_hnsw_tpu_torch.ops import cuda_count_hamming, cuda_scan
 
     rng = np.random.default_rng(SEED + 17)
@@ -991,11 +1073,15 @@ def phase_count_hamming(dev):
     check((c_gt == live).all().item() and (c_eq == 1000 - live).all().item(),
           f"B′ t=-inf: counts {c_gt[0]}, {c_eq[0]} of {live} live rows")
     cases += 1
+    cases += count_hamming_b1_edges(rng, dev)
     log(f"phase 1: kernel B′ bitwise equal to its plain version in {cases} "
-        f"cases (ragged B, N and W = 1/3/8/25/32/33, dead rows, the 4-byte "
-        f"form, split edges with tie classes planted, t = the 10th score, "
-        f"-inf, above, below and between every score), its > counts equal "
-        f"to kernel A′'s selection")
+        f"cases (ragged B, N and W = 1/3/7/8/9/17/25/32/33/65, dead rows, "
+        f"the 4-byte form, split edges with tie classes planted, t = the "
+        f"10th score, -inf, above, below and between every score; its "
+        f"64-row stages' edges, t = +inf, NaN, 0 and exactly at a row's "
+        f"score, all-dead stages and tables, a lane's two queries of which "
+        f"one passes the filter), its > counts equal to kernel A′'s "
+        f"selection")
     del case
     torch.cuda.empty_cache()
 
@@ -1015,8 +1101,18 @@ def phase_count_hamming(dev):
     with ClockSampler() as clock:
         b_ms = sync_ms(lambda: cuda_count_hamming.count_hamming(
             qt, xt, bias, t), 20)
+    qb16, t16 = qt[:16].contiguous(), t[:16].contiguous()
+    xs, bs = xt[:16_384], bias[:16_384]
+    ts = cuda_scan.flat_topk_hamming(qt, xs, bs, k=k_sel)[1][:, k - 1]
+    ts = ts.contiguous()
+    count_hamming_bitwise((qb16, xt, bias), t16, "B′ B=16 over 1M rows")
+    count_hamming_bitwise((qt, xs, bs), ts, "B′ hnsw-hamming-256b's rows")
     times = {
         "b_ms": b_ms,
+        "b_b16_ms": sync_ms(lambda: cuda_count_hamming.count_hamming(
+            qb16, xt, bias, t16), 20),
+        "b_hnsw_ms": sync_ms(lambda: cuda_count_hamming.count_hamming(
+            qt, xs, bs, ts), 20),
         "a_ms": sync_ms(lambda: cuda_scan.flat_topk_hamming(
             qt, xt, bias, k=k_sel), 20),
         "a10_ms": sync_ms(lambda: cuda_scan.flat_topk_hamming(
@@ -1026,19 +1122,27 @@ def phase_count_hamming(dev):
         "b_lib_ms": sync_ms(lambda: count_hamming_yardstick(
             q16, x16, t, 32 * W), 3),
     }
-    del q16, x16
-    ops = 2.0 * B * N * 32 * W
+    del q16, x16, qb16, t16, xs, bs, ts
     in_bytes = 4.0 * (B * W + N * W + N + B) + 8.0 * B
-    b_bound, b_by = bound_ms(ops, in_bytes, "int8")
+    # its b1 products at the dense int8 products' rate (an m16n8k32 s8
+    # product is 16 * 8 * 32 * 2 int8 operations; tools/b1_mma_probe.cu
+    # measured both forms at one product rate)
+    products = -(-B // 16) * -(-N // 8) * -(-W // 8)
+    b_bound, b_by = bound_ms(products * 16.0 * 8 * 32 * 2, in_bytes, "int8")
+    int8_bound, _ = bound_ms(2.0 * B * N * 32 * W, in_bytes, "int8")
     popc_bound, _ = bound_ms(float(B) * N * W, in_bytes, "popc")
+    epilogue_floor = float(B) * N / peak("int32") * 1e3
     log(f"phase 1: kernel B′ at B={B} N={N} W={W}, t = the {k}th of kernel "
         f"A′'s k_sel={k_sel} (share of queries the deep certificate "
         f"certifies {certified:.4f}; (splits, tiles per split) "
         f"{cuda_count_hamming.plan(dev, B, N)}; while B′ ran: "
         f"{clock.summary()}): {json.dumps(times)}; bound {b_bound:.4f} ms "
-        f"({b_by}; int8 tensor cores), as popcounts {popc_bound:.4f} ms; A′ "
-        f"at k_sel={k_sel} plus B′: {times['a_ms'] + b_ms:.4f} ms against A′ "
-        f"at k={k} alone {times['a10_ms']:.4f}")
+        f"({b_by}: {products} b1 products at the int8 products' rate); "
+        f"as int8 products of +-1 bytes {int8_bound:.4f} ms, as popcounts "
+        f"{popc_bound:.4f} ms; the filter's floor, one integer operation a "
+        f"score, {epilogue_floor:.4f} ms; A′ at k_sel={k_sel} plus B′: "
+        f"{times['a_ms'] + b_ms:.4f} ms against A′ at k={k} alone "
+        f"{times['a10_ms']:.4f}")
     del qt, xt, bias, sims, t
     torch.cuda.empty_cache()
     return {
@@ -1049,7 +1153,9 @@ def phase_count_hamming(dev):
             bound_ms=b_bound, bound_by=b_by, library_ms=times["b_lib_ms"],
             library_calls="f16 torch.mm of the +-1 tables, then (s > t).sum "
                           "and (s == t).sum",
-            bound_ms_popcount=popc_bound, a_hamming_ms=times["a_ms"],
+            bound_ms_int8=int8_bound, bound_ms_popcount=popc_bound,
+            epilogue_floor_ms=epilogue_floor, ms_b16=times["b_b16_ms"],
+            ms_hnsw=times["b_hnsw_ms"], a_hamming_ms=times["a_ms"],
             a_hamming_k10_ms=times["a10_ms"],
             shape={"B": B, "N": N, "W": W, "k": k, "k_sel": k_sel},
         ),
@@ -4551,8 +4657,8 @@ def ptxas_figures(text: str, name: str) -> dict:
 
 def log_core_figures(path, kernel: str, smem_fn: str, slots: int) -> None:
     """One line: a split kernel's registers, spills and shared memory per
-    form (<4>: 16-byte copies, <1>: 4-byte copies) and its resident
-    blocks (kernels A, A′, B and D)."""
+    form (<4>: 16-byte copies, <1>: 4-byte copies; B′'s wide forms: rows
+    past 8 words) and its resident blocks (kernels A, A′, B, B′ and D)."""
     import ctypes
 
     from redis_hnsw_tpu_torch.utils import build
@@ -4560,8 +4666,8 @@ def log_core_figures(path, kernel: str, smem_fn: str, slots: int) -> None:
     figs = ptxas_figures(build.build_log(path), kernel)
     smem = getattr(ctypes.CDLL(path), smem_fn)()
     forms = "; ".join(
-        f"<{'4' if 'Li4E' in fn else '1'}> " + ", ".join(lines)
-        for fn, lines in sorted(figs.items()))
+        f"<{'4' if 'Li4E' in fn else '1'}{', wide' if 'Lb1E' in fn else ''}> "
+        + ", ".join(lines) for fn, lines in sorted(figs.items()))
     log(f"phase 0: {kernel}: {forms or 'no ptxas output'}; "
         f"{smem} bytes of dynamic shared memory a block; {slots} resident "
         f"blocks on the card")
@@ -4726,7 +4832,7 @@ def main() -> int:
                      cuda_scan.hamming_block_slots(card_index))
     log_core_figures(paths["count_hamming"], "count_hamming_kernel",
                      "count_hamming_smem_bytes",
-                     cuda_count_hamming.block_slots(card_index))
+                     cuda_count_hamming.block_slots(card_index, 8))
     log_core_figures(paths["select_bins"], "select_bins_kernel",
                      "select_bins_smem_bytes",
                      cuda_select.block_slots(card_index))

@@ -1,11 +1,9 @@
-// The int8 tensor-core core of the hamming kernels: kernel A′ (the
-// exact hamming top-k, scan_topk.cu hamming_tile_kernel) selects with it
-// and kernel B′ (the certified hamming tier's count, count_hamming.cu)
-// counts with it, so both score a (query, row) pair with the same
-// integer arithmetic -- and hamming counts are exact integers, so their
-// scores agree by arithmetic whatever the tiling. Here: the block tile's
-// shape, the ring of row words (load_words) and MmaCore, whose products
-// give popcount(q) - popcount(q XOR x) per (query, row).
+// The int8 tensor-core core of kernel A′ (the exact hamming top-k,
+// scan_topk.cu hamming_tile_kernel): the block tile's shape, the ring of
+// row words (load_words) and MmaCore, whose products give popcount(q) -
+// popcount(q XOR x) per (query, row). Hamming counts are exact integers,
+// so any other unit that counts them (the certified tier's count scores
+// on the b1 tensor-core product) agrees with these by arithmetic.
 
 #pragma once
 

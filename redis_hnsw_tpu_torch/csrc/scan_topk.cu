@@ -82,9 +82,8 @@
 //   the tensor cores (0.53 ms at the dense int8 peak), against (B + N)*W*4
 //   bytes. So A′ scores on the tensor cores: mma.sync m16n8k32 s8 x s8 ->
 //   s32, the queries as +-1 bytes, the rows as 0/1 bytes, and count =
-//   popc(q) - dot, exact in int32 (MmaCore, in hamming_mma.cuh, which
-//   kernel B′ shares; the bit -> byte order and the identity are at its
-//   definition). score = __fsub_rn(bias, (float) count): the plain
+//   popc(q) - dot, exact in int32 (MmaCore, in hamming_mma.cuh; the bit
+//   -> byte order and the identity are at its definition). score = __fsub_rn(bias, (float) count): the plain
 //   version's bits. wgmma and TMA are left for later.
 //
 //   Selection: kernel A's. A block scores a 128-query x 128-row tile with

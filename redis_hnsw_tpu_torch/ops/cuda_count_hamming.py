@@ -14,23 +14,28 @@ against t = -inf only, as in the JAX package.
 Soundness: the certificate (ops/scan.py ``scan_certified_hamming``)
 compares these counts with the counts over kernel A′'s selection. Hamming
 scores are small integers, exact on any unit, so the two passes agree by
-arithmetic; on CUDA both kernels also score on the one int8 tensor-core
-core of ``csrc/hamming_mma.cuh``.
+arithmetic: on CUDA, A′ sums them on its int8 tensor-core core
+(``csrc/hamming_mma.cuh``) and B′ on the b1 tensor-core product.
 
 * On a CUDA tensor, :func:`count_hamming` launches
-  ``csrc/count_hamming.cu`` or raises: kernel A′'s loop (128 x 128 block
-  tiles on ``mma.sync`` int8, a cp.async ring of row words) with a count
-  epilogue -- two integer keys a query, two compares a count, 32 counters
-  a thread in registers -- and one integer atomic per (block, query) at
-  the end. :func:`plan` cuts the rows into splits that fill whole waves
-  of the card's resident blocks of this kernel.
+  ``csrc/count_hamming.cu`` or raises: ``mma.sync`` m16n8k256 b1
+  ``.and.popc`` on the packed words as they lie in memory (nothing
+  expanded; popc(q ^ x) = popc(q) + popc(x) - 2 popc(q & x), each product
+  starting from its row's -(popc(x) >> 1), computed once a stage), each
+  warp streaming its own stages of rows through a cp.async ring, and a
+  one-op filter epilogue: a running three-input max a (thread, query)
+  over its rows, the exact compare-and-count only for the 16-query tiles
+  whose max can pass; one integer atomic per (block, query) at the end. :func:`plan` cuts the rows into splits
+  that fill whole waves of the card's resident blocks of this kernel.
+  Rows of up to ``MAX_WORDS`` words.
 * On a CPU tensor it runs :func:`plain_count_hamming`: ops/distance.py's
   shift-and-mask popcount over row chunks, then the two compare-sums --
   the kernel's reference in the tests.
 
-Bound on the H100: A′'s, 2*B*N*32W int8 tensor-core operations (B*N*W
-popcounts on the CUDA cores) against (B + N)*W*4 bytes. Times in PERF.md
-(chip_smoke.py).
+Bound on the H100: (B/16)(N/8) ceil(W/8) b1 products at the int8
+products' rate against (B + N)*W*4 bytes; the epilogue's one integer
+operation a score sets a floor above both. Times in PERF.md
+(chip_smoke.py, tools/kernel_times.py).
 """
 
 from __future__ import annotations
@@ -45,6 +50,10 @@ from . import distance as D
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+# The widest rows, in 32-bit words, the kernel takes (its shared memory
+# grows with W past 64 words).
+MAX_WORDS = 512
 
 # Query-row pairs a chunk of the plain version scores at once: bounds
 # its [B, rows, W] int64 popcount tile (2 GiB).
@@ -77,27 +86,28 @@ def _lib():
     lib.count_hamming_launch.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P,
                                          _P, _P]
     lib.count_hamming_slots.restype = _I
-    lib.count_hamming_slots.argtypes = []
+    lib.count_hamming_slots.argtypes = [_I]
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def block_slots(device_index: int) -> int:
-    """Blocks of the kernel that card ``device_index`` holds at once."""
+def block_slots(device_index: int, words: int) -> int:
+    """Blocks of the kernel that card ``device_index`` holds at once over
+    rows of ``words`` words (its shared memory grows with wide rows)."""
     with torch.cuda.device(device_index):
-        slots = _lib().count_hamming_slots()
+        slots = _lib().count_hamming_slots(words)
     if slots <= 0:
         raise RuntimeError("count_hamming: cannot read the card's occupancy")
     return slots
 
 
-def plan(device, B: int, N: int) -> tuple[int, int]:
+def plan(device, B: int, N: int, words: int = 8) -> tuple[int, int]:
     """(splits, 128-row tiles per split) of a launch over B queries and N
-    rows: kernel D's wave planner (ops/cuda_select.py plan_tiles) over
-    this kernel's own resident blocks."""
+    rows of ``words`` words: kernel D's wave planner (ops/cuda_select.py
+    plan_tiles) over this kernel's own resident blocks."""
     from .cuda_select import plan_tiles
 
-    return plan_tiles(block_slots, device, B, N)
+    return plan_tiles(lambda index: block_slots(index, words), device, B, N)
 
 
 def count_hamming(queries, words, bias, t):
@@ -117,6 +127,9 @@ def count_hamming(queries, words, bias, t):
         return plain_count_hamming(queries, words, bias, t)
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
+    if queries.shape[1] > MAX_WORDS:
+        raise ValueError(f"count_hamming takes rows of at most {MAX_WORDS} "
+                         f"words on the card, got {queries.shape[1]}")
     queries, words, bias, t = (
         x.contiguous() for x in (queries, words, bias, t)
     )
@@ -128,7 +141,7 @@ def count_hamming(queries, words, bias, t):
     if B == 0 or N == 0:
         return c_gt, c_eq
     launch = _lib().count_hamming_launch
-    splits, _ = plan(dev, B, N)
+    splits, _ = plan(dev, B, N, W)
     with torch.cuda.device(dev):
         err = launch(
             queries.data_ptr(), words.data_ptr(), bias.data_ptr(),

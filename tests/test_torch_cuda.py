@@ -740,6 +740,92 @@ def test_count_hamming_four_byte_form(card, W):
     assert_count_hamming_bitwise(qt, x_off, bias)
 
 
+@pytest.mark.parametrize("W", [1, 7, 9, 16, 17, 32, 33, 65])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_count_hamming_word_widths(card, W, offset):
+    """Widths that are not multiples of the 256-bit product (zeros past W
+    in both operands), past one product (the chunk loop, stages of fewer
+    rows) and past 64 words (stages of 8 rows, more shared memory), on
+    aligned tables and tables 4 bytes off a 16-byte boundary."""
+    rng = np.random.default_rng(W * 3 + offset + 101)
+    qt, xt, bias = word_operands(rng, 130, 3000, W, 0.1, card)
+    x_off = torch.empty(xt.numel() + offset, dtype=torch.int32,
+                        device=card)[offset:].view_as(xt)
+    x_off.copy_(xt)
+    assert bool(x_off.data_ptr() % 16) == bool(offset)
+    plant_word_ties(qt, x_off, bias, 128)
+    assert_count_hamming_bitwise(qt, x_off, bias)
+
+
+@pytest.mark.parametrize("B", [1, 129])
+@pytest.mark.parametrize("N", [1, 8, 63, 64, 65, 255, 256, 257, 1000])
+def test_count_hamming_stage_edges(card, B, N):
+    """At the edges of a warp's 64-row stage and of a block's round of
+    four stages (one a warp), with dead rows, and tie classes planted
+    across the first stage edge where the table is long enough."""
+    rng = np.random.default_rng(B * 7 + N)
+    qt, xt, bias = word_operands(rng, B, N, 8, 0.1, card)
+    if N > 70:
+        plant_word_ties(qt, xt, bias, 64)
+    assert_count_hamming_bitwise(qt, xt, bias)
+
+
+@pytest.mark.parametrize("W", [3, 8, 17])
+def test_count_hamming_special_thresholds(card, W):
+    """In every 16-query tile: t = -inf, +inf, NaN, non-integers, 0, the
+    scores above and below every row's, and t exactly at one of the
+    query's own rows' scores (that row and its ties count as ==)."""
+    rng = np.random.default_rng(W + 500)
+    qt, xt, bias = word_operands(rng, 160, 2000, W, 0.2, card)
+    cols = torch.from_numpy(rng.integers(0, 2000, 160)).to(card)
+    t = TD.pairwise_hamming(qt, xt)[torch.arange(160, device=card), cols]
+    specials = [float("-inf"), float("inf"), float("nan"), -7.5, 0.5, 0.0,
+                -32.0 * W - 1, -32.0 * W]
+    for i, v in enumerate(specials):
+        t[i::16] = v
+    assert_count_hamming_bitwise(qt, xt, bias, t.contiguous())
+
+
+@pytest.mark.parametrize("dead", ["stages", "all"])
+def test_count_hamming_dead_tiles(card, dead):
+    """Whole stages of dead rows (the first 300: a block's first round of
+    stages and part of its next), or every row dead: dead rows count as
+    == against t = -inf only, never as >."""
+    rng = np.random.default_rng(17 if dead == "all" else 18)
+    qt, xt, bias = word_operands(rng, 130, 3000, 8, 0.0, card)
+    if dead == "all":
+        bias.fill_(float("-inf"))
+    else:
+        bias[:300] = float("-inf")
+    assert_count_hamming_bitwise(qt, xt, bias)
+    t = torch.full((130,), float("-inf"), device=card)
+    c_gt, c_eq = assert_count_hamming_bitwise(qt, xt, bias, t)
+    live = int((bias == 0).sum())
+    assert (c_gt == live).all() and (c_eq == 3000 - live).all()
+
+
+def test_count_hamming_filter_one_query_of_a_lane(card):
+    """A lane holds queries g and g + 8 of each 16-query tile. Rows that
+    pass the filter for query 0 (copies: >, and distance-1 rows at its t:
+    ==) lie where nothing passes for query 8, and rows that pass for query
+    8 lie elsewhere: the exact path runs for the whole tile and each query
+    keeps its own counts."""
+    rng = np.random.default_rng(29)
+    qt, xt, bias = word_operands(rng, 16, 4096, 8, 0.0, card)
+    xt[10:14] = qt[0]
+    xt[20:23] = qt[0]
+    xt[20:23, 0] ^= 1
+    xt[270:273] = qt[8]
+    xt[280:285] = qt[8]
+    xt[280:285, 0] ^= 2
+    _, sims = cuda_scan.flat_topk_hamming(qt, xt, bias, k=10)
+    t = sims[:, 9].clone()
+    t[0] = t[8] = -1.0
+    c_gt, c_eq = assert_count_hamming_bitwise(qt, xt, bias, t.contiguous())
+    assert (c_gt[0].item(), c_gt[8].item()) == (6, 3)  # + word_operands' 2
+    assert (c_eq[0].item(), c_eq[8].item()) == (3, 5)
+
+
 def test_certified_hamming_tier_on_card(card, monkeypatch):
     """The certified hamming tier on the card (kernels A′ and B′) against
     the exact tier on the card, byte for byte, on the flat index and the

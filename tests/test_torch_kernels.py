@@ -163,6 +163,40 @@ def test_hamming_plan(monkeypatch, B, N, want):
 
 
 @pytest.mark.parametrize(
+    "B,N,words,want",
+    [(2048, 1_000_064, 8, (33, 237)),  # flat-hamming-sift256: one wave
+     (16, 1_000_064, 8, (521, 15)),    # a small batch: one wave
+     (2048, 16_384, 8, (32, 4)),       # hnsw-hamming-256b's rows
+     (4096, 1_000_064, 8, (33, 237)),  # two full waves
+     (2048, 1_000_064, 33, (99, 79)),  # wide rows: 3 blocks an SM
+     (1, 129, 8, (2, 1)),
+     (5, 0, 8, (1, 1))],
+)
+def test_count_hamming_plan(monkeypatch, B, N, words, want):
+    """Kernel B′'s row splits: the wave planner over B′'s own resident
+    blocks at the row width (132 SMs x 4 here up to 8 words: 128 threads,
+    36,368 bytes of shared memory a block; x 3 for wider rows, whose
+    queries take shared memory too), so that B = 2048 and a single query
+    tile each fill one whole wave and B = 4096 two; no other kernel's
+    slots are read."""
+    from redis_hnsw_tpu_torch.ops import cuda_count_hamming, cuda_select
+
+    slots = {8: 528, 33: 396}
+    monkeypatch.setattr(cuda_count_hamming, "block_slots",
+                        lambda index, w: slots[w])
+    monkeypatch.setattr(cuda_scan, "block_slots", None)
+    monkeypatch.setattr(cuda_scan, "hamming_block_slots", None)
+    monkeypatch.setattr(cuda_select, "block_slots", None)
+    splits, per = cuda_count_hamming.plan(torch.device("cuda", 0), B, N,
+                                          words)
+    assert (splits, per) == want
+    tiles = max(1, -(-N // 128))
+    assert (splits - 1) * per < tiles <= splits * per
+    blocks = -(-B // 128) * splits
+    assert blocks % slots[words] == 0 or blocks < slots[words]
+
+
+@pytest.mark.parametrize(
     "row_bytes,offsets,want",
     [(128, (0, 0, 0, 0), "wgmma"),      # flat-sift1m's int8 rows
      (16, (0, 0, 0, 0), "wgmma"),

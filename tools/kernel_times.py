@@ -22,7 +22,12 @@ form forced, ``a_int8_general_ms``, ``a_int8_general_k80_ms``,
 ``a_bf16_general_ms`` and ``a_bf16_general_k80_ms``, where it has
 forms); A′ at 2048 x 1,000,064 rows of
 8 words, k_sel = 40 and k = 10, at B = 16 over those rows and at 2048 x
-16,384 (hnsw-hamming-256b's scan), k = 10; C at B = 2048, E = 16 over a
+16,384 (hnsw-hamming-256b's scan), k = 10; B′ (the certified hamming
+tier's count) at t = the 10th of A′'s k_sel = 40 over those rows of 8
+words (``b_hamming_ms``, the SM clock read after it ran), at B = 16
+(``b_hamming_b16_ms``), over the first 16,384 rows, and at 2048 x
+1,000,064 rows of 16 and 32 words (``b_hamming_w16_ms``,
+``b_hamming_w32_ms``), where the checkout has B′; C at B = 2048, E = 16 over a
 1,000,064 x 32 x 128 block table in f32 (``c_ms``), f16 and bf16, at B =
 16 (f32 and f16), and in its row form over the table's first 1,000,064
 rows at B = 2048 with J = 512 (f32 and f16) and J = 16 rows a lane
@@ -77,6 +82,39 @@ def graph_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
     return sync_ms(graph.replay, 5) / reps
+
+
+def count_hamming_of():
+    """The checkout's kernel B′ module (ops/cuda_count_hamming.py), or
+    None where it has none."""
+    try:
+        from redis_hnsw_tpu_torch.ops import cuda_count_hamming
+    except ImportError:
+        return None
+    return cuda_count_hamming
+
+
+def count_hamming_times(qw, xw, bias, shapes=True) -> dict:
+    """Kernel B′ at t = the 10th of kernel A′'s k_sel = 40 (the certified
+    hamming tier's call) over these words, the SM clock read right after;
+    with ``shapes``, also at B = 16 and over the first 16,384 rows."""
+    from redis_hnsw_tpu_torch.ops import cuda_count_hamming as H
+    from redis_hnsw_tpu_torch.ops import cuda_scan
+
+    t = cuda_scan.flat_topk_hamming(qw, xw, bias, k=40)[1][:, 9].contiguous()
+    out = {"b_hamming_ms": sync_ms(
+        lambda: H.count_hamming(qw, xw, bias, t), 20)}
+    out["b_hamming_clock"] = smi("clocks.sm")
+    if shapes:
+        q16, t16 = qw[:16].contiguous(), t[:16].contiguous()
+        out["b_hamming_b16_ms"] = sync_ms(
+            lambda: H.count_hamming(q16, xw, bias, t16), 20)
+        xs, bs = xw[:16_384], bias[:16_384]
+        ts = cuda_scan.flat_topk_hamming(qw, xs, bs, k=40)[1][:, 9]
+        ts = ts.contiguous()
+        out["b_hamming_hnsw_ms"] = sync_ms(
+            lambda: H.count_hamming(qw, xs, bs, ts), 20)
+    return out
 
 
 def smi(query: str) -> str:
@@ -198,8 +236,22 @@ def main() -> int:
     xws, biass = xw[:16_384], bias[:16_384]
     t["a_hamming_hnsw_ms"] = sync_ms(
         lambda: cuda_scan.flat_topk_hamming(qw, xws, biass, k=10), 20)
+    has_b = count_hamming_of() is not None
+    if has_b:
+        t.update(count_hamming_times(qw, xw, bias))
     del xw, qw, bias, qw16, xws, biass
     torch.cuda.empty_cache()
+    if has_b:
+        for w in (16, 32):
+            xw = torch.randint(-2**31, 2**31 - 1, (N, w), generator=g,
+                               device=dev, dtype=torch.int32)
+            qw = torch.randint(-2**31, 2**31 - 1, (B, w), generator=g,
+                               device=dev, dtype=torch.int32)
+            bias = torch.zeros(N, device=dev)
+            t[f"b_hamming_w{w}_ms"] = count_hamming_times(
+                qw, xw, bias, shapes=False)["b_hamming_ms"]
+            del xw, qw, bias
+            torch.cuda.empty_cache()
 
     E, F = 16, 32
     nbrvec = torch.randn((N, F, D), generator=g, device=dev)
