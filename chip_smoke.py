@@ -2127,28 +2127,46 @@ def env(**values):
                 os.environ[key] = v
 
 
+BUILD_PHASES = ("snapshot_refresh", "device_pass", "host_cross",
+                "fetch_results", "host_surgery")
+
+
+def build_phases(before):
+    """The bulk-build phases since ``before`` (utils/profiling.py
+    ``totals()``), largest first: each phase's HOST self time (no device
+    sync: the card's queued work falls in the phase that waits for it),
+    calls and mean ms."""
+    from redis_hnsw_tpu_torch.utils import profiling
+
+    out = {}
+    for name, (ns, calls) in profiling.totals().items():
+        ns0, calls0 = before.get(name, (0, 0))
+        if name in BUILD_PHASES and calls > calls0:
+            s = (ns - ns0) * 1e-9
+            out[name] = {"total_s": round(s, 4), "calls": calls - calls0,
+                         "mean_ms": round(s / (calls - calls0) * 1e3, 3)}
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["total_s"]))
+
+
 def bulk_build(client, name, names, data, batch_size=2048):
-    """``add_batch`` of the rows into index ``name`` with the build's phase
-    timer on (each phase ends in a device sync); returns its seconds, the
-    phase breakdown, the index's snapshot refreshes by kind and the
-    kernels' launches (C's also by form) during the build."""
+    """``add_batch`` of the rows into index ``name``; returns its seconds,
+    the phase breakdown (:func:`build_phases`, host time), the index's
+    snapshot refreshes by kind and the kernels' launches (C's also by
+    form) during the build."""
     from collections import Counter
 
-    from redis_hnsw_tpu_torch.ops import construct, cuda_gather
-    from redis_hnsw_tpu_torch.utils.profiling import PhaseTimer
+    from redis_hnsw_tpu_torch.ops import cuda_gather
+    from redis_hnsw_tpu_torch.utils import profiling
 
     before = read_counts()
     forms = Counter(cuda_gather.fused_block_score.forms)
-    construct.BUILD_TIMER = timer = PhaseTimer()
-    try:
-        t0 = time.perf_counter()
-        client.add_batch(name, names, data, batch_size=batch_size)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-    finally:
-        construct.BUILD_TIMER = None
+    spans = profiling.totals()
+    t0 = time.perf_counter()
+    client.add_batch(name, names, data, batch_size=batch_size)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
     return {
-        "s": secs, "phases": timer.summary(),
+        "s": secs, "phases": build_phases(spans),
         "refreshes": dict(client.index(name).snapshot_refreshes),
         "launches": {k: v - before[k] for k, v in read_counts().items()},
         "forms": dict(cuda_gather.fused_block_score.forms - forms),
@@ -2260,8 +2278,8 @@ def phase_hnsw(client, dev, n=10_000, n_q=2048):
     check(counts["block_score"] > 0, "hnsw-main: kernel C never launched")
     del xs64
     log(f"phase 2: hnsw-main: built {n} rows by add_batch(batch_size=2048) "
-        f"in {build['s']:.3f} s ({n / build['s']:.1f} inserts/s; phases "
-        f"{json.dumps(build['phases'])}; snapshot refreshes "
+        f"in {build['s']:.3f} s ({n / build['s']:.1f} inserts/s; phases (host "
+        f"self time) {json.dumps(build['phases'])}; snapshot refreshes "
         f"{build['refreshes']}; build launches {build['launches']}, kernel "
         f"C's by form {build['forms']}); the same rows by add_node in "
         f"{seq_s:.3f} s ({n / seq_s:.1f} inserts/s), that graph's recall@{k} "
@@ -2465,8 +2483,8 @@ def phase_build(client, dev, n=262_144, n_q=2048, gate=True, keep=False):
     isolated = int((snap.adj0[:n] < 0).all(1).sum())
     BUILD_RATES[n] = n / build["s"]
     log(f"phase 2d: {name}: add_batch(batch_size=2048) of {n} x {dim} rows "
-        f"in {build['s']:.3f} s ({n / build['s']:.1f} inserts/s); phases "
-        f"{json.dumps(build['phases'])}; snapshot refreshes "
+        f"in {build['s']:.3f} s ({n / build['s']:.1f} inserts/s); phases (host "
+        f"self time) {json.dumps(build['phases'])}; snapshot refreshes "
         f"{build['refreshes']} (deltas by path: device "
         f"{build['refreshes']['delta_device']}, host "
         f"{build['refreshes']['delta'] - build['refreshes']['delta_device']}"
@@ -2764,8 +2782,8 @@ def phase_hnsw_hamming(client, dev, n=10_000, n_q=2048):
     check(counts["scan_topk_hamming"] > 0,
           f"{name}: kernel A′ never launched: {counts}")
     log(f"phase 2c: {name}: built {n} rows by add_batch(batch_size=2048) in "
-        f"{build['s']:.3f} s ({n / build['s']:.1f} inserts/s; phases "
-        f"{json.dumps(build['phases'])}; snapshot refreshes "
+        f"{build['s']:.3f} s ({n / build['s']:.1f} inserts/s; phases (host "
+        f"self time) {json.dumps(build['phases'])}; snapshot refreshes "
         f"{build['refreshes']}; build launches {build['launches']}); scan "
         f"search_batch {n_q} queries "
         f"k={k}: first call {first_s * 1e3:.1f} ms, then {n_q / scan_s:.0f} "
@@ -4294,7 +4312,7 @@ def phase_sharded_main(dev, n=10_000, n_q=2048):
     del xs64, back
     log(f"phase 6a: {label}: {n} x {dim} rows over {SHARDS} shards on "
         f"{dev} (shard rows {sizes}, n_pad {n_pad}); add_batch("
-        f"batch_size=2048) inserts/s, phase timer off: warm-up (interleaved) "
+        f"batch_size=2048) inserts/s: warm-up (interleaved) "
         f"{rate['warm-up']:.1f}, interleaved {rate['interleaved']:.1f}, "
         f"plain {rate['plain']:.1f}, (2, 2) mesh {rate['2-D']:.1f}; the "
         f"graphs byte-equal; {n_q} queries k={k}, qps by engine "
@@ -4473,8 +4491,8 @@ def phase_sharded_build(dev, n=262_144, n_q=2048, gate=True,
                         pipeline=False):
     """6d: sharded-build -- phase 2d's rows (n x 128 seeded Gaussian,
     M=16, efcon=200) over 4 shards on the card, built by interleaved
-    add_batch(batch_size=2048) with the build's phase timer on (as phase
-    2d's), then 2048 queries on the exact tier against a float64 oracle
+    add_batch(batch_size=2048) with its phases timed (as phase 2d's),
+    then 2048 queries on the exact tier against a float64 oracle
     and on the graph engine over BUILD_SERVE_POINTS; every kernel held
     against its plain version on shard 0's tables; the certified tier's
     one-pass form (kernel D on every shard) at k = 10 and 5, byte-equal
@@ -4485,10 +4503,9 @@ def phase_sharded_build(dev, n=262_144, n_q=2048, gate=True,
     pipeline phase's sharded table runs on this index before it goes
     (:func:`phase_sharded_pipeline`). Returns the max abs differences."""
     import redis_hnsw_tpu_torch as h
-    from redis_hnsw_tpu_torch.ops import construct
     from redis_hnsw_tpu_torch.ops import scan as SC
     from redis_hnsw_tpu_torch.parallel import ShardedHNSW
-    from redis_hnsw_tpu_torch.utils.profiling import PhaseTimer
+    from redis_hnsw_tpu_torch.utils import profiling
 
     dim, k, label = 128, 10, "sharded-build"
     rng = np.random.default_rng(SEED + 9)  # phase 2d's rows and queries
@@ -4499,11 +4516,9 @@ def phase_sharded_build(dev, n=262_144, n_q=2048, gate=True,
         dim=dim, m=16, ef_construction=200, seed=SEED, backend="native"),
         mesh=card_mesh(dev))
     torch.cuda.reset_peak_memory_stats()
-    construct.BUILD_TIMER = timer = PhaseTimer()
-    try:
-        build_s = sharded_add(idx, names, data)
-    finally:
-        construct.BUILD_TIMER = None
+    spans = profiling.totals()
+    build_s = sharded_add(idx, names, data)
+    phases = build_phases(spans)
     peak = torch.cuda.max_memory_allocated()
     check(idx.node_count == n, f"{label}: {idx.node_count} rows, not {n}")
     refreshes = [dict(s.snapshot_refreshes) for s in idx.shards]
@@ -4516,9 +4531,9 @@ def phase_sharded_build(dev, n=262_144, n_q=2048, gate=True,
     log(f"phase 6d: {label}: interleaved add_batch(batch_size=2048) of {n} x "
         f"{dim} rows over {SHARDS} shards in {build_s:.3f} s "
         f"({n / build_s:.1f} inserts/s; phase 2d's single index on the same "
-        f"rows: {'%.1f' % single if single else 'not run'}); phases "
-        f"{json.dumps(timer.summary())} (snapshot_refresh "
-        f"{timer.summary().get('snapshot_refresh', {}).get('mean_ms')} ms a "
+        f"rows: {'%.1f' % single if single else 'not run'}); phases (host "
+        f"self time) {json.dumps(phases)} (snapshot_refresh "
+        f"{phases.get('snapshot_refresh', {}).get('mean_ms')} ms a "
         f"wave); snapshot refreshes {refreshes} (every delta by the device "
         f"path); "
         f"max_memory_allocated {peak} bytes")

@@ -46,6 +46,7 @@ from .errors import IndexExists, IndexNotFound
 from .models.flat import FlatIndex
 from .models.hnsw import HNSWIndex, SearchResult
 from .parallel.sharded import ShardedHNSW
+from .utils import profiling
 
 DEFAULT_K = 5  # src/lib.rs:120
 
@@ -254,26 +255,45 @@ class HNSW:
         the beam; "scan-approx" is the approx tier). ``recall_target``
         turns "auto" into a guarantee. ``host_qs`` mirrors device-resident
         queries on the host for REDIS_HNSW_TPU_REPLY=ids. Flat indexes
-        reply with objects, as in the JAX package."""
-        idx, lk = self._entry(index)
-        with lk:
-            if isinstance(idx, FlatIndex):
-                # Flat indexes have no graph: "auto"/"scan" are the
-                # exact scan, "scan-approx" the approx tier; "graph" is
-                # a user error, not a silent fallback.
-                if engine not in ("auto", "scan", "scan-approx"):
-                    raise ValueError(
-                        f"engine {engine!r} unavailable on flat indexes"
+        reply with objects, as in the JAX package.
+
+        Every call, a failed one too, writes one record of the request
+        log (:meth:`request_log`)."""
+        with profiling.request():
+            idx, lk = self._entry(index)
+            with profiling.span("lock_wait"):
+                lk.acquire()
+            try:
+                if isinstance(idx, FlatIndex):
+                    # Flat indexes have no graph: "auto"/"scan" are the
+                    # exact scan, "scan-approx" the approx tier; "graph"
+                    # is a user error, not a silent fallback.
+                    if engine not in ("auto", "scan", "scan-approx"):
+                        raise ValueError(
+                            f"engine {engine!r} unavailable on flat indexes"
+                        )
+                    return idx.search_batch(
+                        queries, k, approx=engine == "scan-approx",
+                        recall_target=recall_target, host_qs=host_qs,
                     )
                 return idx.search_batch(
-                    queries, k, approx=engine == "scan-approx",
+                    queries, k, ef_search=ef_search, expand=expand,
+                    iters=iters, engine=engine, reply=reply, seeds=seeds,
                     recall_target=recall_target, host_qs=host_qs,
                 )
-            return idx.search_batch(
-                queries, k, ef_search=ef_search, expand=expand,
-                iters=iters, engine=engine, reply=reply, seeds=seeds,
-                recall_target=recall_target, host_qs=host_qs,
-            )
+            finally:
+                lk.release()
+
+    @staticmethod
+    def request_log(n: int = 128) -> dict:
+        """The newest ``n`` records of the request log (at most
+        ``utils.profiling.RING_ROWS``, oldest first), one per
+        ``search_batch`` call of any client of this process, as
+        ``{field: int64 array}``: the request's time, its lock wait, the
+        self time of each span of the serving path, the collector's
+        pauses, queries, chunks, the certified tier's fallback counts,
+        whether it failed (utils/profiling.py ``FIELDS``; times in ns)."""
+        return profiling.recent(n)
 
 
 _DEFAULT_LOCK = threading.Lock()

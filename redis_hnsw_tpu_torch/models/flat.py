@@ -26,6 +26,7 @@ from ..errors import (
     NodeExists,
     NodeNotFound,
 )
+from ..utils import profiling
 from ..utils.names import NameTable
 from .hnsw import SearchResult
 
@@ -297,28 +298,33 @@ class FlatIndex:
             approx = approx or (
                 resolve_engine("auto", recall_target) == "scan-approx"
             )
-        qs = coerce_queries(
-            queries, self._vectors.dtype, self._vectors.shape[1],
-            self.config.metric,
-        )
-        if self.node_count == 0:
-            return empty_reply(qs.shape[0], k, reply)
+        with profiling.span("prepare"):
+            qs = coerce_queries(
+                queries, self._vectors.dtype, self._vectors.shape[1],
+                self.config.metric,
+            )
+            profiling.count("queries", qs.shape[0])
+            if self.node_count == 0:
+                return empty_reply(qs.shape[0], k, reply)
+            vecs, sqn, valid, tscale = self._device()
         metric = self.config.metric
-        vecs, sqn, valid, tscale = self._device()
         k_eff = min(int(k), int(vecs.shape[0]))
         n_q = qs.shape[0]
         if n_q == 0:
             ids = np.empty((0, int(k)), np.int32)
             sims = np.empty((0, int(k)), np.float32)
         elif use_pallas and tscale is None:
-            qd = SC.pad_queries(qs, n_q, vecs.device)
-            if metric == "hamming":
-                ids, sims = SC.scan_topk_exact_hamming(vecs, valid, qd,
-                                                       k=k_eff)
-            else:
-                ids, sims = SC.scan_topk_exact_l2(vecs, sqn, valid, qd,
-                                                  k=k_eff)
-            ids, sims = ids.cpu().numpy(), sims.cpu().numpy()
+            profiling.count("chunks", 1)
+            with profiling.span("dispatch"):
+                qd = SC.pad_queries(qs, n_q, vecs.device)
+                if metric == "hamming":
+                    ids, sims = SC.scan_topk_exact_hamming(vecs, valid, qd,
+                                                           k=k_eff)
+                else:
+                    ids, sims = SC.scan_topk_exact_l2(vecs, sqn, valid, qd,
+                                                      k=k_eff)
+            with profiling.span("card_wait"):
+                ids, sims = ids.cpu().numpy(), sims.cpu().numpy()
         else:
             table = None
             if tscale is None and metric == "euclidean" and (

@@ -39,13 +39,13 @@ again (ops/snapshot.py ``_delta_snapshot``), as in the JAX package.
 
 from __future__ import annotations
 
-import contextlib
 import os
 
 import numpy as np
 import torch
 
 from ..errors import NodeExists
+from ..utils import profiling
 from . import distance as D
 from .search import (
     _point_sims,
@@ -59,10 +59,9 @@ from .snapshot import to_device
 BUILD_EXPAND = 16     # candidates expanded per beam step during bulk build
 BUILD_ITER_SLACK = 8  # extra beam steps beyond ceil(ef/expand)
 
-# Per-phase wall-clock accumulator for bulk builds (None = off). Set to a
-# utils.profiling.PhaseTimer to split waves into snapshot_refresh /
-# device_pass / host_cross / fetch_results / host_surgery.
-BUILD_TIMER = None
+# A bulk build's waves are timed as the host spans snapshot_refresh /
+# device_pass / host_cross / fetch_results / host_surgery
+# (utils/profiling.py: self time, no device sync; read by ``totals()``).
 
 
 def _inert_rows(ids, sims, c):
@@ -307,7 +306,7 @@ def add_batch(index, names, data, batch_size: int = 1024) -> None:
     ef = index.config.ef_construction
     lo = start
     while lo < len(names):
-        with _phase("snapshot_refresh"):
+        with profiling.span("snapshot_refresh"):
             cap = max_lanes_for(index.device_snapshot().n_pad)
         hi = min(lo + min(batch_size, cap), len(names))
         _insert_wave(index, names[lo:hi], data[lo:hi], ef)
@@ -336,13 +335,6 @@ def _host_cross(qs: np.ndarray) -> np.ndarray:
     dots = (t @ t.T).numpy()
     qq = np.einsum("wd,wd->w", qs, qs)
     return (2.0 * dots - qq[:, None] - qq[None, :]).astype(np.float32)
-
-
-def _phase(name: str):
-    """Timing context for one bulk-build phase (no-op unless BUILD_TIMER)."""
-    if BUILD_TIMER is None:
-        return contextlib.nullcontext()
-    return BUILD_TIMER.phase(name)
 
 
 def _wave_split() -> bool:
@@ -452,7 +444,7 @@ def dispatch_wave(index, names, data, ef: int) -> InFlightWave:
             w_up *= 2
         up_sel = np.full(w_up, up_lanes[0], np.int32)
         up_sel[: up_lanes.size] = up_lanes
-    with _phase("device_pass"):
+    with profiling.span("device_pass"):
         qs_dev = to_device(qs_pad, dev)
         lv_dev = to_device(levels_d, dev)
         sel_dev = None if up_sel is None else to_device(up_sel, dev)
@@ -488,7 +480,7 @@ def dispatch_wave(index, names, data, ef: int) -> InFlightWave:
     if cross is None:
         # euclidean intra-wave sims: a small host gemm that both backends
         # consume, so py/native builds stay identical
-        with _phase("host_cross"):
+        with profiling.span("host_cross"):
             cross = _host_cross(qs)
     w = InFlightWave()
     w.names, w.qs, w.qs_dev, w.levels = names, qs, qs_dev, levels
@@ -512,7 +504,7 @@ def complete_wave(index, wave: InFlightWave) -> None:
     names, qs, levels = wave.names, wave.qs, wave.levels
     cross, l_max = wave.cross, wave.l_max
     W = len(names)
-    with _phase("fetch_results"):
+    with profiling.span("fetch_results"):
         # one device->host copy of the packed buffer, then host slicing
         up_ids, up_sims, l0_ids, l0_sims = unpack_scores(
             wave.flat.cpu().numpy(),
@@ -543,7 +535,7 @@ def complete_wave(index, wave: InFlightWave) -> None:
 
     # 3. host surgery, in wave order (core.rs:523-599 per insert)
     if index._native is not None:
-        with _phase("host_surgery"):
+        with profiling.span("host_surgery"):
             rows = np.empty(W, np.int32)
             for i in range(W):
                 rows[i] = index._alloc_row(
@@ -560,7 +552,7 @@ def complete_wave(index, wave: InFlightWave) -> None:
             index._bump(W)
         return
 
-    with _phase("host_surgery"):
+    with profiling.span("host_surgery"):
         rows = np.empty(W, np.int64)
         m = cfg.m
         for i in range(W):

@@ -100,6 +100,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from ..utils import profiling
 from . import distance as D
 from .cuda_count import count_gt_eq
 from .cuda_count_hamming import count_hamming
@@ -280,8 +281,31 @@ CERT_MIN_ROWS = 1 << 19
 CERT_MAX_DIM = 768
 
 # Observability for tests and benchmarks: batches served by the
-# certified path, and how many queries needed the exact fallback.
-CERT_STATS = {"batches": 0, "queries": 0, "fallback_queries": 0}
+# certified path, and how many queries needed the exact fallback
+# (``fallback_queries``, the uncertified ones). The exact tier served
+# again, apart: ``whole_batch_queries``, the queries of batches rerun
+# whole because more than a quarter were uncertified;
+# ``rerun_queries``, uncertified queries rerun by themselves (deferred to
+# a rerun sink, or at once); ``audit_queries``, the queries of audited
+# batches (CERT_AUDIT_EVERY). The open request's record counts the last
+# three and ``cert_queries`` (utils/profiling.py).
+CERT_STATS = {"batches": 0, "queries": 0, "fallback_queries": 0,
+              "whole_batch_queries": 0, "rerun_queries": 0,
+              "audit_queries": 0}
+
+
+def count_certified(n_q: int) -> None:
+    """Count a batch of ``n_q`` queries served by a certified tier."""
+    CERT_STATS["batches"] += 1
+    CERT_STATS["queries"] += n_q
+    profiling.count("cert_queries", n_q)
+
+
+def count_rerun(key: str, n: int) -> None:
+    """Count ``n`` queries served again on the exact tier, under
+    CERT_STATS ``key`` and the open request's field of that name."""
+    CERT_STATS[key] += n
+    profiling.count(key, n)
 
 
 def cert_enabled(n_rows: int, dim: int = 0) -> bool:
@@ -432,7 +456,8 @@ def _exact_rows(exact, qd, rows, *, k: int):
     sel = np.zeros(pad_pow2(nb), np.int64)
     sel[:nb] = rows
     ids, sims = exact(qd[torch.from_numpy(sel).to(qd.device)], k=k)
-    return ids[:nb].cpu().numpy(), sims[:nb].cpu().numpy()
+    with profiling.span("card_wait"):
+        return ids[:nb].cpu().numpy(), sims[:nb].cpu().numpy()
 
 
 def certified_finish(exact, qd, fetch, *, k: int, n_q: int,
@@ -453,11 +478,11 @@ def certified_finish(exact, qd, fetch, *, k: int, n_q: int,
     uncertified rows are registered with the sink and patched when the
     caller flushes it, so a multi-batch loop serves them all in one
     exact batch. Audit batches and the pathological whole-batch fallback
-    stay immediate."""
+    stay immediate. Each path's queries are counted apart in CERT_STATS
+    (:func:`count_rerun`)."""
     ids, sims, okh = fetch()
     okh = okh != 0
-    CERT_STATS["batches"] += 1
-    CERT_STATS["queries"] += n_q
+    count_certified(n_q)
     audit = (
         CERT_AUDIT_EVERY > 0
         and CERT_STATS["batches"] % CERT_AUDIT_EVERY == 0
@@ -468,9 +493,12 @@ def certified_finish(exact, qd, fetch, *, k: int, n_q: int,
         if audit or len(bad) * 4 > n_q:
             # audit pass, or pathological (tie-heavy / adversarial) data
             # where the whole batch beats many small reruns
+            count_rerun("audit_queries" if audit else "whole_batch_queries",
+                        n_q)
             f_ids, f_sims = exact(qd, k=k)
-            f_ids = f_ids[:n_q].cpu().numpy()
-            f_sims = f_sims[:n_q].cpu().numpy()
+            with profiling.span("card_wait"):
+                f_ids = f_ids[:n_q].cpu().numpy()
+                f_sims = f_sims[:n_q].cpu().numpy()
             if audit:
                 CERT_STATS["audits"] = CERT_STATS.get("audits", 0) + 1
                 if not (
@@ -483,10 +511,12 @@ def certified_finish(exact, qd, fetch, *, k: int, n_q: int,
                         CERT_STATS.get("audit_mismatches", 0) + 1
                     )
             ids, sims = f_ids, f_sims
-        elif rerun_sink is not None and len(bad):
-            rerun_sink.add(exact, qd, bad, ids, sims, k)
         elif len(bad):
-            ids[bad], sims[bad] = _exact_rows(exact, qd, bad, k=k)
+            count_rerun("rerun_queries", len(bad))
+            if rerun_sink is not None:
+                rerun_sink.add(exact, qd, bad, ids, sims, k)
+            else:
+                ids[bad], sims[bad] = _exact_rows(exact, qd, bad, k=k)
     return ids, sims
 
 
@@ -1096,7 +1126,8 @@ class FetchGroup:
         host = [None] * len(self._parts)
         for idx, buf, event, _blob in self._copies:
             if event is not None:
-                event.synchronize()
+                with profiling.span("card_wait"):
+                    event.synchronize()
             raw, off = buf.numpy(), 0
             for i in idx:
                 t = self._parts[i]
@@ -1134,7 +1165,11 @@ def drain_pipelined(parts, dispatch, *, sink=None, default_window=1):
     callers assemble replies only from patched parts. A window holds
     :func:`fetch_window` chunks (``default_window`` when the environment
     does not say) whose replies share one copy, queued when the window
-    closes. Returns (id_parts, sim_parts)."""
+    closes. Returns (id_parts, sim_parts). Timed as the spans
+    ``dispatch`` (each dispatch half, each window's copy queued),
+    ``finish`` (each window's split and finish halves, its waits on the
+    card as ``card_wait`` inside it) and ``rerun`` (the sink's flush):
+    utils/profiling.py."""
     depth = pipeline_depth()
     window = fetch_window(default_window)
     pending: deque = deque()  # (FetchGroup, [finish, ...]) per window
@@ -1142,14 +1177,16 @@ def drain_pipelined(parts, dispatch, *, sink=None, default_window=1):
 
     def drain_window():
         group, fins = pending.popleft()
-        group.materialize()  # the window's one copy
-        for fin in fins:
-            i_p, s_p = fin()
-            id_parts.append(i_p)
-            sim_parts.append(s_p)
+        with profiling.span("finish"):
+            group.materialize()  # the window's one copy
+            for fin in fins:
+                i_p, s_p = fin()
+                id_parts.append(i_p)
+                sim_parts.append(s_p)
 
     def close(group, fins):
-        group.launch()
+        with profiling.span("dispatch"):
+            group.launch()
         pending.append((group, fins))
         while len(pending) > depth:
             drain_window()
@@ -1158,9 +1195,11 @@ def drain_pipelined(parts, dispatch, *, sink=None, default_window=1):
     for args in parts:
         _ACTIVE_GROUPS.stack.append(group)
         try:
-            fins.append(dispatch(*args))
+            with profiling.span("dispatch"):
+                fins.append(dispatch(*args))
         finally:
             _ACTIVE_GROUPS.stack.pop()
+        profiling.count("chunks", 1)
         if len(fins) >= window:
             close(group, fins)
             group, fins = FetchGroup(), []
@@ -1169,5 +1208,6 @@ def drain_pipelined(parts, dispatch, *, sink=None, default_window=1):
     while pending:
         drain_window()
     if sink is not None:
-        sink.flush()  # patches id_parts/sim_parts rows in place
+        with profiling.span("rerun"):
+            sink.flush()  # patches id_parts/sim_parts rows in place
     return id_parts, sim_parts

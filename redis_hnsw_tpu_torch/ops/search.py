@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from ..errors import DimensionMismatch
+from ..utils import profiling
 from . import distance as D
 from .cuda_gather import fused_block_score, fused_row_score
 
@@ -535,34 +536,36 @@ def assemble(names_array, ids, sims, reply: str):
     (names, sims) pair from [B, k] numpy ids/sims. Like the reference's
     search reply (src/lib.rs:484-495, types.rs:445-457) batch results
     carry (similarity, name) only; empty slots (id -1 or sim -inf) are
-    dropped, or None / -inf in the columnar form."""
+    dropped, or None / -inf in the columnar form. Timed as the span
+    ``assemble``."""
     from ..models.hnsw import SearchResult
 
-    names = names_array[np.maximum(ids, 0)]
-    if reply == "columnar":
-        invalid = (ids < 0) | np.isneginf(sims)
-        if invalid.any():
-            names = names.copy()
-            names[invalid] = None
-            sims = np.where(invalid, NEG_INF, sims).astype(np.float32)
-        return names, np.asarray(sims, np.float32)
-    ids_l = ids.tolist()
-    sims_l = sims.tolist()
-    names_l = names.tolist()
-    if (ids >= 0).all() and not np.isneginf(sims).any():
+    with profiling.span("assemble"):
+        names = names_array[np.maximum(ids, 0)]
+        if reply == "columnar":
+            invalid = (ids < 0) | np.isneginf(sims)
+            if invalid.any():
+                names = names.copy()
+                names[invalid] = None
+                sims = np.where(invalid, NEG_INF, sims).astype(np.float32)
+            return names, np.asarray(sims, np.float32)
+        ids_l = ids.tolist()
+        sims_l = sims.tolist()
+        names_l = names.tolist()
+        if (ids >= 0).all() and not np.isneginf(sims).any():
+            return [
+                [SearchResult(s, n) for n, s in zip(brow_names, bsim)]
+                for brow_names, bsim in zip(names_l, sims_l)
+            ]
+        neg_inf = float("-inf")
         return [
-            [SearchResult(s, n) for n, s in zip(brow_names, bsim)]
-            for brow_names, bsim in zip(names_l, sims_l)
+            [
+                SearchResult(s, n)
+                for row, s, n in zip(brow, bsim, bnames)
+                if row >= 0 and s != neg_inf
+            ]
+            for brow, bsim, bnames in zip(ids_l, sims_l, names_l)
         ]
-    neg_inf = float("-inf")
-    return [
-        [
-            SearchResult(s, n)
-            for row, s, n in zip(brow, bsim, bnames)
-            if row >= 0 and s != neg_inf
-        ]
-        for brow, bsim, bnames in zip(ids_l, sims_l, names_l)
-    ]
 
 
 def search_batch(
@@ -603,15 +606,18 @@ def search_batch(
 
     cfg = index.config
     engine = resolve_engine(engine, recall_target)
-    qs = coerce_queries(
-        queries, index._vectors.dtype, index._vectors.shape[1], cfg.metric
-    )
-    n_q = qs.shape[0]
-    if reply not in ("objects", "columnar"):
-        raise ValueError(f"unknown reply mode {reply!r}")
-    if index.enterpoint < 0 or index.node_count == 0:
-        return empty_reply(n_q, k, reply)
-    snap = index.device_snapshot(max_staleness=staleness)
+    with profiling.span("prepare"):
+        qs = coerce_queries(
+            queries, index._vectors.dtype, index._vectors.shape[1],
+            cfg.metric,
+        )
+        n_q = qs.shape[0]
+        profiling.count("queries", n_q)
+        if reply not in ("objects", "columnar"):
+            raise ValueError(f"unknown reply mode {reply!r}")
+        if index.enterpoint < 0 or index.node_count == 0:
+            return empty_reply(n_q, k, reply)
+        snap = index.device_snapshot(max_staleness=staleness)
     use_scan = engine in ("scan", "scan-approx") or (
         engine == "auto" and snap.n_pad <= SCAN_MAX_ROWS.get(cfg.metric, 0)
     )
@@ -658,10 +664,20 @@ def search_batch(
         ids = np.concatenate(id_parts)
         sims = np.concatenate(sim_parts)
     else:
-        ids, sims = scan_dispatch(
+        ids, sims = _one_chunk(lambda: scan_dispatch(
             index, qs, k, approx=approx, host_qs=hq, staleness=staleness,
-        )()
+        ))
     return assemble(index._names.names_array(), ids, sims, reply)
+
+
+def _one_chunk(dispatch):
+    """A block of one chunk, served without the pipelined drain:
+    ``dispatch()`` then its finish, timed as their spans."""
+    profiling.count("chunks", 1)
+    with profiling.span("dispatch"):
+        fin = dispatch()
+    with profiling.span("finish"):
+        return fin()
 
 
 def _graph_batch(index, snap, qs, k, ef_search, expand, iters, seeds,
@@ -691,9 +707,9 @@ def _graph_batch(index, snap, qs, k, ef_search, expand, iters, seeds,
     n_q = qs.shape[0]
     chunk = max_lanes_for(snap.n_pad)
     if n_q <= chunk:
-        ids, sims = _dispatch_search(snap, qs, ef, k, expand, iters,
-                                     seeds=seeds, pool=pool,
-                                     ids_only=ids_only)()
+        ids, sims = _one_chunk(lambda: _dispatch_search(
+            snap, qs, ef, k, expand, iters, seeds=seeds, pool=pool,
+            ids_only=ids_only))
     else:
         # one host->device copy for the whole block; the chunks below
         # are then device-side slices

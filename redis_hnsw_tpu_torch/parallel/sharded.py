@@ -63,6 +63,7 @@ import torch
 from ..config import IndexConfig
 from ..errors import NodeNotFound
 from ..models.hnsw import HNSWIndex, SearchResult
+from ..utils import profiling
 from .mesh import DATA_AXIS, Mesh, make_mesh
 
 NEG_INF = float("-inf")
@@ -158,8 +159,9 @@ class _ShardedCertRerunSink:
         gb, sb, _ = self._index._scan_chunk(
             self._states, self._index._device_queries(rows), 0, len(rows),
             self._k, self._n_pad, cert=False)
-        gb = gb[: len(rows)].cpu().numpy()
-        sb = sb[: len(rows)].cpu().numpy()
+        with profiling.span("card_wait"):
+            gb = gb[: len(rows)].cpu().numpy()
+            sb = sb[: len(rows)].cpu().numpy()
         lo = 0
         for _, bad, gids, sims in self._items:
             gids[bad] = gb[lo : lo + len(bad)]
@@ -253,7 +255,7 @@ class ShardedHNSW:
         wrote), so the graphs are the ones a plain per-shard build gives
         (``interleave=False``). On the card the beams of a device pass
         sync the host once per step, so the overlap is partial."""
-        from ..ops.construct import _phase, complete_wave, dispatch_wave
+        from ..ops.construct import complete_wave, dispatch_wave
         from ..ops.search import max_lanes_for
 
         names = list(names)
@@ -296,7 +298,7 @@ class ShardedHNSW:
                 return
             shard = self.shards[s]
             with _devctx(self.devices[s]):
-                with _phase("snapshot_refresh"):
+                with profiling.span("snapshot_refresh"):
                     cap = max_lanes_for(shard.device_snapshot().n_pad)
                 hi = min(pos + min(batch_size, cap), len(ns))
                 inflight[s] = dispatch_wave(
@@ -498,14 +500,16 @@ class ShardedHNSW:
         engine = resolve_engine(engine, recall_target)
         if reply not in ("objects", "columnar"):
             raise ValueError(f"unknown reply mode {reply!r}")
-        if isinstance(queries, torch.Tensor):
-            queries = queries.cpu().numpy()
-        vt = self.shards[0]._vectors
-        qs = coerce_queries(queries, vt.dtype, vt.shape[1], cfg.metric)
-        n_q = qs.shape[0]
-        if self.node_count == 0 or n_q == 0:
-            return empty_reply(n_q, k, reply)
-        snaps = [s.device_snapshot() for s in self.shards]
+        with profiling.span("prepare"):
+            if isinstance(queries, torch.Tensor):
+                queries = queries.cpu().numpy()
+            vt = self.shards[0]._vectors
+            qs = coerce_queries(queries, vt.dtype, vt.shape[1], cfg.metric)
+            n_q = qs.shape[0]
+            profiling.count("queries", n_q)
+            if self.node_count == 0 or n_q == 0:
+                return empty_reply(n_q, k, reply)
+            snaps = [s.device_snapshot() for s in self.shards]
         n_pad = max(sn.n_pad for sn in snaps)
         use_scan = engine in ("scan", "scan-approx") or (
             engine == "auto" and n_pad <= SCAN_MAX_ROWS.get(cfg.metric, 0)
@@ -569,8 +573,7 @@ class ShardedHNSW:
                 sims = None if get_sims is None else get_sims()
                 if get_ok is not None:
                     ok = get_ok() != 0
-                    SC.CERT_STATS["batches"] += 1
-                    SC.CERT_STATS["queries"] += pn
+                    SC.count_certified(pn)
                     if not ok.all():
                         bad = np.flatnonzero(~ok)
                         SC.CERT_STATS["fallback_queries"] += len(bad)
@@ -578,6 +581,9 @@ class ShardedHNSW:
                             # tie-heavy / adversarial chunk: re-serve it
                             # whole (the rule of certified_finish)
                             bad = np.arange(pn)
+                            SC.count_rerun("whole_batch_queries", pn)
+                        else:
+                            SC.count_rerun("rerun_queries", len(bad))
                         sink.add(qs[lo : lo + pn], bad, gids, sims)
                 return gids, sims
 
@@ -604,7 +610,8 @@ class ShardedHNSW:
             gids, sims = SC.sort_reply(gids, sims)
         else:
             sims = np.concatenate(s_parts)
-        return self._assemble(gids, sims, n_pad, reply)
+        with profiling.span("assemble"):
+            return self._assemble(gids, sims, n_pad, reply)
 
     def _assemble(self, gids, sims, n_pad: int, reply: str):
         """Columnar (names, sims) or per-query SearchResult lists from the
