@@ -35,7 +35,7 @@ from .errors import (
     NodeNotFound,
 )
 from .models.flat import FlatIndex
-from .models.hnsw import HNSWIndex, SearchResult
+from .models.hnsw import HNSWIndex
 from .utils.autotune import tune
 from .utils.streaming import run_mixed
 
@@ -44,11 +44,17 @@ __version__ = "0.1.0"
 
 def __getattr__(name: str):
     """``default_client`` (api.py): made on first access, on the card.
-    It is left out of ``__all__`` so a star import touches no device."""
+    It is left out of ``__all__`` so a star import touches no device.
+    ``SearchResult`` (models/hnsw.py): resolved at first access, where the
+    native reply type (csrc/reply.cpp) is built."""
     if name == "default_client":
         from . import api
 
         return api.default_client
+    if name == "SearchResult":
+        from .models import hnsw
+
+        return hnsw.result_type()
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

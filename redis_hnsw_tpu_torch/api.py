@@ -40,13 +40,17 @@ from __future__ import annotations
 
 import os
 import threading
+from typing import TYPE_CHECKING
 
 from .config import IndexConfig, resolve_device
 from .errors import IndexExists, IndexNotFound
 from .models.flat import FlatIndex
-from .models.hnsw import HNSWIndex, SearchResult
+from .models.hnsw import HNSWIndex
 from .parallel.sharded import ShardedHNSW
 from .utils import profiling
+
+if TYPE_CHECKING:
+    from .models.hnsw import SearchResult
 
 DEFAULT_K = 5  # src/lib.rs:120
 

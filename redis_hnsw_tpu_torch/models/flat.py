@@ -15,6 +15,8 @@ similarity conventions of the HNSW index.
 
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import numpy as np
 import torch
 
@@ -28,7 +30,9 @@ from ..errors import (
 )
 from ..utils import profiling
 from ..utils.names import NameTable
-from .hnsw import SearchResult
+
+if TYPE_CHECKING:
+    from .hnsw import SearchResult
 
 # Rows quantized at a time by the int8-resident tier's host quantizer:
 # bounds its f32 temporaries at capacity scale.

@@ -40,7 +40,6 @@ Key semantic notes (verified against the reference):
 
 from __future__ import annotations
 
-import dataclasses
 import heapq
 import math
 
@@ -56,20 +55,28 @@ from ..errors import (
 )
 from ..ops import distance as D
 from ..utils.names import NameTable
+from .result import SearchResult as PySearchResult
+
+# The module's ``SearchResult`` is resolved at first use (``__getattr__``
+# below): the native type of csrc/reply.cpp where it builds -- the same
+# fields, untracked by the cycle collector while they hold no container
+# -- else the dataclass of models/result.py.
 
 
-@dataclasses.dataclass(slots=True)
-class SearchResult:
-    """Mirror of the reference's SearchResult (core.rs:48-62).
+def result_type() -> type:
+    """The type every reply's results are made of: the native
+    ``SearchResult`` (native_reply.py) where it loads, else
+    :class:`PySearchResult`."""
+    from .. import native_reply
 
-    ``data`` is None in batch replies (the reference's search reply also
-    carries only similarity + name, src/types.rs:445-457); single-query
-    ``search_knn`` fills it like HNSW.NODE.GET would.
-    """
+    ext = native_reply.load()
+    return PySearchResult if ext is None else ext.SearchResult
 
-    sim: float
-    name: str
-    data: np.ndarray | None = None
+
+def __getattr__(name: str):
+    if name == "SearchResult":
+        return result_type()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 class HNSWIndex:
@@ -685,8 +692,9 @@ class HNSWIndex:
             ids, sims = self._native.search(
                 q, k, ef, self.enterpoint, self.max_layer
             )
+            make = result_type()
             return [
-                SearchResult(
+                make(
                     sim=float(s),
                     name=self._names.name(int(r)),
                     data=self._vectors[int(r)].copy(),
@@ -700,10 +708,11 @@ class HNSWIndex:
             ep = max(w)[1]
         w = self._search_level(q, ep, ef, 0)
 
+        make = result_type()
         out: list[SearchResult] = []
         for s, row in sorted(w, key=lambda p: (-p[0], p[1]))[:k]:
             out.append(
-                SearchResult(
+                make(
                     sim=float(s),
                     name=self._names.name(row),
                     data=self._vectors[row].copy(),

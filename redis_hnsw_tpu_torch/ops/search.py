@@ -538,34 +538,58 @@ def assemble(names_array, ids, sims, reply: str):
     carry (similarity, name) only; empty slots (id -1 or sim -inf) are
     dropped, or None / -inf in the columnar form. Timed as the span
     ``assemble``."""
-    from ..models.hnsw import SearchResult
-
     with profiling.span("assemble"):
+        if reply != "columnar":
+            return reply_objects(names_array, ids, sims)
         names = names_array[np.maximum(ids, 0)]
-        if reply == "columnar":
-            invalid = (ids < 0) | np.isneginf(sims)
-            if invalid.any():
-                names = names.copy()
-                names[invalid] = None
-                sims = np.where(invalid, NEG_INF, sims).astype(np.float32)
-            return names, np.asarray(sims, np.float32)
-        ids_l = ids.tolist()
-        sims_l = sims.tolist()
-        names_l = names.tolist()
-        if (ids >= 0).all() and not np.isneginf(sims).any():
-            return [
-                [SearchResult(s, n) for n, s in zip(brow_names, bsim)]
-                for brow_names, bsim in zip(names_l, sims_l)
-            ]
-        neg_inf = float("-inf")
+        invalid = (ids < 0) | np.isneginf(sims)
+        if invalid.any():
+            names = names.copy()
+            names[invalid] = None
+            sims = np.where(invalid, NEG_INF, sims).astype(np.float32)
+        return names, np.asarray(sims, np.float32)
+
+
+def reply_objects(names_array, ids, sims):
+    """Per-query SearchResult lists, nearest first, from the object
+    ndarray ``names_array`` (row -> name) and [B, k] numpy ids / sims;
+    slots with id < 0 or sim -inf are dropped. One native call
+    (csrc/reply.cpp ``build_reply``, counted ``native_reply_queries``)
+    where the extension loads: its results are untracked by the cycle
+    collector, and the call holds the collector off while it runs, so no
+    collection starts inside it. Else
+    :func:`reply_loop`, the same lists."""
+    from .. import native_reply
+
+    ext = native_reply.load()
+    if ext is None:
+        return reply_loop(names_array, ids, sims)
+    out = ext.build_reply(names_array, ids, sims)
+    profiling.count("native_reply_queries", len(out))
+    return out
+
+
+def reply_loop(names_array, ids, sims):
+    """:func:`reply_objects` in Python, with models/result.py's
+    dataclass: the form where the extension cannot be built."""
+    from ..models.result import SearchResult
+
+    names_l = names_array[np.maximum(ids, 0)].tolist()
+    sims_l = sims.tolist()
+    if (ids >= 0).all() and not np.isneginf(sims).any():
         return [
-            [
-                SearchResult(s, n)
-                for row, s, n in zip(brow, bsim, bnames)
-                if row >= 0 and s != neg_inf
-            ]
-            for brow, bsim, bnames in zip(ids_l, sims_l, names_l)
+            [SearchResult(s, n) for n, s in zip(brow_names, bsim)]
+            for brow_names, bsim in zip(names_l, sims_l)
         ]
+    neg_inf = float("-inf")
+    return [
+        [
+            SearchResult(s, n)
+            for row, s, n in zip(brow, bsim, bnames)
+            if row >= 0 and s != neg_inf
+        ]
+        for brow, bsim, bnames in zip(ids.tolist(), sims_l, names_l)
+    ]
 
 
 def search_batch(

@@ -56,15 +56,19 @@ import contextlib
 import json
 import os
 import zlib
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
 
 from ..config import IndexConfig
 from ..errors import NodeNotFound
-from ..models.hnsw import HNSWIndex, SearchResult
+from ..models.hnsw import HNSWIndex
 from ..utils import profiling
 from .mesh import DATA_AXIS, Mesh, make_mesh
+
+if TYPE_CHECKING:
+    from ..models.hnsw import SearchResult
 
 NEG_INF = float("-inf")
 
@@ -617,29 +621,23 @@ class ShardedHNSW:
         """Columnar (names, sims) or per-query SearchResult lists from the
         merged global ids; empty slots (-1 or -inf) dropped, or None /
         -inf in the columnar form."""
+        from ..ops.search import reply_objects
+
         sims = np.asarray(sims, np.float32)
         valid = (gids >= 0) & ~np.isneginf(sims)
+        names = np.full(gids.shape, None, object)
+        shard_idx, rows = gids // n_pad, gids % n_pad
+        for si, shard in enumerate(self.shards):
+            m = valid & (shard_idx == si)
+            if m.any():
+                names[m] = shard._names.names_array()[rows[m]]
         if reply == "columnar":
-            names = np.full(gids.shape, None, object)
-            shard_idx, rows = gids // n_pad, gids % n_pad
-            for si, shard in enumerate(self.shards):
-                m = valid & (shard_idx == si)
-                if m.any():
-                    names[m] = shard._names.names_array()[rows[m]]
             return names, np.where(valid, sims, np.float32(NEG_INF))
-        out = []
-        for b in range(gids.shape[0]):
-            res = []
-            for col in range(gids.shape[1]):
-                if not valid[b, col]:
-                    continue
-                g = int(gids[b, col])
-                res.append(SearchResult(
-                    sim=float(sims[b, col]),
-                    name=self.shards[g // n_pad]._names.name(g % n_pad),
-                ))
-            out.append(res)
-        return out
+        # The objects from the [B, k] names, slot by slot: build_reply
+        # reads slot b * k + j of the flattened names, -1 where empty.
+        slots = np.arange(gids.size).reshape(gids.shape)
+        return reply_objects(names.reshape(-1), np.where(valid, slots, -1),
+                             sims)
 
     # -- persistence --------------------------------------------------------
 
