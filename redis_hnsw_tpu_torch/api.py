@@ -295,8 +295,10 @@ class HNSW:
         ``search_batch`` call of any client of this process, as
         ``{field: int64 array}``: the request's time, its lock wait, the
         self time of each span of the serving path, the collector's
-        pauses, queries, chunks, the certified tier's fallback counts,
-        whether it failed (utils/profiling.py ``FIELDS``; times in ns)."""
+        pauses, queries, chunks, the queries the certified tier served
+        and its fallback counts, those the exact tier served
+        (``exact_queries``), whether it failed (utils/profiling.py
+        ``FIELDS``; times in ns)."""
         return profiling.recent(n)
 
 

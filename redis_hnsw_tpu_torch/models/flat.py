@@ -319,6 +319,7 @@ class FlatIndex:
             sims = np.empty((0, int(k)), np.float32)
         elif use_pallas and tscale is None:
             profiling.count("chunks", 1)
+            profiling.count("exact_queries", n_q)
             with profiling.span("dispatch"):
                 qd = SC.pad_queries(qs, n_q, vecs.device)
                 if metric == "hamming":

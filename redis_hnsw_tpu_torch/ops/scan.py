@@ -854,7 +854,11 @@ def serve_block(vecs, sqn, live, qd, *, k: int, n_q: int, metric: str,
     ``ids_only`` copies only the ids off the card and finishes with
     ``(ids, None)``; the caller rescores the sims on the host (the
     ids-reply mode). On the certified tier the fallback runs at once and
-    patches the sims too, so that tier still copies them."""
+    patches the sims too, so that tier still copies them.
+
+    Where kernel A or A′ serves the block alone (the exact and approx
+    tiers), the open request's record counts its ``n_q`` queries as
+    ``exact_queries`` (utils/profiling.py)."""
     if metric == "hamming":
         if not approx and hamming_cert_ready(int(vecs.shape[0]),
                                              int(vecs.shape[1])):
@@ -869,6 +873,7 @@ def serve_block(vecs, sqn, live, qd, *, k: int, n_q: int, metric: str,
                 )
 
             return finish_hamming_cert
+        profiling.count("exact_queries", n_q)
         ids, sims = scan_topk_exact_hamming(vecs, live, qd, k=k)
     elif (table is None and not approx
           and cert_enabled(int(vecs.shape[0]), int(vecs.shape[1]))):
@@ -886,6 +891,8 @@ def serve_block(vecs, sqn, live, qd, *, k: int, n_q: int, metric: str,
 
         return finish_cert
     else:
+        if table is None:
+            profiling.count("exact_queries", n_q)
         ids, sims = scan_topk_exact_l2(vecs, sqn, live, qd, k=k,
                                        table=table, tscale=tscale)
     get_ids = fetch_handle(ids[:n_q])
