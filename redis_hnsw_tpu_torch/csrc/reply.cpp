@@ -31,6 +31,7 @@
 #define NPY_NO_DEPRECATED_API NPY_1_7_API_VERSION
 #include <numpy/arrayobject.h>
 
+#include <algorithm>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
@@ -237,6 +238,17 @@ PyMethodDef result_methods[] = {
     {nullptr, nullptr, 0, nullptr},
 };
 
+// Each answer costs two dependent cache misses: its slot of the names array
+// (8 bytes a row, read at random) and then the name object that slot points
+// to, whose refcount Py_NewRef writes. Every id is known before the first
+// answer is built, so `build` fetches both ahead, over the flattened
+// [n_rows * k] slots: at slot t, the names-array slot of slot t + kSlotAhead
+// and the name object of slot t + kNameAhead, whose names-array slot the
+// first stage has already brought in. Distances in slots, from a sweep on
+// the card's host (PERF.md §5).
+constexpr npy_intp kSlotAhead = 64;
+constexpr npy_intp kNameAhead = 32;
+
 // The lists of one reply: per row of ids / sims ([n_rows, k], C order),
 // a result for each slot with id >= 0 and sim != -inf (NaN is kept), in
 // slot order -- the rule of the Python loop in ops/search.py.
@@ -245,6 +257,26 @@ PyObject *build(PyArrayObject *names, const std::int64_t *ids,
   const npy_intp n_names = PyArray_DIM(names, 0);
   const npy_intp stride = PyArray_STRIDE(names, 0);
   const char *base = PyArray_BYTES(names);
+  const npy_intp n_slots = n_rows * k;
+  // The names-array slot of flat slot t; nullptr where its id is out of
+  // range (the main loop skips or rejects that slot).
+  auto slot = [&](npy_intp t) -> PyObject *const * {
+    const std::int64_t id = ids[t];
+    if (id < 0 || id >= n_names) return nullptr;
+    return reinterpret_cast<PyObject *const *>(base + id * stride);
+  };
+  // Inlined by force: GCC takes a function whose only effect is a prefetch
+  // for one with no effect, and drops the calls.
+  auto fetch_slot = [&](npy_intp t) __attribute__((always_inline)) {
+    if (PyObject *const *s = slot(t)) __builtin_prefetch(s);
+  };
+  auto fetch_name = [&](npy_intp t) __attribute__((always_inline)) {
+    if (PyObject *const *s = slot(t)) {
+      if (*s != nullptr) __builtin_prefetch(*s, 1);
+    }
+  };
+  for (npy_intp t = 0; t < std::min(kSlotAhead, n_slots); ++t) fetch_slot(t);
+  for (npy_intp t = 0; t < std::min(kNameAhead, n_slots); ++t) fetch_name(t);
   PyObject *out = PyList_New(n_rows);
   if (out == nullptr) return nullptr;
   for (npy_intp b = 0; b < n_rows; ++b) {
@@ -262,6 +294,9 @@ PyObject *build(PyArrayObject *names, const std::int64_t *ids,
     PyList_SET_ITEM(out, b, row);
     npy_intp at = 0;
     for (npy_intp j = 0; j < k; ++j) {
+      const npy_intp t = b * k + j;
+      if (t + kSlotAhead < n_slots) fetch_slot(t + kSlotAhead);
+      if (t + kNameAhead < n_slots) fetch_name(t + kNameAhead);
       const std::int64_t id = row_ids[j];
       if (id < 0 || row_sims[j] == -INFINITY) continue;
       if (id >= n_names) {

@@ -28,7 +28,17 @@ _ext = None
 _tried = False
 
 
-def _build() -> str:
+def build_module(src: str = _SRC):
+    """Compile ``src`` (this package's reply.cpp by default; another copy
+    of it, for tools/reply_times.py) and load it as a fresh module."""
+    loader = importlib.machinery.ExtensionFileLoader(_NAME, _build(src))
+    spec = importlib.util.spec_from_loader(_NAME, loader)
+    ext = importlib.util.module_from_spec(spec)
+    loader.exec_module(ext)
+    return ext
+
+
+def _build(src: str) -> str:
     import numpy as np
 
     py_inc = sysconfig.get_paths()["include"]
@@ -38,10 +48,10 @@ def _build() -> str:
         os.path.join(np_inc, "numpy", "_numpyconfig.h"),
     ]
     _, finish = start_build(
-        "native", "reply", [_SRC], headers,
+        "native", "reply", [src], headers,
         lambda out: [
             "g++", "-O3", "-std=c++17", "-fPIC", "-shared",
-            f"-I{py_inc}", f"-I{np_inc}", "-o", out, _SRC,
+            f"-I{py_inc}", f"-I{np_inc}", "-o", out, src,
         ],
     )
     return finish()
@@ -56,11 +66,7 @@ def load():
             return _ext
         _tried = True
         try:
-            loader = importlib.machinery.ExtensionFileLoader(_NAME, _build())
-            spec = importlib.util.spec_from_loader(_NAME, loader)
-            ext = importlib.util.module_from_spec(spec)
-            loader.exec_module(ext)
-            _ext = ext
+            _ext = build_module()
         except (OSError, RuntimeError, ImportError):
             # OSError: no g++ or no header; RuntimeError: the compile
             # failed; ImportError: this interpreter cannot load it.

@@ -9,7 +9,9 @@ the native cases skip and the fallback's run."""
 
 import copy
 import gc
+import os
 import pickle
+import re
 import sys
 import weakref
 
@@ -24,6 +26,25 @@ from redis_hnsw_tpu_torch.parallel import ShardedHNSW, make_mesh
 from redis_hnsw_tpu_torch.utils import profiling as P
 
 NEG_INF = float("-inf")
+
+
+def prefetch_distances():
+    """(kNameAhead, kSlotAhead) of csrc/reply.cpp: how many slots ahead
+    ``build_reply`` fetches each answer's name object and names-array
+    slot."""
+    with open(os.path.join(os.path.dirname(native_reply.__file__), "csrc",
+                           "reply.cpp")) as f:
+        src = f.read()
+    return tuple(
+        int(re.search(rf"constexpr npy_intp {name} = (\d+);", src).group(1))
+        for name in ("kNameAhead", "kSlotAhead"))
+
+
+NAME_AHEAD, SLOT_AHEAD = prefetch_distances()
+# Flat slots where the two stages' read-ahead starts and wraps.
+AHEAD_SLOTS = sorted({0, NAME_AHEAD - 1, NAME_AHEAD, NAME_AHEAD + 1,
+                      SLOT_AHEAD - 1, SLOT_AHEAD, SLOT_AHEAD + 1,
+                      SLOT_AHEAD + NAME_AHEAD})
 
 needs_native = pytest.mark.skipif(
     native_reply.load() is None,
@@ -49,12 +70,28 @@ def name_table(n):
 
 
 def reply_inputs(rng, b, k, n_names, id_dtype, sim_dtype, holes):
+    """Names, [b, k] ids and sims. ``holes``: True for random empty slots
+    (id -1 or sim -inf), False for none; at the slots of AHEAD_SLOTS,
+    "ahead" puts a negative id there and sim -inf one slot on, "last" the last
+    name's id; "strided" and "reversed" read the names through a view of
+    step 2 or -1."""
     names = name_table(n_names)
+    if holes == "strided":
+        names = name_table(2 * n_names)[::2]
+    elif holes == "reversed":
+        names = names[::-1]
     ids = rng.integers(0, n_names, (b, k)).astype(id_dtype)
     sims = -np.sort(rng.random((b, k)) * 4, axis=1).astype(sim_dtype)
-    if holes:
+    at = [t for t in AHEAD_SLOTS if t < b * k]
+    if holes is True:
         ids[rng.random((b, k)) < 0.15] = -1
         sims[rng.random((b, k)) < 0.15] = NEG_INF
+    elif holes == "ahead":  # far below 0 too: a read there would fault
+        ids.reshape(-1)[at] = -1
+        ids.reshape(-1)[at[1::2]] = np.iinfo(id_dtype).min
+        sims.reshape(-1)[[t + 1 for t in at if t + 1 < b * k]] = NEG_INF
+    elif holes == "last":
+        ids.reshape(-1)[at] = n_names - 1
     return names, ids, sims
 
 
@@ -96,6 +133,15 @@ def assert_reply(got, want):
 @pytest.mark.parametrize("shape,holes", [
     ((37, 10), True), ((37, 10), False), ((1, 1), False), ((5, 0), False),
     ((0, 10), False), ((64, 3), True),
+    # Replies one shorter than, as long as and one longer than each
+    # prefetch distance; then every edge over several distances' slots.
+    *(((1, d + e), False) for d in (NAME_AHEAD, SLOT_AHEAD)
+      for e in (-1, 0, 1)),
+    ((3, SLOT_AHEAD + NAME_AHEAD), "ahead"),
+    ((SLOT_AHEAD + NAME_AHEAD, 3), "ahead"),
+    ((3, SLOT_AHEAD + NAME_AHEAD), "last"),
+    ((3, SLOT_AHEAD + NAME_AHEAD), "strided"),
+    ((3, SLOT_AHEAD + NAME_AHEAD), "reversed"),
 ])
 def test_reply_equals_the_plain_rule(form, rng, id_dtype, sim_dtype, shape,
                                      holes):
@@ -109,21 +155,33 @@ def test_reply_equals_the_plain_rule(form, rng, id_dtype, sim_dtype, shape,
 
 
 @pytest.mark.parametrize("case", ["id_past_the_names", "names_not_objects",
-                                  "names_2d", "shapes_differ"])
+                                  "names_2d", "shapes_differ",
+                                  "id_past_the_names_beyond_the_prefetch"])
 @needs_native
 def test_build_reply_rejects_bad_input(case):
+    """Each raises, and leaves the names' refcounts as it found them: the
+    results built before an out-of-range id are freed."""
     build = native_reply.load().build_reply
     names = name_table(4)
     ids = np.array([[0, 3]])
     sims = np.array([[-1.0, -2.0]], np.float32)
+    # Past the first slots the stages fetch before the loop starts: the
+    # read-ahead meets the bad id before the loop does, and skips it.
+    n = 2 * (SLOT_AHEAD + NAME_AHEAD)
+    far_ids = (np.arange(n) % 4).reshape(2, -1)
+    far_ids.reshape(-1)[SLOT_AHEAD + NAME_AHEAD + 1] = 1 << 40
     err, args = {
         "id_past_the_names": (IndexError, (names, ids + 1, sims)),
         "names_not_objects": (TypeError, (np.arange(4), ids, sims)),
         "names_2d": (TypeError, (names.reshape(2, 2), ids, sims)),
         "shapes_differ": (ValueError, (names, ids, sims[:, :1])),
+        "id_past_the_names_beyond_the_prefetch": (
+            IndexError, (names, far_ids, -np.ones(far_ids.shape))),
     }[case]
+    before = refcounts(names)
     with pytest.raises(err):
         build(*args)
+    assert refcounts(names) == before
 
 
 @pytest.mark.parametrize("enabled", [True, False])
@@ -252,15 +310,19 @@ def test_a_cycle_through_a_result_is_collected():
     assert gone == [1]
 
 
+def refcounts(names):
+    return [sys.getrefcount(n) for n in names]
+
+
 def test_names_keep_their_refcounts(form, rng):
     names, ids, sims = reply_inputs(rng, 20, 10, 30, np.int32, np.float32,
                                     True)
-    before = [sys.getrefcount(n) for n in names]
+    before = refcounts(names)
     reply = TSE.reply_objects(names, ids, sims)
     held = sum(len(row) for row in reply)
-    assert sum(sys.getrefcount(n) for n in names) == sum(before) + held
+    assert sum(refcounts(names)) == sum(before) + held
     del reply
-    assert [sys.getrefcount(n) for n in names] == before
+    assert refcounts(names) == before
 
 
 def collections(build):
