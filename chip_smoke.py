@@ -3630,9 +3630,7 @@ def phase_tier_flat(client, dev, flat_ref, kernel_ms, k=10):
             launches = {key: v - before[key]
                         for key, v in read_counts().items()}
             peak = torch.cuda.max_memory_allocated()
-            table = idx._device()[0]
-            if dtype == "bf16":
-                table = idx._tier_cache[1]
+            table = idx.scan_state()[0]
             rows = rows_of(idx, names)
             gap = direct_sims_check(vecs_t, qs, rows, sims, f"5a {label}")
             core = "scan_topk_" + dtype
@@ -3657,7 +3655,6 @@ def phase_tier_flat(client, dev, flat_ref, kernel_ms, k=10):
             check(launches[core] > 0 and launches["scan_topk"] == 0,
                   f"5a {label}: the tier's kernel never launched, or kernel "
                   f"A did: {launches}")
-    idx._tier_cache = None
     f32_bytes = 1_000_064 * 128 * 4
     check(out["int8 x8"]["table_bytes"] * 4 == f32_bytes,
           "5a: the int8-resident table is not a quarter of the f32 table")
@@ -4035,7 +4032,7 @@ def phase_pipeline(client, dev, flat_qs, k=10):
         with env(SCAN_DTYPE="int8", INT8_RESCORE=mult):
             pipeline_table(f"flat-sift1m int8-resident x{mult}", flat_search,
                            n_q, [SERIAL, DEPTH2])
-    flat._dev = None  # the int8 table goes; the f32 one is not needed again
+    flat._scan_cache = None  # the int8 tables go; no f32 ones are needed
     hidx = client.index("flat-hamming-sift256")
     hqs = np.random.default_rng(SEED + 10).integers(
         0, 2**32, (PIPELINE_NQ, 8), dtype=np.uint32)

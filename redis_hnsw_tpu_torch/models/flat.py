@@ -3,8 +3,9 @@
 Port of ``redis_hnsw_tpu/models/flat.py``. Not present in the reference
 (which only has the HNSW graph): it is the exact-kNN oracle and an index
 kind of its own -- at up to millions of rows a full scan on the card is
-exact and holds no graph. It serves through the same scan engine as the
-HNSW index (ops/scan.py serve_block): the exact tier, or for euclidean
+exact and holds no graph. It serves through the same scan engine and
+chunk loop as the HNSW index's scan route (ops/search.py scan_block,
+ops/scan.py serve_block): the exact tier, or for euclidean
 the certified-exact tier at >= 2^19 rows (for hamming the certified
 hamming tier, with REDIS_HNSW_TPU_SCAN_CERT=1), and the scan-approx tier
 when asked; under REDIS_HNSW_TPU_SCAN_DTYPE the bf16 tier (a bf16 copy beside
@@ -72,9 +73,7 @@ class FlatIndex:
         self._valid = np.zeros(cap, bool)
         self._names = NameTable()
         self._epoch = 0
-        self._dev = None
-        self._dev_epoch = None
-        self._tier_cache = None  # (epoch, the bf16 tier's table)
+        self._scan_cache = None  # ((epoch, tier), scan_state())
 
     @property
     def node_count(self) -> int:
@@ -196,71 +195,75 @@ class FlatIndex:
             self._valid[self._names.free(n)] = False
         self._epoch += 1
 
-    def _device(self):
-        """Device tables (table, sqn, valid, tscale) of the current epoch
-        and tier: rows padded to a multiple of 128, sqnorms computed on
+    def scan_state(self):
+        """The scan's device state of the current epoch and tier, in
+        ops/scan.py ``_scan_state``'s form: (table, vecs, sqn, live,
+        tscale). Rows are padded to a multiple of 128, sqnorms computed on
         the host with np.einsum (as the JAX package does, so the tables
         are byte-equal; zeros for hamming). Packed hamming words go up as
         int32, as the snapshot's do: torch has no full uint32 type.
 
-        ``tscale`` is None except in the int8-RESIDENT tier
-        (REDIS_HNSW_TPU_SCAN_DTYPE=int8 on a euclidean table): there the
-        f32 rows never reach the card -- ``table`` is the int8 copy,
-        quantized on the host (:func:`quantize_rows`, its rows padded to
-        4 bytes), a quarter of the bytes -- and the selected candidates
-        are rescored exactly on the host, where the f32 rows live
-        (search_batch)."""
-        from ..ops.cuda_scan import lowp_pad
-        from ..ops.scan import scan_dtype
+        ``table`` is the selection table: ``vecs`` itself, or under
+        REDIS_HNSW_TPU_SCAN_DTYPE=bf16 a bf16 copy built on the card. On
+        the int8-RESIDENT tier (REDIS_HNSW_TPU_SCAN_DTYPE=int8 on a
+        euclidean table) the f32 rows never reach the card: ``vecs`` is
+        None, ``table`` the int8 copy, quantized on the host
+        (:func:`quantize_rows`, its rows padded to 4 bytes), a quarter of
+        the bytes, with its per-row ``tscale`` (None on the other tiers),
+        and the selected candidates are rescored exactly on the host,
+        where the f32 rows live. Built once per (epoch, tier), the old
+        tables freed first."""
+        from ..ops.cuda_scan import lowp_pad, pad_lowp_rows
+        from ..ops.scan import _to_bf16, scan_dtype
         from ..ops.snapshot import to_device
 
-        resident = (
-            self.config.metric == "euclidean" and scan_dtype() == "int8"
-        )
-        if self._dev is None or self._dev_epoch != (self._epoch, resident):
-            n = max(self._names.high_water, 1)
-            n_pad = ((n + 127) // 128) * 128
-            if self._vectors.shape[0] == n_pad:
-                vecs = self._vectors
-            else:
-                vecs = np.zeros(
-                    (n_pad, self._vectors.shape[1]), self._vectors.dtype
-                )
-                vecs[:n] = self._vectors[:n]
-            valid = np.zeros(n_pad, bool)
-            valid[:n] = self._valid[:n]
-            if self.config.metric == "hamming":
-                sqn = np.zeros(n_pad, np.float32)
-            else:
-                sqn = np.einsum("nd,nd->n", vecs, vecs).astype(np.float32)
-            self._dev = self._tier_cache = None  # free the old tables
-            if resident:
-                q8, scale = quantize_rows(vecs)
-                pad = lowp_pad(q8.shape[1], 1)
-                if pad:  # rows of 4-byte multiples, as the core reads them
-                    q8 = np.pad(q8, ((0, 0), (0, pad)))
-                self._dev = tuple(
-                    to_device(a, self.device) for a in (q8, sqn, valid, scale)
-                )
-            else:
-                self._dev = tuple(
-                    to_device(a, self.device) for a in (vecs, sqn, valid)
-                ) + (None,)
-            self._dev_epoch = (self._epoch, resident)
-        return self._dev
-
-    def _bf16_table(self, vecs):
-        """The bf16 tier's selection table beside the f32 ``vecs``, built
-        on the card once per epoch."""
-        from ..ops.cuda_scan import pad_lowp_rows
-        from ..ops.scan import _to_bf16
-
-        cached = self._tier_cache
-        if cached is None or cached[0] != self._epoch:
-            self._tier_cache = cached = (
-                self._epoch, pad_lowp_rows(_to_bf16(vecs))
+        dt = scan_dtype() if self.config.metric == "euclidean" else "f32"
+        key = (self._epoch, dt)
+        cached = self._scan_cache
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        self._scan_cache = None  # free the old tables before building
+        n = max(self._names.high_water, 1)
+        n_pad = ((n + 127) // 128) * 128
+        if self._vectors.shape[0] == n_pad:
+            vecs = self._vectors
+        else:
+            vecs = np.zeros(
+                (n_pad, self._vectors.shape[1]), self._vectors.dtype
             )
-        return cached[1]
+            vecs[:n] = self._vectors[:n]
+        valid = np.zeros(n_pad, bool)
+        valid[:n] = self._valid[:n]
+        if self.config.metric == "hamming":
+            sqn = np.zeros(n_pad, np.float32)
+        else:
+            sqn = np.einsum("nd,nd->n", vecs, vecs).astype(np.float32)
+        if dt == "int8":
+            q8, scale = quantize_rows(vecs)
+            pad = lowp_pad(q8.shape[1], 1)
+            if pad:  # rows of 4-byte multiples, as the core reads them
+                q8 = np.pad(q8, ((0, 0), (0, pad)))
+            table, sqn, live, tscale = (
+                to_device(a, self.device) for a in (q8, sqn, valid, scale)
+            )
+            vecs = None
+        else:
+            vecs, sqn, live = (
+                to_device(a, self.device) for a in (vecs, sqn, valid)
+            )
+            table, tscale = vecs, None
+            if dt == "bf16":
+                table = pad_lowp_rows(_to_bf16(vecs))
+        state = (table, vecs, sqn, live, tscale)
+        self._scan_cache = (key, state)
+        return state
+
+    def _device(self):
+        """The device tables as the JAX package's flat index holds them:
+        (the f32 rows, or the int8-resident tier's int8 copy; sqn; live;
+        tscale), from :meth:`scan_state`."""
+        table, vecs, sqn, live, tscale = self.scan_state()
+        return (table if vecs is None else vecs, sqn, live, tscale)
 
     def search_batch(
         self, queries, k: int, use_pallas: bool = False,
@@ -270,10 +273,11 @@ class FlatIndex:
         """Batched exact k-NN. ``use_pallas=True`` runs the exact tier
         (kernel A, or A′ for hamming) over the whole query block at once,
         the port of the JAX package's fused Pallas scan path;
-        the default serves through the scan engine in 2048-query chunks,
-        on the certified tier at >= 2^19 euclidean rows, and on the
-        certified hamming tier where REDIS_HNSW_TPU_SCAN_CERT=1 and
-        ``hamming_cert_ready`` admit a hamming table. ``approx``, and
+        the default serves through the scan engine's chunk loop
+        (ops/search.py ``scan_block``), on the certified tier where
+        ops/scan.py ``certified_serves`` says so: at >= 2^19 euclidean
+        rows, and on a hamming table where REDIS_HNSW_TPU_SCAN_CERT=1
+        and the word-pack gate admit it. ``approx``, and
         a ``recall_target`` at or below the approx tier's floor, ask for
         the scan-approx tier (ops/scan.py serve_block).
         REDIS_HNSW_TPU_SCAN_DTYPE=bf16 selects on a bf16 copy of the
@@ -292,8 +296,8 @@ class FlatIndex:
             assemble,
             coerce_queries,
             empty_reply,
-            max_lanes_for,
             resolve_engine,
+            scan_block,
         )
 
         if reply not in ("objects", "columnar"):
@@ -310,14 +314,15 @@ class FlatIndex:
             profiling.count("queries", qs.shape[0])
             if self.node_count == 0:
                 return empty_reply(qs.shape[0], k, reply)
-            vecs, sqn, valid, tscale = self._device()
+            state = self.scan_state()
+        _, vecs, sqn, valid, tscale = state
         metric = self.config.metric
-        k_eff = min(int(k), int(vecs.shape[0]))
         n_q = qs.shape[0]
         if n_q == 0:
             ids = np.empty((0, int(k)), np.int32)
             sims = np.empty((0, int(k)), np.float32)
         elif use_pallas and tscale is None:
+            k_eff = min(int(k), int(vecs.shape[0]))
             profiling.count("chunks", 1)
             profiling.count("exact_queries", n_q)
             with profiling.span("dispatch"):
@@ -331,58 +336,11 @@ class FlatIndex:
             with profiling.span("card_wait"):
                 ids, sims = ids.cpu().numpy(), sims.cpu().numpy()
         else:
-            table = None
-            if tscale is None and metric == "euclidean" and (
-                SC.scan_dtype() == "bf16"
-            ):
-                table = self._bf16_table(vecs)
-            hq = None
-            if tscale is not None:
-                # the host rescore's queries, copied off the card once,
-                # before the chunk loop
-                hq = host_qs if isinstance(qs, torch.Tensor) else qs
-                if hq is None:
-                    hq = qs.cpu().numpy()
-                hq = np.asarray(hq, np.float32)
-            chunk = max_lanes_for(int(vecs.shape[0]))
-            sink = SC.CertRerunSink()
-            qd = qs
-            if n_q > chunk:
-                # one host->device copy for the whole block
-                qd = SC.pad_queries(qs, n_q, vecs.device)
-
-            def dispatch(lo):
-                part = qd[lo : lo + chunk]
-                n_part = int(part.shape[0])
-                part = SC.pad_queries(part, SC.pad_pow2(n_part), vecs.device)
-                if tscale is not None:
-                    return SC.serve_resident_int8(
-                        vecs, sqn, valid, tscale, part, self._vectors,
-                        hq[lo : lo + n_part], k=k_eff, n_q=n_part,
-                    )
-                return SC.serve_block(
-                    vecs, sqn, valid, part, k=k_eff, n_q=n_part,
-                    metric=metric, rerun_sink=sink, approx=approx,
-                    table=table,
-                )
-
-            # the pipelined drain (ops/scan.py drain_pipelined); the fetch
-            # window defaults to FETCH_WINDOW_FAST where the certified or
-            # approx tier serves, as in the JAX package
-            n_rows, width = int(vecs.shape[0]), int(vecs.shape[1])
-            will_cert = tscale is None and table is None and (
-                (metric == "euclidean" and SC.cert_enabled(n_rows, width))
-                or (metric == "hamming"
-                    and SC.hamming_cert_ready(n_rows, width))
+            ids, sims = scan_block(
+                state, qs, k, metric=metric, approx=approx,
+                host_qs=host_qs if isinstance(qs, torch.Tensor) else qs,
+                host_vecs=self._vectors,
             )
-            id_parts, sim_parts = SC.drain_pipelined(
-                ((lo,) for lo in range(0, n_q, chunk)), dispatch, sink=sink,
-                default_window=(
-                    SC.FETCH_WINDOW_FAST if approx or will_cert else 1
-                ),
-            )
-            ids = np.concatenate(id_parts)
-            sims = np.concatenate(sim_parts)
         return assemble(self._names.names_array(), ids, sims, reply)
 
     def search_knn(self, data, k: int) -> list[SearchResult]:

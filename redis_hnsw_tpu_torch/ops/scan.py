@@ -6,7 +6,9 @@ SCAN_MAX_ROWS the scan serves ``search_batch``: it is
 exact (recall 1.0), and a whole query batch against the whole table is
 one dense pass that a GPU runs well.
 
-Two tiers, chosen per table by :func:`cert_enabled`:
+Two tiers, chosen per table by :func:`certified_serves` (the one tier
+rule of every caller), which for a euclidean table asks
+:func:`cert_enabled`:
 
 * **exact** (:func:`scan_topk_exact_l2`): kernel A (ops/cuda_scan.py)
   selects the top k by matmul-form score, at any k, the k are rescored
@@ -51,8 +53,8 @@ serves every k. Their **certified tier** is the JAX package's
 * k``, kernel B′ (ops/cuda_count_hamming.py) counts the rows above and
 at the k-th score t, and the deep certificate is checked against the
 WHOLE selection, so a tie class straddling k certifies when it fits in
-it; :func:`certified_finish_hamming` serves the uncertified queries
-again on the exact tier. :func:`hamming_cert_ready` says where it runs:
+it; :func:`certified_finish` serves the uncertified queries again on
+the exact tier. :func:`hamming_cert_ready` says where it runs:
 REDIS_HNSW_TPU_SCAN_CERT=1 serves it wherever the JAX package's two
 gates admit the table (the 31-bit word pack and ``cert_enabled`` at
 16 * words dims), 0 never. Under ``auto`` (the default) a hamming table
@@ -76,7 +78,9 @@ euclidean reply's ids off the card and rescores its sims on the host
 (:func:`reply_ids_engaged`).
 
 **The pipelined serving loop** (:func:`drain_pipelined`) serves every
-multi-chunk query block, as in the JAX package: each serving function is
+scan block (ops/search.py ``scan_block`` on one card, a block of one
+chunk too) and every multi-chunk graph and sharded block, as in the JAX
+package: each serving function is
 a dispatch half, which queues a chunk's kernels and registers its reply
 tensors with :func:`fetch_handle`, and returns a zero-argument finish
 half, which waits for the reply and does the host's part (the int8
@@ -350,14 +354,30 @@ def hamming_cert_ready(n_rows: int, words: int) -> bool:
     flat index): the JAX package's two gates -- its word-packed reply
     ``(dist << id_bits) | id`` must fit 31 bits, and
     :func:`hamming_cert_enabled`. The port packs no words, but keeps the
-    pack gate so that the same tables take the same tier. The fetch
-    window's default follows it (FETCH_WINDOW_FAST only where the tier
-    really runs)."""
+    pack gate so that the same tables take the same tier."""
     d_bits = 32 * int(words)
     id_bits = max((int(n_rows) - 1).bit_length(), 1)
     if d_bits.bit_length() + id_bits > 31:
         return False
     return hamming_cert_enabled(n_rows, words)
+
+
+def certified_serves(metric: str, n_rows: int, width: int, *,
+                     approx: bool = False, tiered: bool = False,
+                     word_pack: bool = True) -> bool:
+    """The tier rule of every scan: does a block on an ``n_rows`` x
+    ``width`` table take a certified tier? Never on the approx tier. A
+    euclidean table where :func:`cert_enabled` admits it and it does not
+    select on a bf16 or int8 copy (``tiered``); a hamming table of
+    ``width`` words where :func:`hamming_cert_ready` does, or with
+    ``word_pack=False`` (the sharded index) :func:`hamming_cert_enabled`."""
+    if approx:
+        return False
+    if metric == "hamming":
+        if word_pack:
+            return hamming_cert_ready(n_rows, width)
+        return hamming_cert_enabled(n_rows, width)
+    return not tiered and cert_enabled(n_rows, width)
 
 
 def _cert_verify(vecs, sqn, live, queries, ids, sims):
@@ -460,6 +480,33 @@ def _exact_rows(exact, qd, rows, *, k: int):
         return ids[:nb].cpu().numpy(), sims[:nb].cpu().numpy()
 
 
+def cert_fallback(ok, n_q: int, *, audits: bool = False):
+    """The certified tier's fallback rule over a batch of ``n_q`` queries
+    and its numpy bool verdicts ``ok``, with its counts. Returns ``(key,
+    bad)``: ``bad`` the uncertified rows; ``key`` None (nothing to serve
+    again), ``"rerun_queries"`` (the rows ``bad``), or the whole batch --
+    ``"audit_queries"`` on every CERT_AUDIT_EVERY-th certified batch where
+    the caller ``audits``, else ``"whole_batch_queries"`` where more than
+    a quarter are uncertified (tie-heavy data, where one whole rerun
+    beats many small ones)."""
+    count_certified(n_q)
+    audit = (
+        audits and CERT_AUDIT_EVERY > 0
+        and CERT_STATS["batches"] % CERT_AUDIT_EVERY == 0
+    )
+    if ok.all() and not audit:
+        return None, None
+    bad = np.flatnonzero(~ok)
+    CERT_STATS["fallback_queries"] += len(bad)
+    if audit or len(bad) * 4 > n_q:
+        key = "audit_queries" if audit else "whole_batch_queries"
+        count_rerun(key, n_q)
+    else:
+        key = "rerun_queries"
+        count_rerun(key, len(bad))
+    return key, bad
+
+
 def certified_finish(exact, qd, fetch, *, k: int, n_q: int,
                      rerun_sink=None):
     """Finish half of a certified tier: fetch the reply and the verdicts
@@ -477,46 +524,33 @@ def certified_finish(exact, qd, fetch, *, k: int, n_q: int,
     ``rerun_sink`` (a :class:`CertRerunSink`) defers the fallback rerun:
     uncertified rows are registered with the sink and patched when the
     caller flushes it, so a multi-batch loop serves them all in one
-    exact batch. Audit batches and the pathological whole-batch fallback
-    stay immediate. Each path's queries are counted apart in CERT_STATS
-    (:func:`count_rerun`)."""
+    exact batch. Audit batches and the whole-batch fallback stay
+    immediate. The choice and its counts are :func:`cert_fallback`'s."""
     ids, sims, okh = fetch()
     okh = okh != 0
-    count_certified(n_q)
-    audit = (
-        CERT_AUDIT_EVERY > 0
-        and CERT_STATS["batches"] % CERT_AUDIT_EVERY == 0
-    )
-    if not okh.all() or audit:
-        bad = np.flatnonzero(~okh)
-        CERT_STATS["fallback_queries"] += len(bad)
-        if audit or len(bad) * 4 > n_q:
-            # audit pass, or pathological (tie-heavy / adversarial) data
-            # where the whole batch beats many small reruns
-            count_rerun("audit_queries" if audit else "whole_batch_queries",
-                        n_q)
-            f_ids, f_sims = exact(qd, k=k)
-            with profiling.span("card_wait"):
-                f_ids = f_ids[:n_q].cpu().numpy()
-                f_sims = f_sims[:n_q].cpu().numpy()
-            if audit:
-                CERT_STATS["audits"] = CERT_STATS.get("audits", 0) + 1
-                if not (
-                    np.array_equal(ids[okh], f_ids[okh])
-                    and np.array_equal(
-                        sims[okh].view(np.int32), f_sims[okh].view(np.int32)
-                    )
-                ):
-                    CERT_STATS["audit_mismatches"] = (
-                        CERT_STATS.get("audit_mismatches", 0) + 1
-                    )
-            ids, sims = f_ids, f_sims
-        elif len(bad):
-            count_rerun("rerun_queries", len(bad))
-            if rerun_sink is not None:
-                rerun_sink.add(exact, qd, bad, ids, sims, k)
-            else:
-                ids[bad], sims[bad] = _exact_rows(exact, qd, bad, k=k)
+    key, bad = cert_fallback(okh, n_q, audits=True)
+    if key == "rerun_queries":
+        if rerun_sink is not None:
+            rerun_sink.add(exact, qd, bad, ids, sims, k)
+        else:
+            ids[bad], sims[bad] = _exact_rows(exact, qd, bad, k=k)
+    elif key is not None:
+        f_ids, f_sims = exact(qd, k=k)
+        with profiling.span("card_wait"):
+            f_ids = f_ids[:n_q].cpu().numpy()
+            f_sims = f_sims[:n_q].cpu().numpy()
+        if key == "audit_queries":
+            CERT_STATS["audits"] = CERT_STATS.get("audits", 0) + 1
+            if not (
+                np.array_equal(ids[okh], f_ids[okh])
+                and np.array_equal(
+                    sims[okh].view(np.int32), f_sims[okh].view(np.int32)
+                )
+            ):
+                CERT_STATS["audit_mismatches"] = (
+                    CERT_STATS.get("audit_mismatches", 0) + 1
+                )
+        ids, sims = f_ids, f_sims
     return ids, sims
 
 
@@ -602,23 +636,6 @@ def scan_certified_hamming(words, live, queries, *, k: int):
     c_gt, c_eq = count_hamming(queries, words, hamming_bias(live), t)
     ok = (c_gt == s_gt) & ((t == NEG_INF) | (c_eq == s_eq))
     return sel_ids[:, :k], hamming_reply_sims(sel_sims[:, :k]), ok
-
-
-def certified_finish_hamming(words, live, qd, fetch, *, k: int, n_q: int,
-                             rerun_sink=None):
-    """Finish half of the certified hamming tier, with every rule of the
-    JAX package's: :func:`certified_finish` with the table's exact
-    hamming tier (kernel A′) as its ``exact``. It counts the batch in
-    CERT_STATS and serves the uncertified queries again on the exact
-    tier: the whole batch when more than a quarter are uncertified or on
-    every CERT_AUDIT_EVERY-th batch (which is also byte-compared: the
-    integer scores leave no rounding to audit, so it audits the
-    plumbing), else deferred to ``rerun_sink``, else at once in one
-    pow2-padded batch."""
-    return certified_finish(
-        functools.partial(scan_topk_exact_hamming, words, live), qd, fetch,
-        k=k, n_q=n_q, rerun_sink=rerun_sink,
-    )
 
 
 # -- ids-only replies (host exact rescore) ------------------------------------
@@ -831,18 +848,16 @@ def serve_block(vecs, sqn, live, qd, *, k: int, n_q: int, metric: str,
                 rerun_sink=None, approx: bool = False, ids_only=False,
                 table=None, tscale=None):
     """Dispatch half: queue the kernels that serve the (padded) query
-    block ``qd`` on the tier its table takes -- a hamming table the
-    certified hamming tier (kernels A′ and B′) where
-    :func:`hamming_cert_ready` admits it and ``approx`` is not asked, else
-    its exact tier (kernel A′); a euclidean table the certified tier where
-    ``cert_enabled`` admits it and neither ``approx`` nor a tier
-    ``table`` is given, else the exact tier, selecting on ``table`` (with
-    ``tscale`` for int8) where one is given, kernel A-bf16 or A-int8, and
-    rescoring from ``vecs`` -- and register the reply with
-    :func:`fetch_handle`. Returns ``finish()``, which gives the ``(ids,
-    sims)`` numpy reply of the first ``n_q`` queries; ``rerun_sink``
-    defers the certified tier's fallback reruns. Nothing here waits for
-    the card.
+    block ``qd`` on the tier its table takes -- the certified tier where
+    :func:`certified_serves` says so (kernels A′ and B′ on a hamming
+    table; kernel D, or A and B, on a euclidean one), else the exact
+    tier: kernel A′ on a hamming table, kernel A on a euclidean one, or
+    kernel A-bf16 or A-int8 selecting on a tier ``table`` (with
+    ``tscale`` for int8) and rescoring from ``vecs`` -- and register the
+    reply with :func:`fetch_handle`. Returns ``finish()``, which gives
+    the ``(ids, sims)`` numpy reply of the first ``n_q`` queries;
+    ``rerun_sink`` defers the certified tier's fallback reruns. Nothing
+    here waits for the card.
 
     ``approx`` is the scan-approx tier. The JAX package selects it with
     ``jax.lax.approx_max_k`` at k_sel = 4k, which is exact off the TPU;
@@ -859,40 +874,34 @@ def serve_block(vecs, sqn, live, qd, *, k: int, n_q: int, metric: str,
     Where kernel A or A′ serves the block alone (the exact and approx
     tiers), the open request's record counts its ``n_q`` queries as
     ``exact_queries`` (utils/profiling.py)."""
-    if metric == "hamming":
-        if not approx and hamming_cert_ready(int(vecs.shape[0]),
-                                             int(vecs.shape[1])):
+    if certified_serves(metric, int(vecs.shape[0]), int(vecs.shape[1]),
+                        approx=approx, tiered=table is not None):
+        # the table's exact tier serves the uncertified queries again (on
+        # a hamming table the audit checks the plumbing: integer scores
+        # leave no rounding to audit)
+        if metric == "hamming":
             ids, sims, ok = scan_certified_hamming(vecs, live, qd, k=k)
-            gets = [fetch_handle(t[:n_q])
-                    for t in (ids, sims, ok.to(torch.uint8))]
-
-            def finish_hamming_cert():
-                return certified_finish_hamming(
-                    vecs, live, qd, lambda: [g() for g in gets], k=k,
-                    n_q=n_q, rerun_sink=rerun_sink,
-                )
-
-            return finish_hamming_cert
-        profiling.count("exact_queries", n_q)
-        ids, sims = scan_topk_exact_hamming(vecs, live, qd, k=k)
-    elif (table is None and not approx
-          and cert_enabled(int(vecs.shape[0]), int(vecs.shape[1]))):
-        ids, sims, ok = scan_certified_l2(vecs, sqn, live, qd, k=k)
+            exact = functools.partial(scan_topk_exact_hamming, vecs, live)
+        else:
+            ids, sims, ok = scan_certified_l2(vecs, sqn, live, qd, k=k)
+            exact = functools.partial(scan_topk_exact_l2, vecs, sqn, live)
         gets = [fetch_handle(t[:n_q])
                 for t in (ids, sims, ok.to(torch.uint8))]
         sink = None if ids_only else rerun_sink
 
         def finish_cert():
             ids, sims = certified_finish(
-                functools.partial(scan_topk_exact_l2, vecs, sqn, live), qd,
-                lambda: [g() for g in gets], k=k, n_q=n_q, rerun_sink=sink,
+                exact, qd, lambda: [g() for g in gets], k=k, n_q=n_q,
+                rerun_sink=sink,
             )
             return (ids, None) if ids_only else (ids, sims)
 
         return finish_cert
+    if table is None:
+        profiling.count("exact_queries", n_q)
+    if metric == "hamming":
+        ids, sims = scan_topk_exact_hamming(vecs, live, qd, k=k)
     else:
-        if table is None:
-            profiling.count("exact_queries", n_q)
         ids, sims = scan_topk_exact_l2(vecs, sqn, live, qd, k=k,
                                        table=table, tscale=tscale)
     get_ids = fetch_handle(ids[:n_q])
@@ -924,45 +933,64 @@ def serve_resident_int8(q8, sqn, live, tscale, qd, host_vecs, host_qs, *,
 
 def scan_dispatch(index, qs, k: int, approx: bool = False, host_qs=None,
                   cert_sink=None, staleness: int = 0):
-    """Queue one query batch through the scan; returns a zero-arg
-    ``finish()`` that gives the (ids, sims) numpy reply. Every kernel is
-    queued before this returns, and nothing here waits for the card when
-    ``qs`` is already on it; ``finish()`` waits for the reply's copy and
-    does the host's part. A serving loop over many batches dispatches
-    ahead and finishes in order (:func:`drain_pipelined`). ``approx``
-    serves the scan-approx tier (see :func:`serve_block`). ``cert_sink``
-    (a :class:`CertRerunSink` the caller later flushes) coalesces the
-    certified tier's fallback reruns across a chunk loop. ``staleness``
-    > 0 serves from the bounded-stale snapshot view (models/hnsw.py
-    device_snapshot).
-
-    With REDIS_HNSW_TPU_REPLY=ids and the queries on the host (numpy
-    ``qs``, or a ``host_qs`` mirror of a device ``qs``), a euclidean
-    reply copies only its ids off the card and its sims are recomputed
-    on the host (see :func:`reply_ids_engaged`)."""
-    table, vecs, sqn, live, tscale = _scan_state(index,
-                                                 max_staleness=staleness)
+    """Queue one query batch of an HNSW index through the scan, the JAX
+    package's entry point (:func:`serve_chunk` on its scan state); returns
+    a zero-arg ``finish()`` that gives the (ids, sims) numpy reply.
+    Nothing here waits for the card when ``qs`` is already on it.
+    ``cert_sink`` (a :class:`CertRerunSink` the caller later flushes)
+    defers the certified tier's fallback reruns; ``staleness`` > 0 serves
+    from the bounded-stale snapshot view. With the queries on the host
+    (numpy ``qs``, or a ``host_qs`` mirror) a euclidean reply may copy
+    only its ids (:func:`ids_reply_engaged`)."""
+    state = _scan_state(index, max_staleness=staleness)
     metric = index.config.metric
     if host_qs is None and not isinstance(qs, torch.Tensor):
         host_qs = qs
-    ids_mode = (
-        metric == "euclidean" and host_qs is not None
-        and reply_ids_engaged(int(qs.shape[1]), vecs.device)
+    return serve_chunk(
+        state, qs, host_qs, k=min(int(k), int(state[0].shape[0])),
+        metric=metric, approx=approx, rerun_sink=cert_sink,
+        ids_reply=ids_reply_engaged(metric, host_qs, int(qs.shape[1]),
+                                    state[0].device),
+        host_vecs=index._vectors,
     )
-    n_q = qs.shape[0]
-    qd = pad_queries(qs, pad_pow2(n_q), vecs.device)
+
+
+def ids_reply_engaged(metric: str, host_qs, dim: int, device) -> bool:
+    """Does a reply copy only its ids off ``device`` and rescore its sims
+    on the host? A euclidean one with its queries on the host, where
+    :func:`reply_ids_engaged` says so."""
+    return (metric == "euclidean" and host_qs is not None
+            and reply_ids_engaged(dim, device))
+
+
+def serve_chunk(state, qs, host_qs=None, *, k: int, metric: str,
+                approx: bool = False, rerun_sink=None,
+                ids_reply: bool = False, host_vecs=None):
+    """Dispatch half of one chunk ``qs`` (numpy, or on the card) over a
+    scan state ``(table, vecs, sqn, live, tscale)`` (:func:`_scan_state`,
+    models/flat.py ``scan_state``), padded to a power of two:
+    :func:`serve_resident_int8` where ``vecs`` is None (the flat index's
+    int8-resident tier), else :func:`serve_block`. The resident tier and
+    the ids-only reply (``ids_reply``) rescore on the host, from its f32
+    rows ``host_vecs`` against the chunk's host queries ``host_qs``.
+    Returns ``finish()``, which gives the (ids, sims) numpy reply."""
+    table, vecs, sqn, live, tscale = state
+    n_q = int(qs.shape[0])
+    qd = pad_queries(qs, pad_pow2(n_q), table.device)
+    if vecs is None:
+        return serve_resident_int8(table, sqn, live, tscale, qd, host_vecs,
+                                   host_qs, k=k, n_q=n_q)
     fin = serve_block(
-        vecs, sqn, live, qd, k=min(int(k), int(vecs.shape[0])), n_q=n_q,
-        metric=metric, rerun_sink=cert_sink, approx=approx,
-        ids_only=ids_mode, table=None if table is vecs else table,
-        tscale=tscale,
+        vecs, sqn, live, qd, k=k, n_q=n_q, metric=metric,
+        rerun_sink=rerun_sink, approx=approx, ids_only=ids_reply,
+        table=None if table is vecs else table, tscale=tscale,
     )
-    if not ids_mode:
+    if not ids_reply:
         return fin
 
     def finish_ids():
         ids, _ = fin()
-        return sort_reply(ids, host_exact_sims(index._vectors, host_qs, ids))
+        return sort_reply(ids, host_exact_sims(host_vecs, host_qs, ids))
 
     return finish_ids
 

@@ -43,6 +43,7 @@ reply_ids_engaged).
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -617,16 +618,7 @@ def search_batch(
     snapshot view (at most that many mutation epochs behind;
     models/hnsw.py device_snapshot).
     """
-    from .scan import (
-        FETCH_WINDOW_FAST,
-        CertRerunSink,
-        cert_enabled,
-        drain_pipelined,
-        hamming_cert_ready,
-        pad_queries,
-        scan_dispatch,
-        scan_dtype,
-    )
+    from .scan import _scan_state, ids_reply_engaged
 
     cfg = index.config
     engine = resolve_engine(engine, recall_target)
@@ -642,56 +634,72 @@ def search_batch(
         if index.enterpoint < 0 or index.node_count == 0:
             return empty_reply(n_q, k, reply)
         snap = index.device_snapshot(max_staleness=staleness)
-    use_scan = engine in ("scan", "scan-approx") or (
-        engine == "auto" and snap.n_pad <= SCAN_MAX_ROWS.get(cfg.metric, 0)
-    )
+        use_scan = engine in ("scan", "scan-approx") or (
+            engine == "auto"
+            and snap.n_pad <= SCAN_MAX_ROWS.get(cfg.metric, 0)
+        )
+        if use_scan:
+            state = _scan_state(index, max_staleness=staleness)
     hq = host_qs if isinstance(qs, torch.Tensor) else qs
-    approx = engine == "scan-approx"
-    chunk = max_lanes_for(snap.n_pad)
-    if not use_scan:
+    ids_reply = ids_reply_engaged(cfg.metric, hq, cfg.dim, snap.vecs.device)
+    if use_scan:
+        ids, sims = scan_block(
+            state, qs, k, metric=cfg.metric,
+            approx=engine == "scan-approx", ids_reply=ids_reply,
+            host_qs=hq, host_vecs=index._vectors,
+        )
+    else:
         ids, sims = _graph_batch(index, snap, qs, k, ef_search, expand,
-                                 iters, seeds, hq)
-    elif n_q > chunk:
-        # The pipelined drain (ops/scan.py drain_pipelined): up to
-        # pipeline_depth() windows of chunks stay queued on the card while
-        # the host finishes earlier ones, and the certified tier's
-        # fallback reruns coalesce into one exact batch (CertRerunSink).
-        # The fetch window defaults to FETCH_WINDOW_FAST on the tiers the
-        # JAX package measured it on (certified, approx) and to 1 on the
-        # rest; a hamming table takes it exactly where its certified tier
-        # really runs (hamming_cert_ready).
-        sink = CertRerunSink()
-        default_window = 1
-        if approx or (
-            cfg.metric == "euclidean" and scan_dtype() == "f32"
-            and cert_enabled(snap.n_pad, int(snap.vecs.shape[1]))
-        ) or (
-            cfg.metric == "hamming"
-            and hamming_cert_ready(snap.n_pad, int(snap.vecs.shape[1]))
-        ):
-            default_window = FETCH_WINDOW_FAST
+                                 iters, seeds, hq, ids_reply)
+    return assemble(index._names.names_array(), ids, sims, reply)
+
+
+def scan_block(state, qs, k: int, *, metric: str, approx: bool = False,
+               ids_reply: bool = False, host_qs=None, host_vecs=None):
+    """The single-card chunk loop of the HNSW scan route and the flat
+    index: the query block ``qs`` (numpy, or on the card) over a scan
+    state (ops/scan.py ``_scan_state``, models/flat.py ``scan_state``),
+    in chunks of ``max_lanes_for`` queries (one copy to the card where
+    there are more), each served by ops/scan.py ``serve_chunk`` through
+    the pipelined drain, a block of one chunk too. The certified tier's
+    fallback reruns coalesce in one ``CertRerunSink``, and the fetch
+    window defaults to FETCH_WINDOW_FAST where the certified
+    (``certified_serves``) or approx tier serves, as in the JAX package,
+    else to 1. ``host_qs`` (None where the queries are on the card only)
+    and ``host_vecs``: see ``serve_chunk``. Returns the (ids, sims) numpy
+    reply [n_q, min(k, rows)]."""
+    from . import scan as SC
+
+    table, vecs, _, _, _ = state
+    n_rows, width = int(table.shape[0]), int(table.shape[1])
+    k = min(int(k), n_rows)
+    n_q = qs.shape[0]
+    if n_q == 0:
+        return np.empty((0, k), np.int32), np.empty((0, k), np.float32)
+    if vecs is None and host_qs is None:
+        # the resident tier's rescore queries, copied off the card once
+        host_qs = qs.cpu().numpy()
+    chunk = max_lanes_for(n_rows)
+    sink = SC.CertRerunSink()
+    qd = qs
+    if n_q > chunk:
         # one host->device copy for the whole block; the chunks below
         # are then device-side slices
-        qd = pad_queries(qs, n_q, index.device)
-
-        def dispatch(lo):
-            return scan_dispatch(
-                index, qd[lo : lo + chunk], k, approx=approx,
-                host_qs=None if hq is None else hq[lo : lo + chunk],
-                cert_sink=sink, staleness=staleness,
-            )
-
-        id_parts, sim_parts = drain_pipelined(
-            ((lo,) for lo in range(0, n_q, chunk)), dispatch, sink=sink,
-            default_window=default_window,
-        )
-        ids = np.concatenate(id_parts)
-        sims = np.concatenate(sim_parts)
-    else:
-        ids, sims = _one_chunk(lambda: scan_dispatch(
-            index, qs, k, approx=approx, host_qs=hq, staleness=staleness,
-        ))
-    return assemble(index._names.names_array(), ids, sims, reply)
+        qd = SC.pad_queries(qs, n_q, table.device)
+    serve = functools.partial(
+        SC.serve_chunk, state, k=k, metric=metric, approx=approx,
+        rerun_sink=sink, ids_reply=ids_reply, host_vecs=host_vecs,
+    )
+    certified = SC.certified_serves(metric, n_rows, width, approx=approx,
+                                    tiered=table is not vecs)
+    id_parts, sim_parts = SC.drain_pipelined(
+        ((qd[lo : lo + chunk],
+          None if host_qs is None else host_qs[lo : lo + chunk])
+         for lo in range(0, n_q, chunk)),
+        serve, sink=sink,
+        default_window=SC.FETCH_WINDOW_FAST if approx or certified else 1,
+    )
+    return np.concatenate(id_parts), np.concatenate(sim_parts)
 
 
 def _one_chunk(dispatch):
@@ -705,29 +713,18 @@ def _one_chunk(dispatch):
 
 
 def _graph_batch(index, snap, qs, k, ef_search, expand, iters, seeds,
-                 hq=None):
+                 hq=None, ids_only=False):
     """The graph engine's (ids, sims) numpy reply for the whole block,
     served MAX_LANES lanes per call, through the pipelined drain for
     parity with the scan route (its beam waits for the card at every
-    step, so the drain only defers each reply's copy). With
-    REDIS_HNSW_TPU_REPLY=ids and the queries on the host (``hq``), a
-    euclidean reply copies only its ids off the card and its sims are
-    rescored on the host."""
-    from .scan import (
-        drain_pipelined,
-        host_exact_sims,
-        pad_queries,
-        reply_ids_engaged,
-        sort_reply,
-    )
+    step, so the drain only defers each reply's copy). With ``ids_only``
+    (ops/scan.py ``ids_reply_engaged``) a reply copies only its ids off
+    the card and its sims are rescored on the host against ``hq``."""
+    from .scan import drain_pipelined, host_exact_sims, pad_queries, sort_reply
 
     ef = index.config.ef_construction if ef_search is None else int(ef_search)
     ef = max(ef, 1)
     pool = _pivot_pool(index, snap) if seeds > 0 else None
-    ids_only = (
-        index.config.metric == "euclidean" and hq is not None
-        and reply_ids_engaged(index.config.dim, snap.vecs.device)
-    )
     n_q = qs.shape[0]
     chunk = max_lanes_for(snap.n_pad)
     if n_q <= chunk:

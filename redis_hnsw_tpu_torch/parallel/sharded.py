@@ -24,7 +24,7 @@ What keeps the replies equal to the JAX package's:
   row count over the shards, and the merge is a stable descending sort
   of the shard-major flattening, so ties go to the lower global id as
   under ``lax.top_k``;
-* the routing gates (``SCAN_MAX_ROWS``, ``cert_enabled``, the chunk
+* the routing gates (``SCAN_MAX_ROWS``, ``certified_serves``, the chunk
   width) are judged on that ``n_pad``;
 * frontier tables are used only when every shard has one of the same
   dtype, and the graph path passes no int8 row table (``qrows``);
@@ -477,9 +477,9 @@ class ShardedHNSW:
         single index's ``search_batch``. ``engine`` routes as there, judged
         on the largest shard's padded rows: "auto" serves every shard's
         exact scan up to SCAN_MAX_ROWS and every shard's graph beam above
-        it; "scan-approx" is the approx tier. The f32 euclidean scan takes
-        the certified tier where ``cert_enabled`` admits it, a hamming scan
-        the certified hamming tier where ``hamming_cert_enabled`` does
+        it; "scan-approx" is the approx tier. The scan takes the certified
+        tier where ops/scan.py ``certified_serves`` says so, a hamming
+        table without the single index's word-pack gate
         (REDIS_HNSW_TPU_SCAN_CERT=1): a query is
         certified when every shard certifies it, and the rest are served
         again through the exact sharded scan (a chunk with more than a
@@ -525,15 +525,13 @@ class ShardedHNSW:
         if use_scan:
             states = [SC._scan_state(s) for s in self.shards]
             k_eff = min(int(k), n_pad)
-            width = int(states[0][1].shape[1])
-            use_cert = engine != "scan-approx" and (
-                (cfg.metric == "euclidean"
-                 and all(st[0] is st[1] and st[4] is None for st in states)
-                 and SC.cert_enabled(n_pad, width))
-                # the JAX package's gate: cert_enabled at d_bits / 2 (no
-                # word pack here), with the H100's auto rule
-                or (cfg.metric == "hamming"
-                    and SC.hamming_cert_enabled(n_pad, width))
+            # the hamming gate is the JAX package's sharded one: no word
+            # pack here
+            use_cert = SC.certified_serves(
+                cfg.metric, n_pad, int(states[0][1].shape[1]),
+                approx=engine == "scan-approx",
+                tiered=any(st[0] is not st[1] for st in states),
+                word_pack=False,
             )
             if use_cert:
                 sink = _ShardedCertRerunSink(self, states, k_eff, n_pad)
@@ -576,18 +574,10 @@ class ShardedHNSW:
                 gids = get_gids()
                 sims = None if get_sims is None else get_sims()
                 if get_ok is not None:
-                    ok = get_ok() != 0
-                    SC.count_certified(pn)
-                    if not ok.all():
-                        bad = np.flatnonzero(~ok)
-                        SC.CERT_STATS["fallback_queries"] += len(bad)
-                        if len(bad) * 4 > pn:
-                            # tie-heavy / adversarial chunk: re-serve it
-                            # whole (the rule of certified_finish)
-                            bad = np.arange(pn)
-                            SC.count_rerun("whole_batch_queries", pn)
-                        else:
-                            SC.count_rerun("rerun_queries", len(bad))
+                    key, bad = SC.cert_fallback(get_ok() != 0, pn)
+                    if key == "whole_batch_queries":
+                        bad = np.arange(pn)
+                    if key is not None:
                         sink.add(qs[lo : lo + pn], bad, gids, sims)
                 return gids, sims
 

@@ -326,15 +326,35 @@ def test_auto_keeps_hamming_on_the_exact_tier(monkeypatch):
         assert TS.cert_enabled(n, 128) == JS.cert_enabled(n, 128)
 
 
-@pytest.mark.parametrize("cert,window", [("1", 8), ("0", 1), (None, 1)])
-def test_window_default_follows_the_tier(rng, monkeypatch, cert, window):
+@pytest.mark.parametrize("metric,cert,approx,dtype,window", [
+    pytest.param("hamming", "1", False, "f32", 8, id="1-8"),
+    pytest.param("hamming", "0", False, "f32", 1, id="0-1"),
+    pytest.param("hamming", None, False, "f32", 1, id="None-1"),
+    pytest.param("euclidean", "1", False, "f32", 8, id="euclidean-1-8"),
+    pytest.param("euclidean", "0", False, "f32", 1, id="euclidean-0-1"),
+    pytest.param("euclidean", None, False, "f32", 8, id="euclidean-None-8"),
+    pytest.param("euclidean", "1", True, "f32", 8, id="euclidean-approx-8"),
+    pytest.param("euclidean", "1", False, "bf16", 1, id="euclidean-bf16-1"),
+])
+def test_window_default_follows_the_tier(rng, monkeypatch, metric, cert,
+                                         approx, dtype, window):
     """The drain's default fetch window is FETCH_WINDOW_FAST exactly where
-    the certified hamming tier serves (SCAN_CERT=1), 1 where the exact
-    tier does (0, and auto), on the scan route and the flat index."""
+    ``certified_serves`` says a certified tier serves or the approx tier
+    does, and 1 where the exact tier does, on the scan route and the flat
+    index; the tier that served (CERT_STATS queries, the record's
+    ``exact_queries``) is the one ``certified_serves`` names. Hamming: the
+    certified tier under SCAN_CERT=1 only (auto keeps the exact tier).
+    Euclidean: under auto as well, with CERT_MIN_ROWS cut to these
+    tables' size; the approx tier and a bf16 table never certify (a tier
+    table's queries are not counted as the exact tier's)."""
+    from redis_hnsw_tpu_torch.utils import profiling
+
     if cert is None:
         monkeypatch.delenv("REDIS_HNSW_TPU_SCAN_CERT")
     else:
         monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", cert)
+    monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_DTYPE", dtype)
+    monkeypatch.setattr(TS, "CERT_MIN_ROWS", 8)
     monkeypatch.setattr(TSE, "MAX_LANES", 8)
     seen = []
     real = TS.drain_pipelined
@@ -344,11 +364,33 @@ def test_window_default_follows_the_tier(rng, monkeypatch, cert, window):
         return real(parts, dispatch, sink=sink, default_window=default_window)
 
     monkeypatch.setattr(TS, "drain_pipelined", drain)
-    data = words(rng, 200)
-    qs = words(rng, 20)
-    h, f = hnsw_pair(data), flat_pair(data)
-    h[1].search_batch(qs, 5, engine="scan")
-    f[1].search_batch(qs, 5)
+    names = [f"n{i}" for i in range(200)]
+    if metric == "hamming":
+        data, qs, dim = words(rng, 200), words(rng, 20), 256
+    else:
+        data = rng.standard_normal((200, 16)).astype(np.float32)
+        qs = rng.standard_normal((20, 16)).astype(np.float32)
+        dim = 16
+    h = T.HNSWIndex("h", T.IndexConfig(dim=dim, m=8, ef_construction=48,
+                                       metric=metric, seed=5), device="cpu")
+    f = TFlat("f", T.IndexConfig(dim=dim, metric=metric), device="cpu")
+    for idx in (h, f):
+        idx.add_batch(names, data)
+    for idx, kw in ((h, dict(engine="scan-approx" if approx else "scan")),
+                    (f, dict(approx=approx))):
+        before = TS.CERT_STATS["queries"]
+        with profiling.request():
+            idx.search_batch(qs, 5, **kw)
+        exact = int(profiling.recent(1)["exact_queries"][0])
+        cert_queries = TS.CERT_STATS["queries"] - before
+        table, vecs = (TS._scan_state(idx) if idx is h
+                       else idx.scan_state())[:2]
+        certified = TS.certified_serves(
+            metric, int(table.shape[0]), int(table.shape[1]), approx=approx,
+            tiered=table is not vecs)
+        assert certified == (window == 8 and not approx)
+        want = (20, 0) if certified else (0, 20 if dtype == "f32" else 0)
+        assert (cert_queries, exact) == want
     assert seen == [window, window]
     assert TS.FETCH_WINDOW_FAST == 8
 

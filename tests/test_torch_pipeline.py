@@ -474,8 +474,12 @@ def test_flat_pipelined_matches_jax_on_lattice(rng, monkeypatch, tier):
               a.search_batch(qs, 10, reply="columnar"))
 
 
-@pytest.mark.parametrize("tier", ["f32", "certified"])
+@pytest.mark.parametrize("tier", ["f32", "certified", "one-chunk"])
 def test_hnsw_scan_pipelined_matches_jax_on_lattice(rng, monkeypatch, tier):
+    """The scan route in 32-lane chunks, on the exact and the certified
+    tier, against the JAX package's; and ("one-chunk") the 130 queries as
+    one certified chunk, which the route also serves through the drain,
+    against the JAX package's one-call ``scan_batch``."""
     data, qs = lattice(rng, 400, 16, 130)
     names = [f"n{i}" for i in range(400)]
     a = J.HNSWIndex("h", J.IndexConfig(dim=16, m=6, ef_construction=24,
@@ -486,12 +490,16 @@ def test_hnsw_scan_pipelined_matches_jax_on_lattice(rng, monkeypatch, tier):
         for name, row in zip(names, data):
             idx.add_node(name, row)
         idx.delete_batch(names[::9])
-    monkeypatch.setattr(JSE, "MAX_LANES", 32)
-    monkeypatch.setattr(TSE, "MAX_LANES", 32)
+    if tier != "one-chunk":
+        monkeypatch.setattr(JSE, "MAX_LANES", 32)
+        monkeypatch.setattr(TSE, "MAX_LANES", 32)
     monkeypatch.setenv("REDIS_HNSW_TPU_PIPELINE", "2")
-    if tier == "certified":
+    if tier != "f32":
         monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", "1")
-    same_bits(b.search_batch(qs, 10, engine="scan", reply="columnar"),
-              a.search_batch(qs, 10, engine="scan", reply="columnar"))
+    got = b.search_batch(qs, 10, engine="scan", reply="columnar")
+    same_bits(got, a.search_batch(qs, 10, engine="scan", reply="columnar"))
+    if tier == "one-chunk":
+        ids, sims = JS.scan_batch(a, qs, 10)
+        same_bits(got, (np.asarray(names, object)[ids], sims))
     # the one-call form, on row ids
     same_bits(TS.scan_batch(b, qs[:20], 10), JS.scan_batch(a, qs[:20], 10))

@@ -342,8 +342,7 @@ def test_tier_tables_padded_to_4_bytes(monkeypatch, dtype, width):
         if mod is T:
             tables = [c.index("g")._scan_cache[1][0]]
             f = c.index("f")
-            tables.append(f._device()[0] if dtype == "int8"
-                          else f._tier_cache[1])
+            tables.append(f.scan_state()[0])
     for a, b in zip(*got):
         same_bytes(a, b)
     for table in tables:
