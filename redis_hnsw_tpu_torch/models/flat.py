@@ -197,10 +197,11 @@ class FlatIndex:
 
     def scan_state(self):
         """The scan's device state of the current epoch and tier, in
-        ops/scan.py ``_scan_state``'s form: (table, vecs, sqn, live,
-        tscale). Rows are padded to a multiple of 128, sqnorms computed on
-        the host with np.einsum (as the JAX package does, so the tables
-        are byte-equal; zeros for hamming). Packed hamming words go up as
+        ops/scan.py ``_scan_state``'s form: a ``ScanState`` (table, vecs,
+        sqn, live, tscale) with the epoch's certified fallback history.
+        Rows are padded to a multiple of 128, sqnorms computed on the
+        host with np.einsum (as the JAX package does, so the tables are
+        byte-equal; zeros for hamming). Packed hamming words go up as
         int32, as the snapshot's do: torch has no full uint32 type.
 
         ``table`` is the selection table: ``vecs`` itself, or under
@@ -214,7 +215,7 @@ class FlatIndex:
         where the f32 rows live. Built once per (epoch, tier), the old
         tables freed first."""
         from ..ops.cuda_scan import lowp_pad, pad_lowp_rows
-        from ..ops.scan import _to_bf16, scan_dtype
+        from ..ops.scan import ScanState, _to_bf16, scan_dtype
         from ..ops.snapshot import to_device
 
         dt = scan_dtype() if self.config.metric == "euclidean" else "f32"
@@ -254,7 +255,7 @@ class FlatIndex:
             table, tscale = vecs, None
             if dt == "bf16":
                 table = pad_lowp_rows(_to_bf16(vecs))
-        state = (table, vecs, sqn, live, tscale)
+        state = ScanState(table, vecs, sqn, live, tscale)
         self._scan_cache = (key, state)
         return state
 

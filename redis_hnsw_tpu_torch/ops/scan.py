@@ -30,7 +30,10 @@ rule of every caller), which for a euclidean table asks
   kernels compute each score on the one fp32 core of ``csrc/l2_core.cuh``
   (an in-order FMA chain, then explicitly rounded subtractions). Every
   CERT_AUDIT_EVERY-th certified batch is also re-served exactly and
-  byte-compared.
+  byte-compared. Where a table epoch's batches keep falling back whole
+  (tie-heavy or cluster-ordered rows), its later batches skip the
+  certificate and take the exact tier, all but one in CERT_PROBE_EVERY
+  (:class:`CertHistory`).
 
   In the JAX package the certified tier buys a cheap approximate select
   (``approx_max_k``) back to exactness. Kernel A's selection is exact
@@ -292,10 +295,14 @@ CERT_MAX_DIM = 768
 # ``rerun_queries``, uncertified queries rerun by themselves (deferred to
 # a rerun sink, or at once); ``audit_queries``, the queries of audited
 # batches (CERT_AUDIT_EVERY). The open request's record counts the last
-# three and ``cert_queries`` (utils/profiling.py).
+# three and ``cert_queries`` (utils/profiling.py). ``skipped_queries``:
+# the queries of batches the certified tier would have served but a
+# failing history (:class:`CertHistory`) sent straight to the exact tier;
+# they count in no other key (not in ``batches`` or ``queries``), and the
+# record counts them as ``cert_skipped_queries``.
 CERT_STATS = {"batches": 0, "queries": 0, "fallback_queries": 0,
               "whole_batch_queries": 0, "rerun_queries": 0,
-              "audit_queries": 0}
+              "audit_queries": 0, "skipped_queries": 0}
 
 
 def count_certified(n_q: int) -> None:
@@ -310,6 +317,64 @@ def count_rerun(key: str, n: int) -> None:
     CERT_STATS ``key`` and the open request's field of that name."""
     CERT_STATS[key] += n
     profiling.count(key, n)
+
+
+def count_skipped(n_q: int) -> None:
+    """Count a batch of ``n_q`` queries that a failing certified tier left
+    to the exact tier (:class:`CertHistory`)."""
+    CERT_STATS["skipped_queries"] += n_q
+    profiling.count("cert_skipped_queries", n_q)
+
+
+# While a table epoch's certificate keeps failing, one batch in
+# CERT_PROBE_EVERY still takes the certified tier (the probe) and the rest
+# go straight to the exact tier. 16 keeps kernel D launching several
+# times in every few seconds of a failing table's traffic (~3 batches a
+# 5,000-query request: a probe every ~5 requests), so its time and
+# roofline stay observable, while the probes' second pass reaches few
+# enough requests to leave the latency tail to the others.
+CERT_PROBE_EVERY = 16
+
+
+class CertHistory:
+    """The certified tier's fallback history of one table epoch.
+
+    A batch that :func:`certified_finish` serves again whole (more than a
+    quarter uncertified, ``whole_batch_queries``) marks the history
+    failing; a certified batch that is not served again whole clears it
+    (audits and per-query reruns are no failures), so the newest verdict
+    decides. While it fails, :meth:`certify` sends all but one batch in
+    CERT_PROBE_EVERY straight to the exact tier, which the whole-batch
+    fallback would have served them on anyway after a wasted certified
+    pass; the probe's verdict keeps the history or clears it.
+
+    One history belongs to one epoch's tables (:class:`ScanState`), so an
+    insert or a delete, which starts the next epoch, starts it clean. The
+    sharded index keeps no history: it certifies every batch."""
+
+    __slots__ = ("failing", "waited")
+
+    def __init__(self) -> None:
+        self.failing = False
+        self.waited = 0  # batches sent to the exact tier since the last probe
+
+    def certify(self) -> bool:
+        """Should the next batch take the certified tier? Always while the
+        history is clean; while it fails, every CERT_PROBE_EVERY-th."""
+        if not self.failing:
+            return True
+        self.waited += 1
+        if self.waited < CERT_PROBE_EVERY:
+            return False
+        self.waited = 0
+        return True
+
+    def record(self, key) -> None:
+        """Record a certified batch's fallback (:func:`cert_fallback`'s
+        ``key``)."""
+        self.failing = key == "whole_batch_queries"
+        if not self.failing:
+            self.waited = 0
 
 
 def cert_enabled(n_rows: int, dim: int = 0) -> bool:
@@ -508,7 +573,7 @@ def cert_fallback(ok, n_q: int, *, audits: bool = False):
 
 
 def certified_finish(exact, qd, fetch, *, k: int, n_q: int,
-                     rerun_sink=None):
+                     rerun_sink=None, history=None):
     """Finish half of a certified tier: fetch the reply and the verdicts
     of a :func:`scan_certified_l2` (or :func:`scan_certified_hamming`)
     result, then re-serve the uncertified queries through the exact tier.
@@ -525,10 +590,13 @@ def certified_finish(exact, qd, fetch, *, k: int, n_q: int,
     uncertified rows are registered with the sink and patched when the
     caller flushes it, so a multi-batch loop serves them all in one
     exact batch. Audit batches and the whole-batch fallback stay
-    immediate. The choice and its counts are :func:`cert_fallback`'s."""
+    immediate. The choice and its counts are :func:`cert_fallback`'s;
+    ``history`` (the table epoch's :class:`CertHistory`) records it."""
     ids, sims, okh = fetch()
     okh = okh != 0
     key, bad = cert_fallback(okh, n_q, audits=True)
+    if history is not None:
+        history.record(key)
     if key == "rerun_queries":
         if rerun_sink is not None:
             rerun_sink.add(exact, qd, bad, ids, sims, k)
@@ -786,15 +854,29 @@ def sort_reply(ids, sims):
 
 # -- host-side engine wrapper -------------------------------------------------
 
+class ScanState(tuple):
+    """One table epoch's scan state, the tuple ``(table, vecs, sqn, live,
+    tscale)`` (:func:`_scan_state`, models/flat.py ``scan_state``), with
+    that epoch's :class:`CertHistory` as ``cert_history``. The history
+    rides on the state, which :func:`serve_chunk` hands to
+    :func:`serve_block`, because the state is what each epoch builds
+    anew: the history starts clean with the tables, and goes with them."""
+
+    def __new__(cls, table, vecs, sqn, live, tscale):
+        state = super().__new__(cls, (table, vecs, sqn, live, tscale))
+        state.cert_history = CertHistory()
+        return state
+
+
 def _scan_state(index, max_staleness: int = 0):
-    """Per-epoch device state of the scan: (table, vecs, sqn, live,
-    tscale). ``table`` is the selection table -- ``vecs`` itself, or the
-    bf16 or int8 tier's copy (:func:`scan_dtype`), built on the card from
-    the snapshot with its rows padded to 4 bytes -- ``vecs`` the f32
-    rows the rescore reads, ``tscale`` the int8 tier's per-row scales
-    (None otherwise). A hamming snapshot's ``vecs`` are its packed words
-    (int32), which the hamming kernels read as they are, and its table;
-    its ``sqn`` are zeros.
+    """Per-epoch device state of the scan, a :class:`ScanState`: (table,
+    vecs, sqn, live, tscale). ``table`` is the selection table --
+    ``vecs`` itself, or the bf16 or int8 tier's copy (:func:`scan_dtype`),
+    built on the card from the snapshot with its rows padded to 4 bytes
+    -- ``vecs`` the f32 rows the rescore reads, ``tscale`` the int8
+    tier's per-row scales (None otherwise). A hamming snapshot's ``vecs``
+    are its packed words (int32), which the hamming kernels read as they
+    are, and its table; its ``sqn`` are zeros.
 
     Cached on the index keyed by (SNAPSHOT epoch, tier): the epoch the
     tables hold, which lags the index's mutation epoch under
@@ -820,7 +902,7 @@ def _scan_state(index, max_staleness: int = 0):
     elif dt == "int8":
         table, tscale = _to_int8(snap.vecs)
         table = pad_lowp_rows(table)
-    state = (table, snap.vecs, snap.sqnorms, live, tscale)
+    state = ScanState(table, snap.vecs, snap.sqnorms, live, tscale)
     index._scan_cache = (key, state)
     return state
 
@@ -846,7 +928,7 @@ def pad_queries(qs, n_pad: int, device):
 
 def serve_block(vecs, sqn, live, qd, *, k: int, n_q: int, metric: str,
                 rerun_sink=None, approx: bool = False, ids_only=False,
-                table=None, tscale=None):
+                table=None, tscale=None, cert_history=None):
     """Dispatch half: queue the kernels that serve the (padded) query
     block ``qd`` on the tier its table takes -- the certified tier where
     :func:`certified_serves` says so (kernels A′ and B′ on a hamming
@@ -871,11 +953,21 @@ def serve_block(vecs, sqn, live, qd, *, k: int, n_q: int, metric: str,
     ids-reply mode). On the certified tier the fallback runs at once and
     patches the sims too, so that tier still copies them.
 
-    Where kernel A or A′ serves the block alone (the exact and approx
-    tiers), the open request's record counts its ``n_q`` queries as
+    ``cert_history`` is the table epoch's :class:`CertHistory`. Where it
+    says the certificate keeps failing, a block the certified tier would
+    take is served on the exact tier instead -- the call the whole-batch
+    fallback makes, on the same ``qd`` at the same ``k``, so the same
+    reply -- and counted as skipped (:func:`count_skipped`); one block in
+    CERT_PROBE_EVERY still takes the certified tier, and its finish
+    records the verdict.
+
+    Where the exact or approx tier serves the block on kernel A or A′
+    alone, the open request's record counts its ``n_q`` queries as
     ``exact_queries`` (utils/profiling.py)."""
-    if certified_serves(metric, int(vecs.shape[0]), int(vecs.shape[1]),
-                        approx=approx, tiered=table is not None):
+    certified = certified_serves(metric, int(vecs.shape[0]),
+                                 int(vecs.shape[1]), approx=approx,
+                                 tiered=table is not None)
+    if certified and (cert_history is None or cert_history.certify()):
         # the table's exact tier serves the uncertified queries again (on
         # a hamming table the audit checks the plumbing: integer scores
         # leave no rounding to audit)
@@ -892,12 +984,14 @@ def serve_block(vecs, sqn, live, qd, *, k: int, n_q: int, metric: str,
         def finish_cert():
             ids, sims = certified_finish(
                 exact, qd, lambda: [g() for g in gets], k=k, n_q=n_q,
-                rerun_sink=sink,
+                rerun_sink=sink, history=cert_history,
             )
             return (ids, None) if ids_only else (ids, sims)
 
         return finish_cert
-    if table is None:
+    if certified:
+        count_skipped(n_q)
+    elif table is None:
         profiling.count("exact_queries", n_q)
     if metric == "hamming":
         ids, sims = scan_topk_exact_hamming(vecs, live, qd, k=k)
@@ -967,10 +1061,11 @@ def serve_chunk(state, qs, host_qs=None, *, k: int, metric: str,
                 approx: bool = False, rerun_sink=None,
                 ids_reply: bool = False, host_vecs=None):
     """Dispatch half of one chunk ``qs`` (numpy, or on the card) over a
-    scan state ``(table, vecs, sqn, live, tscale)`` (:func:`_scan_state`,
-    models/flat.py ``scan_state``), padded to a power of two:
-    :func:`serve_resident_int8` where ``vecs`` is None (the flat index's
-    int8-resident tier), else :func:`serve_block`. The resident tier and
+    :class:`ScanState` ``(table, vecs, sqn, live, tscale)``
+    (:func:`_scan_state`, models/flat.py ``scan_state``), padded to a
+    power of two: :func:`serve_resident_int8` where ``vecs`` is None (the
+    flat index's int8-resident tier), else :func:`serve_block`, with the
+    state's certified fallback history. The resident tier and
     the ids-only reply (``ids_reply``) rescore on the host, from its f32
     rows ``host_vecs`` against the chunk's host queries ``host_qs``.
     Returns ``finish()``, which gives the (ids, sims) numpy reply."""
@@ -984,6 +1079,7 @@ def serve_chunk(state, qs, host_qs=None, *, k: int, metric: str,
         vecs, sqn, live, qd, k=k, n_q=n_q, metric=metric,
         rerun_sink=rerun_sink, approx=approx, ids_only=ids_reply,
         table=None if table is vecs else table, tscale=tscale,
+        cert_history=state.cert_history,
     )
     if not ids_reply:
         return fin

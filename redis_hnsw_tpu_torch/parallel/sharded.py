@@ -45,7 +45,10 @@ single index's pipelined drain (ops/scan.py ``drain_pipelined``): each
 chunk's dispatch half queues every shard's kernels and the merge and
 registers the merged lists with ``fetch_handle``; its finish half reads
 the certified verdicts and hands the uncertified rows to a sink that
-serves them again in one exact sharded scan. The JAX package's packed
+serves them again in one exact sharded scan. Every chunk takes the
+certified tier here, as in the JAX package: the single index's fallback
+history, which skips a certificate that keeps failing (ops/scan.py
+``CertHistory``), is not kept for the shards. The JAX package's packed
 [B, 2k+1] replies are not ported: each list is its own slice of the
 window's copy.
 """

@@ -64,10 +64,12 @@ from ..config import resolve_device
 # collector's pauses, ``gc_in_assemble_ns`` the part inside ``assemble``.
 # Counts: collections (full ones apart), queries, chunks, the certified
 # tier's queries and those it served again on the exact tier (ops/scan.py
-# CERT_STATS keys of the same names), the queries the exact tier served
-# first-hand (``exact_queries``: kernel A or A′ alone, the approx tier
-# included; ops/scan.py ``serve_block`` and the flat kind's whole-block
-# path), the queries whose object reply ``build_reply`` made
+# CERT_STATS keys of the same names), those a failing certificate left to
+# the exact tier (``cert_skipped_queries``: CERT_STATS
+# ``skipped_queries``, ops/scan.py CertHistory), the queries the exact
+# tier served first-hand (``exact_queries``: kernel A or A′ alone, the
+# approx tier included; ops/scan.py ``serve_block`` and the flat kind's
+# whole-block path), the queries whose object reply ``build_reply`` made
 # (ops/search.py ``reply_objects``); ``failed`` 1 where the call raised,
 # ``profiled`` 1 where a torch.profiler recorded as it began;
 # ``start_ns`` its perf_counter_ns at entry.
@@ -75,8 +77,9 @@ FIELDS = (
     "start_ns", "request_ns", "lock_wait_ns", "prepare_ns", "dispatch_ns",
     "card_wait_ns", "finish_ns", "rerun_ns", "assemble_ns", "gc_ns",
     "gc_in_assemble_ns", "gc_count", "gc_full", "queries", "chunks",
-    "cert_queries", "whole_batch_queries", "rerun_queries", "audit_queries",
-    "exact_queries", "native_reply_queries", "failed", "profiled",
+    "cert_queries", "whole_batch_queries", "cert_skipped_queries",
+    "rerun_queries", "audit_queries", "exact_queries",
+    "native_reply_queries", "failed", "profiled",
 )
 COL = {name: i for i, name in enumerate(FIELDS)}
 # 65,536 records (~12 MB): a 40 s window of 1,000 requests a second

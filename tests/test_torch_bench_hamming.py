@@ -334,3 +334,23 @@ def test_new_readers_give_none_without_their_source(monkeypatch):
                         least_s={"scan_topk_hamming": 0.1},
                         kernel_s={"scan_topk_hamming": 0.4})
     assert roof.read(r) == pytest.approx(25.0)
+
+
+@pytest.mark.parametrize("skipped", [0, 1250, None])
+def test_cert_skip_pct_reads_the_record(monkeypatch, skipped):
+    """cert_skip_pct: ``cert_skipped_queries`` over ``queries`` in the
+    window's records, 0 where no chunk was skipped; None where the record
+    has no such field, as the parent program's has not."""
+    reader = spec.load_file(spec.metric_path("cert_skip_pct"), "t_csp")
+    with P.request():
+        P.count("queries", 5000)
+        P.count("cert_skipped_queries", skipped or 0)
+    log = P.recent(1)
+    if skipped is None:
+        log = {f: c for f, c in log.items() if f != "cert_skipped_queries"}
+    monkeypatch.setattr(P, "recent", lambda n: log)
+    r = Run(setup_s=1.0, window_s=1.0, latencies_s=[1e-3],
+            answered_queries=5000, live_rows=1, mem_peak_bytes=None)
+    assert request_log.window(r) is not None
+    assert reader.read(r) == (None if skipped is None
+                              else 100.0 * skipped / 5000)

@@ -236,13 +236,17 @@ def test_onepass_env_grammar(monkeypatch):
 def test_onepass_is_the_default(rng, monkeypatch):
     """With REDIS_HNSW_TPU_CERT_ONEPASS unset the certified tier selects
     with kernel D (plain version here) and never counts with kernel B;
-    with 0 it takes the two-pass form. Both give the exact tier's reply."""
+    with 0 it takes the two-pass form. Both give the exact tier's reply.
+    The lattice's ties fail the first call's certificate, so every batch
+    is made a probe (CERT_PROBE_EVERY = 1): the table's fallback history
+    would send the second call straight to the exact tier."""
     data = rng.integers(-3, 4, (1300, 16)).astype(np.float32)
     qs = rng.integers(-3, 4, (9, 16)).astype(np.float32)
     _, b = flat_pair(data)  # 1408 padded rows: 11 bins
     want = exact_reply(b, qs, 5, monkeypatch)
     monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", "1")
     monkeypatch.delenv("REDIS_HNSW_TPU_CERT_ONEPASS", raising=False)
+    monkeypatch.setattr(TS, "CERT_PROBE_EVERY", 1)
     calls = []
     for name in ("select_bins", "count_gt_eq"):
         real = getattr(TS, name)

@@ -106,9 +106,15 @@ def test_flat_certified_command_sequence_identical(monkeypatch):
     ]
     from redis_hnsw_tpu_torch.ops import scan as TS
 
-    batches = TS.CERT_STATS["batches"]
+    # an audited batch is no failure: no audit may land on an epoch's first
+    monkeypatch.setattr(TS, "CERT_AUDIT_EVERY", 0)
+    before = dict(TS.CERT_STATS)
     run_both(ops)
-    assert TS.CERT_STATS["batches"] >= batches + 3
+    # the lattice's ties fail each epoch's first certified batch whole, so
+    # the port leaves that epoch's later searches to the exact tier
+    # (skipped_queries), where the JAX package certifies every batch
+    assert TS.CERT_STATS["batches"] >= before["batches"] + 2
+    assert TS.CERT_STATS["skipped_queries"] >= before["skipped_queries"] + 1
 
 
 def _state_of(idx, path):

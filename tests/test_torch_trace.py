@@ -158,15 +158,18 @@ def tie_heavy(rng):
     return np.repeat(base, 8, axis=0), np.repeat(base[:10], 13, axis=0)
 
 
-@pytest.mark.parametrize("case", ["tie-heavy", "random", "audit"])
+@pytest.mark.parametrize("case", ["tie-heavy", "random", "audit", "skipped"])
 def test_fallback_counters(rng, monkeypatch, case):
     """The certified tier's reruns, counted apart in CERT_STATS and the
     request's record: a tie-heavy batch rerun whole, a few spurious
     uncertified rows of random data deferred to the rerun sink, an
-    audited batch."""
+    audited batch; and the next request on the tie-heavy table, whose
+    five chunks its failing certificate leaves to the exact tier
+    (``cert_skipped_queries``, CERT_STATS ``skipped_queries``), summed
+    over the chunks."""
     monkeypatch.setenv("REDIS_HNSW_TPU_SCAN_CERT", "1")
     monkeypatch.setattr(TS, "CERT_AUDIT_EVERY", 1 if case == "audit" else 0)
-    if case == "tie-heavy":
+    if case in ("tie-heavy", "skipped"):
         data, qs, k = *tie_heavy(rng), 12
     else:
         data, qs, k = gauss(rng, 300, 24), gauss(rng, 128, 24), 5
@@ -181,20 +184,30 @@ def test_fallback_counters(rng, monkeypatch, case):
 
         monkeypatch.setattr(TS, "scan_certified_l2", spoiled)
     client = flat_client(rng, dim=24, data=data)
+    if case == "skipped":
+        client.search_batch("f", qs, k=k)  # falls back whole: it fails
+        monkeypatch.setattr(TSE, "MAX_LANES", 32)
     before = dict(TS.CERT_STATS)
     client.search_batch("f", qs, k=k)
     (rec,) = last()
     n_q = len(qs)
+    cert = 0 if case == "skipped" else n_q
     want = {"whole_batch_queries": n_q if case == "tie-heavy" else 0,
             "rerun_queries": 8 if case == "random" else 0,
             "audit_queries": n_q if case == "audit" else 0}
-    assert rec["cert_queries"] == n_q
-    assert TS.CERT_STATS["queries"] - before["queries"] == n_q
+    assert rec["cert_queries"] == cert
+    assert TS.CERT_STATS["queries"] - before["queries"] == cert
     for key, n in want.items():
         assert rec[key] == n, key
         assert TS.CERT_STATS[key] - before[key] == n, key
+    skipped = n_q - cert
+    assert rec["cert_skipped_queries"] == skipped
+    assert (TS.CERT_STATS["skipped_queries"]
+            - before["skipped_queries"]) == skipped
+    assert rec["chunks"] == (5 if case == "skipped" else 1)
     fallback = TS.CERT_STATS["fallback_queries"] - before["fallback_queries"]
-    assert fallback == {"tie-heavy": n_q, "random": 8, "audit": 0}[case]
+    assert fallback == {"tie-heavy": n_q, "random": 8, "audit": 0,
+                        "skipped": 0}[case]
 
 
 def test_the_ring_wraps_at_capacity():
@@ -252,7 +265,11 @@ def test_the_recorder_leaves_no_objects_to_collect(rng):
     qs = gauss(rng, 40, 16)
     for _ in range(5):
         client.search_batch("f", qs, k=4)
-    gc.collect()
+    # a collection untracks a tuple only once every tuple in it is
+    # untracked, in list order: the nested constants of modules the first
+    # requests imported can take a few full collections to settle
+    for _ in range(3):
+        gc.collect()
     n0 = len(gc.get_objects())
     for _ in range(50):
         client.search_batch("f", qs, k=4)
