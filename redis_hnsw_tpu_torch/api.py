@@ -55,6 +55,47 @@ if TYPE_CHECKING:
 DEFAULT_K = 5  # src/lib.rs:120
 
 
+class IndexLock:
+    """An index's lock: reentrant, serializing the index's mutations and
+    searches (the reference's per-index RwLock), with a count of the
+    callers that hold it or wait for it, kept exact under a small lock of
+    its own. ``with lock:``, or :meth:`acquire` where the caller wants
+    the count."""
+
+    __slots__ = ("_lock", "_count_lock", "_queued")
+
+    def __init__(self) -> None:
+        self._lock = threading.RLock()
+        self._count_lock = threading.Lock()
+        self._queued = 0
+
+    def acquire(self) -> int:
+        """Take the lock; returns how many other callers held it or
+        waited for it as this one began to wait."""
+        with self._count_lock:
+            ahead = self._queued
+            self._queued += 1
+        try:
+            self._lock.acquire()
+        except BaseException:
+            with self._count_lock:
+                self._queued -= 1
+            raise
+        return ahead
+
+    def release(self) -> None:
+        with self._count_lock:
+            self._queued -= 1
+        self._lock.release()
+
+    def __enter__(self) -> IndexLock:
+        self.acquire()
+        return self
+
+    def __exit__(self, et, ev, tb) -> None:
+        self.release()
+
+
 class HNSW:
     """A registry of named indexes -- the module-level INDICES equivalent."""
 
@@ -66,7 +107,7 @@ class HNSW:
         # operations on *different* indexes run concurrently (the
         # reference's per-index Arc<RwLock>, src/lib.rs:32-35).
         self._lock = threading.RLock()
-        self._index_locks: dict[str, threading.RLock] = {}
+        self._index_locks: dict[str, IndexLock] = {}
 
     def _entry(self, name: str):
         """Resolve (index, its lock) under the registry lock."""
@@ -118,7 +159,7 @@ class HNSW:
             else:
                 raise ValueError(f"unknown index kind: {kind!r}")
             self._indices[name] = idx
-            self._index_locks[name] = threading.RLock()
+            self._index_locks[name] = IndexLock()
             return idx
 
     def index(self, name: str):
@@ -213,7 +254,7 @@ class HNSW:
             if idx.name in self._indices:
                 raise IndexExists(idx.name)
             self._indices[idx.name] = idx
-            self._index_locks[idx.name] = threading.RLock()
+            self._index_locks[idx.name] = IndexLock()
         return idx
 
     # -- batched extensions -------------------------------------------------------
@@ -266,7 +307,7 @@ class HNSW:
         with profiling.request():
             idx, lk = self._entry(index)
             with profiling.span("lock_wait"):
-                lk.acquire()
+                profiling.count("lock_waiters", lk.acquire())
             try:
                 if isinstance(idx, FlatIndex):
                     # Flat indexes have no graph: "auto"/"scan" are the
@@ -293,12 +334,13 @@ class HNSW:
         """The newest ``n`` records of the request log (at most
         ``utils.profiling.RING_ROWS``, oldest first), one per
         ``search_batch`` call of any client of this process, as
-        ``{field: int64 array}``: the request's time, its lock wait, the
-        self time of each span of the serving path, the collector's
-        pauses, queries, chunks, the queries the certified tier served
-        and its fallback counts, those the exact tier served
-        (``exact_queries``), whether it failed (utils/profiling.py
-        ``FIELDS``; times in ns)."""
+        ``{field: int64 array}``: the request's time, its lock wait and
+        the callers ahead of it on the lock (``lock_waiters``), the self
+        time of each span of the serving path, the collector's pauses,
+        queries, chunks, the queries the certified tier served and its
+        fallback counts, those the exact tier served (``exact_queries``),
+        the query lanes its kernels computed (``scan_lanes``), whether it
+        failed (utils/profiling.py ``FIELDS``; times in ns)."""
         return profiling.recent(n)
 
 

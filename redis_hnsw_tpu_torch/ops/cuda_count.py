@@ -134,6 +134,7 @@ def count_gt_eq(vecs, sq_masked, q, qq, t):
             f"count_gt_eq kernel launch failed: CUDA error {err}"
         )
     count_gt_eq.launches += 1
+    cuda_scan.count_lanes("count_gt_eq", B)
     return c_gt, c_eq
 
 

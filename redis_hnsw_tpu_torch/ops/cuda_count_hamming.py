@@ -153,6 +153,7 @@ def count_hamming(queries, words, bias, t):
             f"count_hamming kernel launch failed: CUDA error {err}"
         )
     count_hamming.launches += 1
+    cuda_scan.count_lanes("count_hamming", B)
     return c_gt, c_eq
 
 

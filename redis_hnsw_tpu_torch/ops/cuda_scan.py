@@ -65,11 +65,37 @@ from collections import Counter
 
 import torch
 
+from ..utils import profiling
 from . import distance as D
 
 NEG_INF = float("-inf")
 
 TILE = 128  # queries, and rows, per block tile of kernels A and A′
+
+# Queries a block tile of each kernel whose grid tiles the queries (by
+# its CUDA source; A′ apart): a launch over B queries computes
+# ceil(B / tile) * tile query lanes, filled or not. Each equals the CUDA
+# constant its grid divides by (tests/test_torch_bench_clients.py reads
+# the sources).
+QUERY_TILE = {
+    "scan_topk": 128,          # A: l2_core.cuh TILE_Q
+    "scan_topk_hamming": 128,  # A′: hamming_mma.cuh TILE
+    "scan_lowp": 128,          # A-bf16, A-int8 general form: TILE
+    "scan_bf16": 128,          # A-bf16 wgmma form: Frame TILE_Q, 64 * CWG
+    "scan_int8": 128,          # A-int8 wgmma form: the same
+    "select_bins": 128,        # D: l2_core.cuh TILE_Q
+    "count_gt_eq": 128,        # B: l2_core.cuh TILE_Q
+    "count_hamming": 128,      # B′: count_hamming.cu QT
+}
+
+
+def count_lanes(kernel: str, B: int) -> None:
+    """Add the query lanes a launch of ``kernel`` over ``B`` queries
+    computed to the open request's ``scan_lanes`` (utils/profiling.py);
+    called by each wrapper once its kernel is launched on the card."""
+    tile = QUERY_TILE[kernel]
+    profiling.count("scan_lanes", -(-B // tile) * tile)
+
 
 # Rows scored per chunk by the plain version: bounds its [B, CHUNK_N]
 # score tile. The plain count (ops/cuda_count.py) chunks identically, so
@@ -278,6 +304,7 @@ def flat_topk(queries, vecs, sq_masked, qq, *, k: int):
     if err != 0:
         raise RuntimeError(f"scan_topk kernel launch failed: CUDA error {err}")
     flat_topk.launches += 1
+    count_lanes("scan_topk", B)
     return out_i, out_s
 
 
@@ -372,6 +399,7 @@ def flat_topk_hamming(queries, words, bias, *, k: int):
             f"scan_topk_hamming kernel launch failed: CUDA error {err}"
         )
     flat_topk_hamming.launches += 1
+    count_lanes("scan_topk_hamming", B)
     return out_i, out_s
 
 
@@ -668,10 +696,10 @@ def _launch_lowp(core, q, t, qq, qscale, sq_masked, tscale, k, form=None):
         return out_i, out_s, form
     if form == "wgmma":
         splits, _ = wgmma_plan(dev, B, N, core)
-        name = f"scan_{core} (wgmma form)"
+        name, kernel = f"scan_{core} (wgmma form)", f"scan_{core}"
     else:
         splits, _ = lowp_plan(dev, B, N, core)
-        name = f"scan_lowp {core} (general form)"
+        name, kernel = f"scan_lowp {core} (general form)", "scan_lowp"
     slabs = torch.empty((splits, B, _lib().scan_topk_slab_len(k), 2),
                         dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -700,6 +728,7 @@ def _launch_lowp(core, q, t, qq, qscale, sq_masked, tscale, k, form=None):
                 Dw * esize, k, splits, slabs.data_ptr(), *tail)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    count_lanes(kernel, B)
     return out_i, out_s, form
 
 

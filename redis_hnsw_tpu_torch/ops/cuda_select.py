@@ -44,7 +44,7 @@ from . import cuda_scan
 from . import distance as D
 
 BIN_L = 128
-TILE_Q = 128  # queries per block tile of the kernel
+TILE_Q = cuda_scan.QUERY_TILE["select_bins"]  # queries a block tile
 NEG_INF = float("-inf")
 
 _P = ctypes.c_void_p
@@ -175,6 +175,7 @@ def select_bins(vecs, sq_masked, q, qq):
     if err != 0:
         raise RuntimeError(f"select_bins kernel launch failed: CUDA error {err}")
     select_bins.launches += 1
+    cuda_scan.count_lanes("select_bins", B)
     return sims, ids, m2
 
 

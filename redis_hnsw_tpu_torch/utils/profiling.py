@@ -70,19 +70,25 @@ from ..config import resolve_device
 # tier served first-hand (``exact_queries``: kernel A or A′ alone, the
 # approx tier included; ops/scan.py ``serve_block`` and the flat kind's
 # whole-block path), the queries whose object reply ``build_reply`` made
-# (ops/search.py ``reply_objects``); ``failed`` 1 where the call raised,
-# ``profiled`` 1 where a torch.profiler recorded as it began;
-# ``start_ns`` its perf_counter_ns at entry.
+# (ops/search.py ``reply_objects``); ``lock_waiters``: the other callers
+# that held or waited for the index's lock as this one began to wait
+# (api.py ``IndexLock``); ``scan_lanes``: the query lanes the kernels
+# launched for it computed, ceil(B / tile) * tile a launch whose grid
+# tiles its B queries (ops/cuda_scan.py ``count_lanes``; none on the
+# CPU); ``failed`` 1 where the call raised, ``profiled`` 1 where a
+# torch.profiler recorded as it began; ``start_ns`` its perf_counter_ns
+# at entry.
 FIELDS = (
     "start_ns", "request_ns", "lock_wait_ns", "prepare_ns", "dispatch_ns",
     "card_wait_ns", "finish_ns", "rerun_ns", "assemble_ns", "gc_ns",
     "gc_in_assemble_ns", "gc_count", "gc_full", "queries", "chunks",
     "cert_queries", "whole_batch_queries", "cert_skipped_queries",
     "rerun_queries", "audit_queries", "exact_queries",
-    "native_reply_queries", "failed", "profiled",
+    "native_reply_queries", "lock_waiters", "scan_lanes", "failed",
+    "profiled",
 )
 COL = {name: i for i, name in enumerate(FIELDS)}
-# 65,536 records (~12 MB): a 40 s window of 1,000 requests a second
+# 65,536 records (~14 MB): a 40 s window of 1,000 requests a second
 RING_ROWS = 1 << 16
 
 _RING = np.zeros((RING_ROWS, len(FIELDS)), np.int64)
