@@ -38,14 +38,21 @@ CPU.
 
 from __future__ import annotations
 
+import collections
+import functools
 import os
 import threading
+from time import perf_counter_ns
 from typing import TYPE_CHECKING
+
+import numpy as np
+import torch
 
 from .config import IndexConfig, resolve_device
 from .errors import IndexExists, IndexNotFound
 from .models.flat import FlatIndex
 from .models.hnsw import HNSWIndex
+from .ops.cuda_scan import TILE
 from .parallel.sharded import ShardedHNSW
 from .utils import profiling
 
@@ -55,38 +62,186 @@ if TYPE_CHECKING:
 DEFAULT_K = 5  # src/lib.rs:120
 
 
-class IndexLock:
-    """An index's lock: reentrant, serializing the index's mutations and
-    searches (the reference's per-index RwLock), with a count of the
-    callers that hold it or wait for it, kept exact under a small lock of
-    its own. ``with lock:``, or :meth:`acquire` where the caller wants
-    the count."""
+class _Waiter:
+    """One thread's place in an index's queue, reused by each of its calls
+    (a thread waits on one lock at a time): its wake-up, a lock held while
+    the thread is not being woken, which the thread acquires to wait and
+    another releases to wake it; and, for a search that may join a
+    block, its request (``key``, ``qs``, ``n``) and what a holder left it
+    (``reply`` or ``error``, ``block``, ``taken_ns``). ``held`` is set
+    where it was handed the index's lock, ``members`` the requests it
+    then took."""
 
-    __slots__ = ("_lock", "_count_lock", "_queued")
+    __slots__ = ("ident", "wake", "key", "qs", "n", "held", "members",
+                 "reply", "error", "block", "taken_ns")
 
     def __init__(self) -> None:
-        self._lock = threading.RLock()
-        self._count_lock = threading.Lock()
+        self.ident = threading.get_ident()
+        self.wake = threading.Lock()
+        self.wake.acquire()
+        self.key = self.qs = self.reply = self.error = None
+        self.n = self.block = self.taken_ns = 0
+        self.held = False
+        self.members = ()
+
+    def result(self):
+        """The reply a holder left, or its error raised; clears both."""
+        reply, error = self.reply, self.error
+        self.reply = self.error = None
+        if error is not None:
+            raise error
+        return reply
+
+
+class _Waiters(threading.local):
+    def __init__(self) -> None:
+        self.w = _Waiter()
+
+
+_WAITERS = _Waiters()
+
+
+class IndexLock:
+    """An index's lock: reentrant, serializing the index's mutations and
+    searches (the reference's per-index RwLock), handed on in arrival
+    order, with a count of the callers that hold it or wait for it,
+    their queued requests included (``_queued``). ``with lock:``, or
+    :meth:`acquire` where the caller wants the count.
+
+    **The combining front** (:meth:`join`, :meth:`hand_out`): a search
+    that may share a pass with others queues its request; whoever is
+    next handed the lock as such a search takes every queued request of
+    its ``key``, in arrival order, while the block stays within one query
+    tile of kernel A (ops/cuda_scan.py ``TILE``), serves the block with
+    one search and hands each caller its rows, waking it; a served caller
+    never takes the lock. A caller that finds the lock free and no one
+    queued holds it at once. Writes queue as any caller does, so the
+    holder serves while it excludes them."""
+
+    __slots__ = ("_mutex", "_owner", "_depth", "_waiting", "_queued")
+
+    def __init__(self) -> None:
+        self._mutex = threading.Lock()
+        self._owner = None      # the holding thread's ident
+        self._depth = 0         # its holds, nested ones included
+        self._waiting: collections.deque = collections.deque()
         self._queued = 0
+
+    def owned(self) -> bool:
+        """Does the calling thread hold the lock?"""
+        return self._owner == threading.get_ident()
 
     def acquire(self) -> int:
         """Take the lock; returns how many other callers held it or
         waited for it as this one began to wait."""
-        with self._count_lock:
-            ahead = self._queued
-            self._queued += 1
-        try:
-            self._lock.acquire()
-        except BaseException:
-            with self._count_lock:
-                self._queued -= 1
-            raise
+        w = _WAITERS.w
+        ahead, held = self._ask(w, None)
+        if not held:
+            self._park(w)
         return ahead
 
-    def release(self) -> None:
-        with self._count_lock:
-            self._queued -= 1
-        self._lock.release()
+    def release(self, served: int = 0) -> None:
+        """Give up one hold (and the count of ``served`` requests a block
+        answered); the last hands the lock to the first in the queue."""
+        with self._mutex:
+            if self._owner != threading.get_ident():
+                raise RuntimeError("cannot release an index lock not held")
+            self._queued -= 1 + served
+            self._depth -= 1
+            if self._depth:
+                return
+            nxt = self._waiting.popleft() if self._waiting else None
+            self._owner = None
+            if nxt is not None:
+                self._owner, self._depth, nxt.held = nxt.ident, 1, True
+                if nxt.key is not None:
+                    nxt.members = self._take(nxt)
+        if nxt is not None:
+            nxt.wake.release()
+
+    def join(self, key, qs) -> tuple[int, _Waiter]:
+        """Queue the search request ``qs`` (``key`` says which requests
+        it may share a pass with) and wait until this caller holds the
+        lock (``held``, with the queued requests it took as ``members``)
+        or another caller's block has answered it (:meth:`_Waiter.result`).
+        Returns (the callers ahead as it began to wait, its waiter)."""
+        w = _WAITERS.w
+        w.qs, w.n = qs, int(qs.shape[0])
+        ahead, held = self._ask(w, key)
+        if not held:
+            self._park(w)
+        return ahead, w
+
+    def hand_out(self, w: _Waiter, parts, error) -> None:
+        """The holder ``w`` is done with its block: hand the lock on, then
+        each member its part of ``parts`` (the holder's own first) or the
+        block's ``error``, waking it."""
+        members, w.members, w.qs = w.members, (), None
+        self.release(served=len(members))
+        block = 1 + len(members)
+        for i, m in enumerate(members, 1):
+            m.qs = None
+            m.reply = None if parts is None else parts[i]
+            m.error = error if parts is None else None
+            m.block = block
+            m.wake.release()
+
+    def _ask(self, w: _Waiter, key) -> tuple[int, bool]:
+        """Count the caller in; hold the lock where it is already this
+        thread's, or free (no one then waits: a release hands it straight
+        on), else queue ``w`` with ``key``. Returns (callers ahead,
+        held)."""
+        with self._mutex:
+            ahead = self._queued
+            self._queued += 1
+            if self._owner == w.ident:
+                self._depth += 1
+                return ahead, True
+            if self._owner is None:
+                self._owner, self._depth = w.ident, 1
+                w.held, w.members = True, ()
+                return ahead, True
+            w.key, w.held, w.members = key, False, ()
+            self._waiting.append(w)
+            return ahead, False
+
+    def _take(self, w: _Waiter) -> list:
+        """Under the mutex: take from the queue, in arrival order, the
+        requests of ``w``'s key that fit beside it in one query tile."""
+        members, keep, total = [], collections.deque(), w.n
+        now = perf_counter_ns()
+        for x in self._waiting:
+            if x.key == w.key and total + x.n <= TILE:
+                total += x.n
+                x.taken_ns = now
+                members.append(x)
+            else:
+                keep.append(x)
+        self._waiting = keep
+        return members
+
+    def _park(self, w: _Waiter) -> None:
+        """Wait to be woken. Interrupted, leave the queue; or hand on the
+        lock handed over meanwhile, the requests taken with it queued
+        again first; or take the reply being made and drop it: the
+        waiter, the queue and the count stay sound."""
+        try:
+            w.wake.acquire()
+        except BaseException:
+            with self._mutex:
+                queued = w in self._waiting
+                if queued:
+                    self._waiting.remove(w)
+                    self._queued -= 1
+            if not queued:
+                w.wake.acquire()    # the wake-up already on its way
+                if w.held:
+                    with self._mutex:
+                        self._waiting.extendleft(reversed(w.members))
+                    w.members, w.qs = (), None
+                    self.release()
+                w.reply = w.error = None
+            raise
 
     def __enter__(self) -> IndexLock:
         self.acquire()
@@ -94,6 +249,51 @@ class IndexLock:
 
     def __exit__(self, et, ev, tb) -> None:
         self.release()
+
+
+def _alone(lk: IndexLock, serve, *args, **kw):
+    """``serve(*args, **kw)`` under the index's lock, a block of one."""
+    with profiling.span("lock_wait"):
+        profiling.count("lock_waiters", lk.acquire())
+    profiling.count("block_requests", 1)
+    try:
+        return serve(*args, **kw)
+    finally:
+        lk.release()
+
+
+def _in_block(lk: IndexLock, serve, qs, key):
+    """The reply to ``qs`` through ``lk``'s combining front: served by
+    another caller's block, or as the holder, with one ``serve`` of its
+    own queries and those of the requests it took, laid end to end."""
+    with profiling.span("lock_wait"):
+        ahead, w = lk.join(key, qs)
+        woke = perf_counter_ns()
+    profiling.count("lock_waiters", ahead)
+    if not w.held:
+        profiling.shift("lock_wait", "block_wait", woke - w.taken_ns)
+        profiling.count("block_requests", w.block)
+        return w.result()
+    members = w.members
+    profiling.count("block_requests", 1 + len(members))
+    parts = error = None
+    try:
+        if not members:
+            return serve(qs)
+        parts = [qs, *(m.qs for m in members)]
+        if isinstance(qs, torch.Tensor):
+            block = torch.cat(parts)
+        else:
+            block = np.concatenate(parts)
+        out = serve(block)
+        ends = np.cumsum([len(p) for p in parts])
+        parts = [out[lo:hi] for lo, hi in zip((0, *ends[:-1]), ends)]
+        return parts[0]
+    except BaseException as e:
+        parts, error = None, e
+        raise
+    finally:
+        lk.hand_out(w, parts, error)
 
 
 class HNSW:
@@ -302,32 +502,44 @@ class HNSW:
         queries on the host for REDIS_HNSW_TPU_REPLY=ids. Flat indexes
         reply with objects, as in the JAX package.
 
+        On a flat index, calls that queue on the index's lock at once
+        share a pass where they can (:class:`IndexLock`'s combining
+        front): those with equal ``k``, ``engine``, ``reply`` and
+        ``recall_target``, no ``host_qs``, and queries of one kind (host
+        arrays, or tensors on one device), up to one query tile of kernel
+        A in all. Each gets the reply to its own queries, as alone.
+
         Every call, a failed one too, writes one record of the request
-        log (:meth:`request_log`)."""
+        log (:meth:`request_log`); a block's work goes to the record of
+        the caller that served it."""
         with profiling.request():
             idx, lk = self._entry(index)
-            with profiling.span("lock_wait"):
-                profiling.count("lock_waiters", lk.acquire())
-            try:
-                if isinstance(idx, FlatIndex):
-                    # Flat indexes have no graph: "auto"/"scan" are the
-                    # exact scan, "scan-approx" the approx tier; "graph"
-                    # is a user error, not a silent fallback.
-                    if engine not in ("auto", "scan", "scan-approx"):
-                        raise ValueError(
-                            f"engine {engine!r} unavailable on flat indexes"
-                        )
-                    return idx.search_batch(
-                        queries, k, approx=engine == "scan-approx",
-                        recall_target=recall_target, host_qs=host_qs,
-                    )
-                return idx.search_batch(
-                    queries, k, ef_search=ef_search, expand=expand,
-                    iters=iters, engine=engine, reply=reply, seeds=seeds,
-                    recall_target=recall_target, host_qs=host_qs,
+            if not isinstance(idx, FlatIndex):
+                return _alone(lk, idx.search_batch, queries, k,
+                              ef_search=ef_search, expand=expand,
+                              iters=iters, engine=engine, reply=reply,
+                              seeds=seeds, recall_target=recall_target,
+                              host_qs=host_qs)
+            # Flat indexes have no graph: "auto"/"scan" are the exact
+            # scan, "scan-approx" the approx tier; "graph" is a user
+            # error, not a silent fallback.
+            if engine not in ("auto", "scan", "scan-approx"):
+                raise ValueError(
+                    f"engine {engine!r} unavailable on flat indexes"
                 )
-            finally:
-                lk.release()
+            serve = functools.partial(
+                idx.search_batch, k=k, approx=engine == "scan-approx",
+                recall_target=recall_target,
+            )
+            if host_qs is not None or lk.owned():
+                return _alone(lk, serve, queries, host_qs=host_qs)
+            with profiling.span("prepare"):
+                qs = idx.coerce_queries(queries)
+            if qs.shape[0] > TILE:
+                return _alone(lk, serve, qs)
+            kind = qs.device if isinstance(qs, torch.Tensor) else "host"
+            return _in_block(lk, serve, qs,
+                             (k, engine, reply, recall_target, kind))
 
     @staticmethod
     def request_log(n: int = 128) -> dict:
@@ -335,7 +547,9 @@ class HNSW:
         ``utils.profiling.RING_ROWS``, oldest first), one per
         ``search_batch`` call of any client of this process, as
         ``{field: int64 array}``: the request's time, its lock wait and
-        the callers ahead of it on the lock (``lock_waiters``), the self
+        the callers ahead of it on the lock (``lock_waiters``), its wait
+        inside another caller's block (``block_wait_ns``) and the
+        requests that block answered (``block_requests``), the self
         time of each span of the serving path, the collector's pauses,
         queries, chunks, the queries the certified tier served and its
         fallback counts, those the exact tier served (``exact_queries``),

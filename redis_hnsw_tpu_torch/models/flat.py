@@ -106,6 +106,16 @@ class FlatIndex:
             raise DimensionMismatch(got)
         return arr
 
+    def coerce_queries(self, queries):
+        """``queries`` as :meth:`search_batch` serves them (ops/search.py
+        ``coerce_queries``). The table's dtype and width never change, so
+        this reads nothing a write guards: callers may coerce before they
+        hold the index's lock."""
+        from ..ops.search import coerce_queries
+
+        return coerce_queries(queries, self._vectors.dtype,
+                              self._vectors.shape[1], self.config.metric)
+
     def add_node(self, name: str, data) -> None:
         if not name:
             raise HNSWError("node name must be non-empty")
@@ -295,7 +305,6 @@ class FlatIndex:
         from ..ops import scan as SC
         from ..ops.search import (
             assemble,
-            coerce_queries,
             empty_reply,
             resolve_engine,
             scan_block,
@@ -308,10 +317,7 @@ class FlatIndex:
                 resolve_engine("auto", recall_target) == "scan-approx"
             )
         with profiling.span("prepare"):
-            qs = coerce_queries(
-                queries, self._vectors.dtype, self._vectors.shape[1],
-                self.config.metric,
-            )
+            qs = self.coerce_queries(queries)
             profiling.count("queries", qs.shape[0])
             if self.node_count == 0:
                 return empty_reply(qs.shape[0], k, reply)

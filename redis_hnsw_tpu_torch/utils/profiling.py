@@ -55,7 +55,9 @@ from ..config import resolve_device
 
 # The record's fields, int64 each. Times in ns: ``request_ns`` from entry
 # to return, then the self time of each span of that name
-# (``lock_wait``: asking for the per-index lock to holding it;
+# (``lock_wait``: asking for the per-index lock to holding it, or to a
+# holder taking the request into its block; ``block_wait``: from then
+# until the block's holder handed its rows over, api.py ``IndexLock``;
 # ``prepare``: the queries coerced and the device tables or snapshot;
 # ``dispatch``: the chunks' dispatch halves and their windows' copies
 # queued; ``card_wait``: the host blocked on the card; ``finish``: the
@@ -72,24 +74,27 @@ from ..config import resolve_device
 # whole-block path), the queries whose object reply ``build_reply`` made
 # (ops/search.py ``reply_objects``); ``lock_waiters``: the other callers
 # that held or waited for the index's lock as this one began to wait
-# (api.py ``IndexLock``); ``scan_lanes``: the query lanes the kernels
-# launched for it computed, ceil(B / tile) * tile a launch whose grid
-# tiles its B queries (ops/cuda_scan.py ``count_lanes``; none on the
-# CPU); ``failed`` 1 where the call raised, ``profiled`` 1 where a
-# torch.profiler recorded as it began; ``start_ns`` its perf_counter_ns
-# at entry.
+# (api.py ``IndexLock``); ``block_requests``: the requests the one
+# search that served this one answered, this one included (1 where it
+# was served alone; api.py ``HNSW.search_batch``); ``scan_lanes``: the
+# query lanes the kernels launched for it computed, ceil(B / tile) *
+# tile a launch whose grid tiles its B queries (ops/cuda_scan.py
+# ``count_lanes``; none on the CPU); ``failed`` 1 where the call
+# raised, ``profiled`` 1 where a torch.profiler recorded as it began;
+# ``start_ns`` its perf_counter_ns at entry.
 FIELDS = (
-    "start_ns", "request_ns", "lock_wait_ns", "prepare_ns", "dispatch_ns",
-    "card_wait_ns", "finish_ns", "rerun_ns", "assemble_ns", "gc_ns",
-    "gc_in_assemble_ns", "gc_count", "gc_full", "queries", "chunks",
+    "start_ns", "request_ns", "lock_wait_ns", "block_wait_ns", "prepare_ns",
+    "dispatch_ns", "card_wait_ns", "finish_ns", "rerun_ns", "assemble_ns",
+    "gc_ns", "gc_in_assemble_ns", "gc_count", "gc_full", "queries", "chunks",
     "cert_queries", "whole_batch_queries", "cert_skipped_queries",
     "rerun_queries", "audit_queries", "exact_queries",
-    "native_reply_queries", "lock_waiters", "scan_lanes", "failed",
-    "profiled",
+    "native_reply_queries", "lock_waiters", "block_requests", "scan_lanes",
+    "failed", "profiled",
 )
 COL = {name: i for i, name in enumerate(FIELDS)}
-# 65,536 records (~14 MB): a 40 s window of 1,000 requests a second
-RING_ROWS = 1 << 16
+# 262,144 records (~59 MB of zero pages, made once): a 40 s window of
+# 6,500 requests a second
+RING_ROWS = 1 << 18
 
 _RING = np.zeros((RING_ROWS, len(FIELDS)), np.int64)
 _ZERO = (0,) * len(FIELDS)
@@ -208,6 +213,21 @@ def count(field: str, n: int) -> None:
         st.rec[COL[field]] += n
 
 
+def shift(src: str, dst: str, ns: int) -> None:
+    """Move ``ns`` of span ``src``'s self time to span ``dst`` (one more
+    closing of it), in the open record and the registry: a wait that one
+    wake-up ends, split at a moment another thread marked."""
+    a, b = span(src), span(dst)
+    st = _TLS.s
+    if st.depth:
+        st.rec[a.col] -= ns
+        st.rec[b.col] += ns
+    with _LOCK:
+        a.ns -= ns
+        b.ns += ns
+        b.n += 1
+
+
 def totals() -> dict:
     """{span name: (self ns, times closed)} over the process's life."""
     with _LOCK:
@@ -222,7 +242,9 @@ def gc_totals() -> dict:
 
 
 def _on_gc(phase: str, info: dict) -> None:
-    st = _TLS.s
+    st = getattr(_TLS, "s", None)
+    if st is None:  # set off while this thread's state was being made
+        return
     if phase == "start":
         if _profiling():
             st.gc_ann = _annotation(f"hnsw.gc.{info['generation']}")

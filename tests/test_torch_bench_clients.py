@@ -19,7 +19,7 @@ import pytest
 import torch
 
 import redis_hnsw_tpu_torch as T
-from bench_gpu import run, spec
+from bench_gpu import request_log, run, spec
 from bench_gpu.loops import clients as loop_clients
 from bench_gpu.loops import closed as loop_closed
 from bench_gpu.record import Run
@@ -29,7 +29,7 @@ from redis_hnsw_tpu_torch.utils import profiling as P
 
 CELL = "gist960.clients"
 CSRC = os.path.join(os.path.dirname(T.__file__), "csrc")
-READERS = ("lock_wait_ms", "lock_waiters", "lane_fill_pct")
+READERS = ("lock_wait_ms", "lock_waiters", "lane_fill_pct", "block_requests")
 JOIN_S = 60.0
 
 
@@ -291,18 +291,42 @@ def one_record(monkeypatch, drop=None, **counts):
 
 @pytest.mark.parametrize("name,field", [("lock_wait_ms", "lock_wait_ns"),
                                         ("lock_waiters", "lock_waiters"),
-                                        ("lane_fill_pct", "scan_lanes")])
+                                        ("lane_fill_pct", "scan_lanes"),
+                                        ("block_requests", "block_requests")])
 def test_readers_read_the_record_and_give_none_without_it(monkeypatch, name,
                                                           field):
     reader = spec.load_file(spec.metric_path(name), "t_" + name)
     r = one_record(monkeypatch, queries=1, lock_wait_ns=2_500_000,
-                   lock_waiters=31, scan_lanes=128)
+                   lock_waiters=31, scan_lanes=128, block_requests=16)
     assert reader.read(r) == pytest.approx(
         {"lock_wait_ms": 2.5, "lock_waiters": 31.0,
-         "lane_fill_pct": 100 / 128}[name])
+         "lane_fill_pct": 100 / 128, "block_requests": 16.0}[name])
     r = one_record(monkeypatch, drop=field, queries=1, lock_waiters=31,
-                   scan_lanes=128)
+                   scan_lanes=128, block_requests=16)
     assert reader.read(r) is None
+
+
+def test_a_window_above_65536_requests_reads():
+    """A 40 s window of ~2,000 single-query requests a second (more than
+    the 65,536 records the ring held before the combining front) fits in
+    the ring: the window reads, and so do its readers. One more request
+    than the ring holds, and it reads None."""
+    n = 80_000
+    assert P.RING_ROWS >= n
+    for i in range(n):
+        with P.request():
+            P.count("queries", 1 if i % 4 == 0 else 0)
+            P.count("block_requests", 4)
+            P.count("lock_waiters", 30)
+    r = Run(setup_s=1.0, window_s=40.0, latencies_s=[1e-3] * n,
+            answered_queries=n // 4, live_rows=1, mem_peak_bytes=None)
+    log = request_log.window(r)
+    assert log is not None and len(log["queries"]) == n
+    for name, want in (("block_requests", 4.0), ("lock_waiters", 30.0)):
+        reader = spec.load_file(spec.metric_path(name), "t_w_" + name)
+        assert reader.read(r) == want
+    r.latencies_s = [1e-3] * (P.RING_ROWS + 1)
+    assert request_log.window(r) is None
 
 
 # -- the cell and its loop ------------------------------------------------------
